@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass or the script exits non-zero:
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the build time;
+2. hold every kernel against its plain PyTorch version on the card, at the
+   main path's shapes and a ragged block, over every variant, with the
+   tolerance stated beside each check;
+3. time each kernel, its plain version, the nearest single PyTorch call and
+   the least time the card could take (CUDA events over 20 CUDA-graph replays,
+   so host launch overhead is left out; the eager per-call time is kept
+   beside it);
+4. ``solve_single`` at n = 185, f64 (the paper's larger grid), for the four
+   detection modes with the hybrid sweep, Jacobi, and the unfused baseline:
+   each run must converge with the exact residual of its result under ε̃;
+5. the stacked shard runtime at n = 150, f64, p = 6: blocking must follow
+   the synchronous reference trajectory, and non-blocking (heterogeneous
+   Jacobi shards, and hybrid) and recursive doubling (p = 2) must detect
+   with no false detection;
+6. print one JSON line of per-kernel numbers, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
+
+The kernels' launch counters are set to 0 just before phases 4–5 (the main
+path) and read just after; every kernel must show launches there.  Needs
+CUDA: without a card, or without the repository's ``src/`` beside it, the
+script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+EPS_TILDE = 1e-6
+INF = float("inf")
+SOLVER_N = 185                        # the paper's larger grid (EXPERIMENTS.md)
+SHARD_N = 150                         # the paper's smaller grid
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_F64_FLOPS = 34e12               # H100 SXM data sheet, f64 outside the tensor cores
+
+# shapes the main path gives the kernels: the 185³ single-device grid, the
+# 25×150×150 block of one of 6 shards at n = 150, and a ragged block
+SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "ragged": (13, 37, 19)}
+# stated tolerances, relative to the largest magnitude of the plain result:
+# f64 blocks differ by FMA contraction only; f32 sums differ by summation
+# order (at most ~150 sequential adds per thread, then a tree)
+TOL = {("block", "f64"): 1e-12, ("block", "f32"): 1e-5, ("block", "bf16"): 1e-5,
+       ("max", "f64"): 1e-6, ("max", "f32"): 1e-5, ("max", "bf16"): 1e-6,
+       ("sum", "f64"): 2e-5, ("sum", "f32"): 2e-5, ("sum", "bf16"): 2e-5}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def _time_ms(fn, calls: int = 10, reps: int = 20):
+    """``(device_ms, call_ms)`` per call of ``fn``.
+
+    ``device_ms`` is the device's time alone: ``calls`` calls are captured
+    in a CUDA graph, and the median of ``reps`` timed replays (CUDA events)
+    is divided by ``calls``.  ``call_ms`` is the time per call when the host
+    issues them back to back, launch overhead included — what a Python
+    loop pays."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(calls):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    call_ms = ev[0].elapsed_time(ev[1]) / calls
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    device_ms = statistics.median(s.elapsed_time(e) for s, e in evs) / calls
+    del graph
+    torch.cuda.empty_cache()
+    return device_ms, call_ms
+
+
+class Checker:
+    """Holds each kernel against its plain version, raising on the first
+    output beyond its tolerance; keeps the largest absolute error per
+    (kernel, output) and the largest relative one per kernel."""
+
+    def __init__(self):
+        self.abs_err = {}
+        self.rel_err = {}
+        self.of_tol = {}   # largest error as a share of its tolerance
+
+    def __call__(self, kernel: str, what: str, kind: str, dt: str, got, want):
+        g, w = got.double(), want.double()
+        _require(bool(g.isfinite().all()), f"{kernel} {what}: non-finite output")
+        err = float((g - w).abs().max())
+        scale = max(float(w.abs().max()), 1e-30)
+        tol = TOL[(kind, dt)]
+        out = "block" if kind == "block" else "partials"
+        self.abs_err[kernel, out] = max(self.abs_err.get((kernel, out), 0.0), err)
+        self.rel_err[kernel] = max(self.rel_err.get(kernel, 0.0), err / scale)
+        self.of_tol[kernel] = max(self.of_tol.get(kernel, 0.0), err / (tol * scale))
+        _require(err <= tol * scale,
+                 f"{kernel} {what}: max|Δ| {err:.3e} > {tol:g} × {scale:.3e}")
+
+
+def check_kernels(st, dev, check: Checker) -> None:
+    import torch
+
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ref as jref
+    from repro_torch.kernels.residual_norm import ref as rref
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(shape, dtype):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 2 - 1
+
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    n_cases = 0
+    for sname, (bx, by, bz) in SHAPES.items():
+        for dt, dtype in dtypes.items():
+            g = rand((bx + 2, by + 2, bz + 2), dtype)
+            g2 = rand((bx + 4, by + 4, bz + 2), dtype)
+            b = rand((bx, by, bz), dtype)
+            for linf in (True, False):
+                red = "max" if linf else "sum"
+                for op in ("sweep", "residual"):
+                    got = jk.fused_sweep_residual(g, b, st.coefs, op=op, linf=linf)
+                    want = jref.fused_sweep_residual_ref(g, b, st.coefs, op=op, linf=linf)
+                    tag = f"{sname} {dt} op={op} {red}"
+                    check("fused_sweep_residual", tag + " block", "block", dt, got[0], want[0])
+                    check("fused_sweep_residual", tag + " partials", red, dt, got[1], want[1])
+                    n_cases += 1
+                for ox, oy in ((0, 0), (3, 5), (0, 1)):
+                    got = jk.fused_rbgs_sweep_residual(g2, b, st.coefs, ox + oy, linf=linf)
+                    want = jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, ox + oy,
+                                                              linf=linf)
+                    tag = f"{sname} {dt} phase=({ox},{oy}) {red}"
+                    check("fused_rbgs_sweep_residual", tag + " block", "block", dt,
+                          got[0], want[0])
+                    check("fused_rbgs_sweep_residual", tag + " partials", red, dt,
+                          got[1], want[1])
+                    n_cases += 1
+        for dt, dtype in (*dtypes.items(), ("bf16", torch.bfloat16)):
+            a, c = rand((bx, by, bz), dtype), rand((bx, by, bz), dtype)
+            for linf in (True, False):
+                red = "max" if linf else "sum"
+                check("diff_norm_partials", f"{sname} {dt} {red}", red, dt,
+                      rk.diff_norm_partials(a, c, linf=linf),
+                      rref.diff_norm_partials_ref(a, c, linf=linf))
+                n_cases += 1
+    # f64 update differences near 1e-13 must survive the cast to f32
+    a = 1.0 + rand(SHAPES["shard"], torch.float64)
+    c = a + 1e-13 * rand(SHAPES["shard"], torch.float64)
+    for linf in (True, False):
+        red = "max" if linf else "sum"
+        got = rk.diff_norm_partials(a, c, linf=linf)
+        _require(bool((got > 0).all()), "diff_norm_partials: tiny f64 differences lost")
+        check("diff_norm_partials", f"tiny-f64 {red}", red, "f64", got,
+              rref.diff_norm_partials_ref(a, c, linf=linf))
+        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"kernels vs plain: {n_cases} cases within tolerance")
+    for k, v in check.rel_err.items():
+        print(f"  {k}: max relative error {v:.2e}; worst case at {check.of_tol[k]:.3f} "
+              f"of its tolerance (tolerances: blocks f64 1e-12, f32 1e-5; max "
+              f"partials 1e-6/1e-5; sum partials 2e-5)")
+
+
+def time_kernels(st, dev) -> dict:
+    """Per-kernel times at the main-path shapes (f64, l∞)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ops as jops
+    from repro_torch.kernels.jacobi3d import ref as jref
+    from repro_torch.kernels.residual_norm import ref as rref
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f64 = torch.float64
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f64) * 2 - 1
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F64_FLOPS
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    # the nearest single PyTorch call for the stencils: the off-diagonal
+    # apply alone as a 3-D convolution (it computes less than the kernels)
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=f64, device=dev)
+    w[0, 0, 0, 1, 1], w[0, 0, 2, 1, 1] = st.xm, st.xp
+    w[0, 0, 1, 0, 1], w[0, 0, 1, 2, 1] = st.ym, st.yp
+    w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = st.zm, st.zp
+
+    out = {}
+    for name, shape in (("main", SHAPES["main"]), ("shard", SHAPES["shard"])):
+        bx, by, bz = shape
+        cells = bx * by * bz
+        x, b = rand(shape), rand(shape)
+        ghosts = (rand((by, bz)), rand((by, bz)), rand((bx, bz)), rand((bx, bz)))
+        g, g2 = jops.ghost_pad1(x, ghosts), jops.ghost_pad2(x, ghosts)
+        _, _, nx, ny = jref.tile_grid(bx, by, jref.DEFAULT_TILE)
+        gin = g[None, None]
+        fns = {
+            "fused_sweep_residual": (
+                lambda: jk.fused_sweep_residual(g, b, st.coefs),
+                lambda: jref.fused_sweep_residual_ref(g, b, st.coefs),
+                lambda: F.conv3d(gin, w),
+                bound(8 * (g.numel() + 2 * cells) + 4 * nx * ny, 18 * cells)),
+            "fused_rbgs_sweep_residual": (
+                lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0),
+                lambda: jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0),
+                lambda: F.conv3d(gin, w),
+                bound(8 * (g2.numel() + 2 * cells) + 4 * nx * ny, 25 * cells)),
+            "diff_norm_partials": (
+                lambda: rk.diff_norm_partials(x, b),
+                lambda: rref.diff_norm_partials_ref(x, b),
+                lambda: torch.dist(x, b, INF),
+                bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells)),
+        }
+        rows = {}
+        for k, (kern, plain, lib, (bound_ms, bound_by)) in fns.items():
+            (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
+            rows[k] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(f"time {k} at {bx}x{by}x{bz} f64: kernel {ms:.4f} ms (eager call "
+                  f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out[name] = rows
+        del x, b, g, g2, gin
+    return out
+
+
+def _launches():
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+
+    return {**jk.LAUNCHES, **rk.LAUNCHES}
+
+
+def _run(label, fn, st, b):
+    """One main-path run: wall time and the kernel launches it made."""
+    import torch
+
+    before = _launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in _launches().items()}
+    return (label, st, b, r, wall, used)
+
+
+def run_solver(dev) -> list:
+    """Phase 4: ``solve_single`` at n = 185, f64, quickstart settings."""
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.solvers.convdiff import Stencil, make_rhs
+    from repro_torch.solvers.fixed_point import SolverConfig, solve_single
+
+    n = SOLVER_N
+    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
+    runs = [(m, "hybrid", True) for m in ("sync", "pfait", "nfais2", "nfais5")]
+    runs += [("pfait", "jacobi", True), ("pfait", "hybrid", False)]
+    results = []
+    for mode, sweep, fuse in runs:
+        mon = detection.for_mode(mode, eps_tilde=EPS_TILDE, margin=10.0,
+                                 staleness=0 if mode == "sync" else 4,
+                                 persistence=4, ord=INF)
+        cfg = SolverConfig(stencil=st, monitor=mon, inner_sweeps=2, max_outer=50_000,
+                           sweep=sweep, use_kernel=True, fuse_residual=fuse)
+        results.append(_run(f"{mode}/{sweep}/{'fused' if fuse else 'unfused'}",
+                            lambda: solve_single(cfg, b, device=dev), st, b))
+    return results
+
+
+def run_shards(dev) -> list:
+    """Phase 5: the stacked shard runtime at n = 150, f64, p = 6 (and p = 2)."""
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.runtime import shard_runtime as sr
+    from repro_torch.solvers.convdiff import Stencil, make_rhs
+
+    n = SHARD_N
+    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
+    x0 = torch.zeros_like(b)
+    mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    cells = [
+        ("blocking/jacobi p=6", 6, sr.ShardRuntimeConfig(
+            monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
+        ("nonblocking/jacobi p=6 hetero", 6, sr.ShardRuntimeConfig(
+            monitor=mon, reduction="nonblocking", max_outer=5000,
+            inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
+            contrib_lag=(0, 1, 0, 1, 0, 0))),
+        ("nonblocking/hybrid p=6", 6, sr.ShardRuntimeConfig(
+            monitor=mon, reduction="nonblocking", sweep="hybrid", max_outer=5000)),
+        ("rdoubling/jacobi p=2", 2, sr.ShardRuntimeConfig(
+            monitor=mon, reduction="rdoubling", max_outer=5000)),
+    ]
+    return [_run(name, lambda: sr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b),
+                 st, b) for name, p, cfg in cells]
+
+
+def exact_residual(st, x, b):
+    """max|b − A x| of a global state, through the residual kernel."""
+    from repro_torch.kernels.jacobi3d import ops as jops
+    from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
+
+    return float(jops.residual_contribution(st, ghosted(x, _zero_ghosts(x)), b, ord=INF))
+
+
+def verify_runs(solver_runs, shard_runs) -> None:
+    """r* < ε̃ for every run (no false detection); blocking follows the
+    synchronous reference trajectory."""
+    from repro_torch.runtime import shard_runtime as sr
+    from repro_torch.solvers import jacobi
+    from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
+
+    name, st, b, r, _, _ = solver_runs[0]
+    plain = float(jacobi.residual_block(st, ghosted(r.x, _zero_ghosts(r.x)), b).abs().max())
+    kern = exact_residual(st, r.x, b)
+    _require(abs(kern - plain) <= 1e-6 * plain,
+             f"exact residual: kernel {kern:.6e} vs plain {plain:.6e}")
+    for name, st, b, r, wall, used in solver_runs + shard_runs:
+        r_star = exact_residual(st, r.x, b)
+        print(f"run {name}: converged={r.converged} outer={r.outer_iters} "
+              f"detected={float(r.residual):.3e} exact r*={r_star:.3e} "
+              f"wall={wall:.3f} s launches={json.dumps(used)}")
+        _require(r.converged, f"{name}: did not converge")
+        _require(r_star < EPS_TILDE, f"{name}: false detection, r* {r_star:.3e} >= ε̃")
+    name, st, b, r, _, _ = shard_runs[0]
+    T = r.outer_iters
+    ref = sr.convdiff_reference_trace(st, b, T, ord=INF)
+    err = float(((r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
+    print(f"{name}: trace vs synchronous reference over {T} steps, max rel {err:.3e} "
+          "(tolerance 5e-5)")
+    _require(err <= 5e-5, f"{name}: trace departs from the reference ({err:.3e})")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+KERNELS = {
+    "fused_sweep_residual": ("src/repro_torch/csrc/jacobi3d.cu",
+                             "src/repro/kernels/jacobi3d/jacobi3d.py:453"),
+    "fused_rbgs_sweep_residual": ("src/repro_torch/csrc/jacobi3d.cu",
+                                  "src/repro/kernels/jacobi3d/jacobi3d.py:131"),
+    "diff_norm_partials": ("src/repro_torch/csrc/residual_norm.cu",
+                           "src/repro/kernels/residual_norm/residual_norm.py:34"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+    from repro_torch.solvers.convdiff import Stencil
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({len(logs)} sources compiled)")
+    for line in "\n".join(logs).splitlines():
+        if "registers" in line or "spill" in line:
+            print("ptxas:", line.strip())
+
+    st = Stencil.for_contraction(SOLVER_N, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+    check = Checker()
+    check_kernels(st, dev, check)
+    times = time_kernels(st, dev)
+    print(nvidia_smi())  # the card and power limit the times were taken at
+
+    # the main path: launch counters from 0 just before, read just after
+    jk.reset_launches()
+    rk.reset_launches()
+    solver_runs = run_solver(dev)
+    shard_runs = run_shards(dev)
+    torch.cuda.synchronize()
+    launches = {**jk.LAUNCHES, **rk.LAUNCHES}
+    print("main-path launches:", json.dumps(launches))
+    verify_runs(solver_runs, shard_runs)
+    for k, v in launches.items():
+        _require(v > 0, f"{k}: not launched on the main path")
+
+    rows = []
+    for k, (source, replaces) in KERNELS.items():
+        t = times["main"][k]
+        # the swept block's error for the stencils, the partials' for #5;
+        # the shard-size times are on the "time ..." lines above
+        out = "partials" if k == "diff_norm_partials" else "block"
+        rows.append(dict(
+            name=k, route="cuda", source=source, replaces=replaces,
+            launches=launches[k], max_abs_err=check.abs_err[k, out],
+            max_abs_err_of=out, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape="185x185x185 f64"))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,132 @@
+"""Dispatch layer of the jacobi3d kernels — the solvers' entry points on the
+card, and on the CPU when ``SolverConfig.use_kernel`` is set.
+
+Each entry does its own ghost assembly from ``(x, ghosts)`` — the Jacobi
+kernel wants the ±1 ghosted layout, the hybrid RB-GS kernel the ±2 one —
+so a caller pays exactly one assembly per sweep.  ``sweep_with_contribution``
+is the fused hot path: one assembly + one kernel launch yields both the
+swept block and the detection layer's local contribution (the residual of
+the *input* state).  The kernel wrappers pick the device: CPU tensors run
+the plain versions, CUDA tensors the kernels.
+
+``PASS_COUNTS`` counts calls per entry kind so tests can check that the
+solver drivers make the expected number of grid passes (in particular: no
+residual-only second pass on the fused path).  The JAX package counts at
+trace time; PyTorch runs eagerly, so here every call counts.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.jacobi3d.jacobi3d import (
+    fused_rbgs_sweep_residual,
+    fused_sweep_residual,
+)
+from repro_torch.kernels.jacobi3d.ref import DEFAULT_TILE
+from repro_torch.solvers.convdiff import Stencil
+
+PASS_COUNTS: Dict[str, int] = {"sweep": 0, "fused": 0, "residual": 0}
+
+
+def reset_pass_counts() -> None:
+    for k in PASS_COUNTS:
+        PASS_COUNTS[k] = 0
+
+
+def _linf(ord: float) -> bool:
+    """The kernels reduce max|r| (l∞) or Σr² (l2) only."""
+    if np.isinf(ord):
+        return True
+    if float(ord) == 2.0:
+        return False
+    raise ValueError(f"the jacobi3d kernels support ord 2 or inf, got {ord}")
+
+
+# ---------------------------------------------------------------------------
+# Ghost assembly (z ghosts = Dirichlet BC = 0)
+# ---------------------------------------------------------------------------
+
+
+def ghost_pad1(x: torch.Tensor, ghosts) -> torch.Tensor:
+    """(bx+2, by+2, bz+2) ghosted block from interior + 4 (x,y) face planes
+    ``(gxm, gxp, gym, gyp)``."""
+    gxm, gxp, gym, gyp = ghosts
+    bx, by, bz = x.shape
+    g = x.new_zeros((bx + 2, by + 2, bz + 2))
+    g[1:-1, 1:-1, 1:-1] = x
+    g[0, 1:-1, 1:-1] = gxm
+    g[-1, 1:-1, 1:-1] = gxp
+    g[1:-1, 0, 1:-1] = gym
+    g[1:-1, -1, 1:-1] = gyp
+    return g
+
+
+def ghost_pad2(x: torch.Tensor, ghosts) -> torch.Tensor:
+    """(bx+4, by+4, bz+2) twice-padded block for the RB-GS kernel: ghosts sit
+    one ring in; the outermost ring is never read."""
+    gxm, gxp, gym, gyp = ghosts
+    bx, by, bz = x.shape
+    g = x.new_zeros((bx + 4, by + 4, bz + 2))
+    g[2:-2, 2:-2, 1:-1] = x
+    g[1, 2:-2, 1:-1] = gxm
+    g[-2, 2:-2, 1:-1] = gxp
+    g[2:-2, 1, 1:-1] = gym
+    g[2:-2, -2, 1:-1] = gyp
+    return g
+
+
+# ---------------------------------------------------------------------------
+# Fused sweep + residual partials (single implementation, two public faces)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_impl(st: Stencil, x, ghosts, b, sweep, ox, oy, tile, linf):
+    """One relaxation sweep fused with the input-state residual partials."""
+    if sweep == "jacobi":
+        return fused_sweep_residual(ghost_pad1(x, ghosts), b, st.coefs,
+                                    tile=tile, op="sweep", linf=linf)
+    if sweep != "hybrid":
+        raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
+    return fused_rbgs_sweep_residual(ghost_pad2(x, ghosts), b, st.coefs,
+                                     int(ox) + int(oy), tile=tile, linf=linf)
+
+
+def sweep(st: Stencil, x: torch.Tensor, ghosts, b: torch.Tensor,
+          sweep: str = "jacobi", ox: int = 0, oy: int = 0,
+          tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
+    """Sweep-only entry (inner sweeps that don't feed detection; the
+    kernel's partials are discarded)."""
+    PASS_COUNTS["sweep"] += 1
+    new, _ = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, True)
+    return new
+
+
+def sweep_with_contribution(st: Stencil, x: torch.Tensor, ghosts,
+                            b: torch.Tensor, sweep: str = "jacobi",
+                            ox: int = 0, oy: int = 0,
+                            ord: float = float("inf"),
+                            tile: Tuple[int, int] = DEFAULT_TILE):
+    """Fused hot path: ``(new_block, contrib)`` in one assembly + one pass.
+
+    ``contrib`` is the pre-σ local contribution (max|r| for l∞, Σr² for l2)
+    of the *input* state's residual — one sweep staler than a dedicated
+    post-sweep pass, which the detection layer tolerates by design."""
+    PASS_COUNTS["fused"] += 1
+    linf = _linf(ord)
+    new, parts = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, linf)
+    return new, (parts.amax() if linf else parts.sum())
+
+
+def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
+                          ord: float = float("inf"),
+                          tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
+    """Residual-only pass over a ±1 ghosted block (unfused baseline path,
+    NFAIS2's exact verification and blocking mode's barrier pass)."""
+    PASS_COUNTS["residual"] += 1
+    linf = _linf(ord)
+    _, parts = fused_sweep_residual(g, b, st.coefs, tile=tile, op="residual",
+                                    linf=linf)
+    return parts.amax() if linf else parts.sum()

@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the jacobi3d kernels (same inputs, same outputs).
+
+The CPU path of every wrapper in ``jacobi3d.py`` and what the CUDA kernels
+are held against on the card."""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.solvers import gauss_seidel, jacobi
+from repro_torch.solvers.convdiff import Stencil
+
+#: (tx, ty) column tile of the (x, y) plane.  On the H100 the kernels run
+#: one 256-thread block per tile; (4, 8) gives 47 × 24 = 1128 blocks at a
+#: 185² plane and 7 × 19 = 133 at a 25 × 150 shard plane, so every one of
+#: the 132 SMs gets work (the TPU's (8, 128) gives 24 × 2 = 48 at 185²).
+DEFAULT_TILE: Tuple[int, int] = (4, 8)
+
+
+def tile_grid(bx: int, by: int, tile: Tuple[int, int]) -> Tuple[int, int, int, int]:
+    """``(tx, ty, nx, ny)``: the tile clipped to the block and the number of
+    tiles per axis (a ragged last tile counts as one)."""
+    if min(tile) < 1:
+        raise ValueError(f"tile {tile} must be positive")
+    tx, ty = min(tile[0], bx), min(tile[1], by)
+    return tx, ty, -(-bx // tx), -(-by // ty)
+
+
+def residual_partials(r: torch.Tensor, tile: Tuple[int, int] = DEFAULT_TILE,
+                      linf: bool = True) -> torch.Tensor:
+    """Per-(x,y)-tile f32 partials of a residual block, ``[nx, ny]``:
+    ``max|r|`` (linf) or ``Σr²`` squared in r's type and then cast.  A
+    ragged edge tile covers what is left of the block."""
+    bx, by, bz = r.shape
+    tx, ty, nx, ny = tile_grid(bx, by, tile)
+    rp = F.pad(r, (0, 0, 0, ny * ty - by, 0, nx * tx - bx))  # zeros change neither
+    rt = rp.reshape(nx, tx, ny, ty, bz)
+    if linf:
+        return rt.abs().amax(dim=(1, 3, 4)).to(torch.float32)
+    return (rt * rt).to(torch.float32).sum(dim=(1, 3, 4))
+
+
+def fused_sweep_residual_ref(g: torch.Tensor, b: torch.Tensor,
+                             coefs: Sequence[float],
+                             tile: Tuple[int, int] = DEFAULT_TILE,
+                             op: str = "sweep", linf: bool = True):
+    """Jacobi sweep (``op="sweep"``) or the unchanged field
+    (``op="residual"``) of a ±1 ghosted block, with the input state's
+    residual partials."""
+    st = Stencil(*coefs)
+    if op == "sweep":
+        new, r = jacobi.jacobi_sweep_residual(st, g, b)
+    else:
+        new, r = g[1:-1, 1:-1, 1:-1], jacobi.residual_block(st, g, b)
+    return new, residual_partials(r, tile=tile, linf=linf)
+
+
+def fused_rbgs_sweep_residual_ref(g2: torch.Tensor, b: torch.Tensor,
+                                  coefs: Sequence[float], oxy: int,
+                                  tile: Tuple[int, int] = DEFAULT_TILE,
+                                  linf: bool = True):
+    """Hybrid red-black GS sweep of a twice-padded block (``ghost_pad2``
+    layout) with the input state's residual partials: the ±1 ghosted block
+    is ``g2[1:-1, 1:-1]``, and the checkerboard phase is ``oxy = ox + oy``."""
+    new, r = gauss_seidel.redblack_gs_sweep_residual(
+        Stencil(*coefs), g2[1:-1, 1:-1], b, oxy, 0)
+    return new, residual_partials(r, tile=tile, linf=linf)

@@ -1,0 +1,104 @@
+"""Tests that need the card: each CUDA kernel against its plain version, and
+the main path on the card against the same run on the CPU.
+
+They import nothing of JAX, so they run on a machine with a GPU and no JAX
+(``tests/conftest.py`` imports JAX, hence ``--noconftest``)::
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Elsewhere each test skips, deciding inside the test.  Tolerances: f64
+blocks 1e-12 (FMA contraction), f32 blocks 1e-5, f32 partial sums 2e-5
+relative (summation order); solves on the card and on the CPU must take the
+same number of outer iterations and agree to 1e-10 in x.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import detection
+from repro_torch.kernels.jacobi3d import jacobi3d as tk
+from repro_torch.kernels.jacobi3d import ref as tref
+from repro_torch.kernels.residual_norm import ref as trn_ref
+from repro_torch.kernels.residual_norm import residual_norm as trk
+from repro_torch.runtime import shard_runtime as tsr
+from repro_torch.solvers import fixed_point as tfp
+from repro_torch.solvers.convdiff import Stencil, make_rhs
+
+INF = float("inf")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(card):
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(0)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        b = torch.rand((13, 37, 19), generator=gen, device=card, dtype=dtype)
+        g = torch.rand((15, 39, 21), generator=gen, device=card, dtype=dtype)
+        g2 = torch.rand((17, 41, 21), generator=gen, device=card, dtype=dtype)
+        for linf in (True, False):
+            for op in ("sweep", "residual"):
+                got = tk.fused_sweep_residual(g, b, st.coefs, op=op, linf=linf)
+                want = tref.fused_sweep_residual_ref(g, b, st.coefs, op=op, linf=linf)
+                torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+                torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
+            for oxy in (0, 1):
+                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, linf=linf)
+                want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy, linf=linf)
+                torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+                torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
+            torch.testing.assert_close(
+                trk.diff_norm_partials(g, g.flip(0), block=4096, linf=linf),
+                trn_ref.diff_norm_partials_ref(g, g.flip(0), block=4096, linf=linf),
+                rtol=2e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep,fuse", [("hybrid", True), ("jacobi", True),
+                                        ("hybrid", False)])
+@pytest.mark.parametrize("mode", ["pfait", "nfais2"])
+def test_solve_single_on_card_matches_cpu(card, mode, sweep, fuse):
+    n = 12
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode(mode, eps_tilde=1e-6, margin=10.0, staleness=3,
+                             persistence=3, ord=INF)
+    cfg = tfp.SolverConfig(stencil=st, monitor=mon, inner_sweeps=2, max_outer=2000,
+                           sweep=sweep, use_kernel=True, fuse_residual=fuse)
+    b = make_rhs(n, seed=0)
+    tk.reset_launches()
+    gpu = tfp.solve_single(cfg, b, device=card)
+    assert sum(tk.LAUNCHES.values()) >= 2 * gpu.outer_iters
+    cpu = tfp.solve_single(cfg, b, device="cpu")
+    assert gpu.converged and gpu.outer_iters == cpu.outer_iters
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduction,sweep", [("nonblocking", "jacobi"),
+                                             ("nonblocking", "hybrid"),
+                                             ("blocking", "jacobi"),
+                                             ("rdoubling", "jacobi")])
+def test_shard_runtime_on_card_matches_cpu(card, reduction, sweep):
+    n, p = 12, 4
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode("pfait", eps_tilde=1e-6, margin=10.0, ord=INF)
+    knobs = {} if reduction == "blocking" else dict(
+        inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 2, 1), contrib_lag=(0, 1, 0, 1))
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, sweep=sweep,
+                                 max_outer=2000, trace_len=64, **knobs)
+    b = make_rhs(n, seed=0)
+    x0 = np.zeros_like(b)
+    trk.reset_launches()
+    gpu = tsr.make_convdiff_runtime(cfg, p, st, n, device=card)(x0, b)
+    cpu = tsr.make_convdiff_runtime(cfg, p, st, n, device="cpu")(x0, b)
+    assert gpu.converged and gpu.outer_iters == cpu.outer_iters
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
+    if reduction != "blocking" and sweep == "jacobi":
+        assert trk.LAUNCHES["diff_norm_partials"] == p * gpu.outer_iters
