@@ -17,17 +17,23 @@ Phases, each of which must pass or the script exits non-zero:
 4. ``solve_single`` at n = 185, f64 (the paper's larger grid), for the four
    detection modes with the hybrid sweep, Jacobi, and the unfused baseline:
    each run must converge with the exact residual of its result under ε̃;
-5. the stacked shard runtime at n = 150, f64, p = 6: blocking must follow
-   the synchronous reference trajectory, and non-blocking (heterogeneous
-   Jacobi shards, and hybrid) and recursive doubling (p = 2) must detect
-   with no false detection;
-6. print one JSON line of per-kernel numbers, the card's name and power
+5. the stacked 1-D shard runtime at n = 150, f64, p = 6: blocking must
+   follow the synchronous reference trajectory, and non-blocking
+   (heterogeneous Jacobi shards, and hybrid) and recursive doubling (p = 2)
+   must detect with no false detection;
+6. the mesh shard runtime at n = 150, f64, on the paper's (3, 2) process
+   grid and a (2, 2, 2) mesh: blocking must follow the synchronous
+   reference trajectory, comm overlap must be bitwise equal to no overlap
+   under heterogeneous knobs, and non-blocking hybrid, recursive doubling
+   and NFAIS2 must detect with no false detection;
+7. print one JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-The kernels' launch counters are set to 0 just before phases 4–5 (the main
-path) and read just after; every kernel must show launches there.  Needs
-CUDA: without a card, or without the repository's ``src/`` beside it, the
-script exits non-zero and prints no result.
+Phases 4, 5 and 6 are the main paths.  The kernels' launch counters are set
+to 0 just before each of them and read just after; every kernel of a path
+must show launches there.  Needs CUDA: without a card, or without the
+repository's ``src/`` beside it, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -49,6 +55,10 @@ PEAK_F64_FLOPS = 34e12               # H100 SXM data sheet, f64 outside the tens
 # shapes the main path gives the kernels: the 185³ single-device grid, the
 # 25×150×150 block of one of 6 shards at n = 150, and a ragged block
 SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "ragged": (13, 37, 19)}
+# and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
+# n = 150, the 185³ grid, the ragged block and an overlap face slab
+HALO_SHAPES = {"mesh32": (50, 75, 150), "mesh222": (75, 75, 75), "main": (185, 185, 185),
+               "ragged": (13, 37, 19), "slab": (1, 75, 150)}
 # stated tolerances, relative to the largest magnitude of the plain result:
 # f64 blocks differ by FMA contraction only; f32 sums differ by summation
 # order (at most ~150 sequential adds per thread, then a tree)
@@ -177,6 +187,35 @@ def check_kernels(st, dev, check: Checker) -> None:
                       rk.diff_norm_partials(a, c, linf=linf),
                       rref.diff_norm_partials_ref(a, c, linf=linf))
                 n_cases += 1
+    for sname, (bx, by, bz) in HALO_SHAPES.items():
+        for dt, dtype in dtypes.items():
+            x, b = rand((bx, by, bz), dtype), rand((bx, by, bz), dtype)
+            h = [rand(s, dtype) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz),
+                                           (bx, by), (bx, by))]
+            for linf in (True, False):
+                red = "max" if linf else "sum"
+                for op in ("sweep", "residual"):
+                    got = jk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, linf=linf)
+                    want = jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, op=op,
+                                                              linf=linf)
+                    tag = f"{sname} {dt} op={op} {red}"
+                    check("fused_sweep_residual_halo", tag + " block", "block", dt,
+                          got[0], want[0])
+                    check("fused_sweep_residual_halo", tag + " partials", red, dt,
+                          got[1], want[1])
+                    n_cases += 1
+                for oxyz in (0, 1, 5):
+                    got = jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz,
+                                                            linf=linf)
+                    want = jref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz,
+                                                                   linf=linf)
+                    tag = f"{sname} {dt} oxyz={oxyz} {red}"
+                    check("fused_rbgs_sweep_residual_halo", tag + " block", "block", dt,
+                          got[0], want[0])
+                    check("fused_rbgs_sweep_residual_halo", tag + " partials", red, dt,
+                          got[1], want[1])
+                    n_cases += 1
+            del x, b, h
     # f64 update differences near 1e-13 must survive the cast to f32
     a = 1.0 + rand(SHAPES["shard"], torch.float64)
     c = a + 1e-13 * rand(SHAPES["shard"], torch.float64)
@@ -192,7 +231,8 @@ def check_kernels(st, dev, check: Checker) -> None:
     for k, v in check.rel_err.items():
         print(f"  {k}: max relative error {v:.2e}; worst case at {check.of_tol[k]:.3f} "
               f"of its tolerance (tolerances: blocks f64 1e-12, f32 1e-5; max "
-              f"partials 1e-6/1e-5; sum partials 2e-5)")
+              f"partials 1e-6/1e-5; sum partials 2e-5); max abs error of the block "
+              f"{check.abs_err.get((k, 'block'), 0.0):.3e}")
 
 
 def time_kernels(st, dev) -> dict:
@@ -205,6 +245,7 @@ def time_kernels(st, dev) -> dict:
     from repro_torch.kernels.jacobi3d import ref as jref
     from repro_torch.kernels.residual_norm import ref as rref
     from repro_torch.kernels.residual_norm import residual_norm as rk
+    from repro_torch.solvers.fixed_point import ghosted6
 
     gen = torch.Generator(device=dev).manual_seed(1)
     f64 = torch.float64
@@ -223,7 +264,44 @@ def time_kernels(st, dev) -> dict:
     w[0, 0, 1, 0, 1], w[0, 0, 1, 2, 1] = st.ym, st.yp
     w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = st.zm, st.zp
 
+    def timed(k, shape, fns):
+        kern, plain, lib, (bound_ms, bound_by) = fns
+        (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
+        print(f"time {k} at {'x'.join(map(str, shape))} f64: kernel {ms:.4f} ms (eager "
+              f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
     out = {}
+    for name in ("main", "mesh32", "mesh222"):
+        bx, by, bz = shape = HALO_SHAPES[name]
+        cells = bx * by * bz
+        x, b = rand(shape), rand(shape)
+        h = [rand(s) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
+        _, _, nx, ny = jref.tile_grid(bx, by, jref.DEFAULT_TILE)
+        # x, b and the new block, the six planes, the partials
+        nbytes = 8 * (3 * cells + sum(p.numel() for p in h)) + 4 * nx * ny
+        # the library call: the off-diagonal apply as a convolution of the
+        # ghosted block, its assembly left out
+        gin = ghosted6(x, h)[None, None]
+        rows = out.setdefault(name, {})
+        rows["fused_sweep_residual_halo"] = timed("fused_sweep_residual_halo", shape, (
+            lambda: jk.fused_sweep_residual_halo(x, h, b, st.coefs),
+            lambda: jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs),
+            lambda: F.conv3d(gin, w), bound(nbytes, 18 * cells)))
+        rows["fused_rbgs_sweep_residual_halo"] = timed(
+            "fused_rbgs_sweep_residual_halo", shape, (
+                lambda: jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, 1),
+                lambda: jref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, 1),
+                lambda: F.conv3d(gin, w), bound(nbytes, 25 * cells)))
+        # what the halo kernel saves: assembling the ghosted block first
+        # (ghost_pad1, the 1-D path's assembly) and sweeping it with #1
+        pad_ms, pad_call_ms = _time_ms(
+            lambda: jk.fused_sweep_residual(jops.ghost_pad1(x, h[:4]), b, st.coefs))
+        print(f"time ghost_pad1 + fused_sweep_residual at {bx}x{by}x{bz} f64: "
+              f"{pad_ms:.4f} ms (eager call {pad_call_ms:.4f} ms)")
+        del x, b, h, gin
     for name, shape in (("main", SHAPES["main"]), ("shard", SHAPES["shard"])):
         bx, by, bz = shape
         cells = bx * by * bz
@@ -249,15 +327,9 @@ def time_kernels(st, dev) -> dict:
                 lambda: torch.dist(x, b, INF),
                 bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells)),
         }
-        rows = {}
-        for k, (kern, plain, lib, (bound_ms, bound_by)) in fns.items():
-            (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
-            rows[k] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-            print(f"time {k} at {bx}x{by}x{bz} f64: kernel {ms:.4f} ms (eager call "
-                  f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        out[name] = rows
+        rows = out.setdefault(name, {})
+        for k, fn in fns.items():
+            rows[k] = timed(k, shape, fn)
         del x, b, g, g2, gin
     return out
 
@@ -267,6 +339,14 @@ def _launches():
     from repro_torch.kernels.residual_norm import residual_norm as rk
 
     return {**jk.LAUNCHES, **rk.LAUNCHES}
+
+
+def _reset_launches():
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+
+    jk.reset_launches()
+    rk.reset_launches()
 
 
 def _run(label, fn, st, b):
@@ -337,6 +417,43 @@ def run_shards(dev) -> list:
                  st, b) for name, p, cfg in cells]
 
 
+MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
+                  contrib_lag=(0, 1, 0, 1, 0, 0))
+
+
+def run_mesh(dev) -> list:
+    """Phase 6: the mesh shard runtime at n = 150, f64."""
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.runtime import shard_runtime as sr
+    from repro_torch.solvers.convdiff import Stencil, make_rhs
+
+    n = SHARD_N
+    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
+    x0 = torch.zeros_like(b)
+    mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    nfais2 = detection.for_mode("nfais2", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    cells = [
+        ("(a) mesh (3,2) blocking/jacobi", (3, 2), sr.ShardRuntimeConfig(
+            monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
+        ("(b) mesh (3,2) nonblocking/jacobi hetero", (3, 2), sr.ShardRuntimeConfig(
+            monitor=mon, max_outer=5000, trace_len=5000, **MESH_KNOBS)),
+        ("(b) mesh (3,2) nonblocking/jacobi hetero overlap", (3, 2), sr.ShardRuntimeConfig(
+            monitor=mon, max_outer=5000, trace_len=5000, overlap=True, **MESH_KNOBS)),
+        ("(c) mesh (2,2,2) nonblocking/hybrid delay", (2, 2, 2), sr.ShardRuntimeConfig(
+            monitor=mon, sweep="hybrid", max_outer=5000,
+            halo_delay=(0, 1, 0, 2, 0, 1, 0, 1))),
+        ("(d) mesh (2,2,2) rdoubling/jacobi", (2, 2, 2), sr.ShardRuntimeConfig(
+            monitor=mon, reduction="rdoubling", max_outer=5000)),
+        ("(e) mesh (3,2) nfais2/jacobi", (3, 2), sr.ShardRuntimeConfig(
+            monitor=nfais2, max_outer=5000)),
+    ]
+    return [_run(name, lambda: sr.make_convdiff_runtime(cfg, mesh, st, n, device=dev)(x0, b),
+                 st, b) for name, mesh, cfg in cells]
+
+
 def exact_residual(st, x, b):
     """max|b − A x| of a global state, through the residual kernel."""
     from repro_torch.kernels.jacobi3d import ops as jops
@@ -345,10 +462,24 @@ def exact_residual(st, x, b):
     return float(jops.residual_contribution(st, ghosted(x, _zero_ghosts(x)), b, ord=INF))
 
 
-def verify_runs(solver_runs, shard_runs) -> None:
-    """r* < ε̃ for every run (no false detection); blocking follows the
-    synchronous reference trajectory."""
+def _check_trace(run) -> None:
+    """A blocking run follows the synchronous reference trajectory."""
     from repro_torch.runtime import shard_runtime as sr
+
+    name, st, b, r, _, _ = run
+    T = r.outer_iters
+    ref = sr.convdiff_reference_trace(st, b, T, ord=INF)
+    err = float(((r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
+    print(f"{name}: trace vs synchronous reference over {T} steps, max rel {err:.3e} "
+          "(tolerance 5e-5)")
+    _require(err <= 5e-5, f"{name}: trace departs from the reference ({err:.3e})")
+
+
+def verify_runs(solver_runs, shard_runs, mesh_runs) -> None:
+    """r* < ε̃ for every run (no false detection); blocking follows the
+    synchronous reference trajectory; comm overlap is bitwise no overlap."""
+    import torch
+
     from repro_torch.solvers import jacobi
     from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
 
@@ -357,20 +488,26 @@ def verify_runs(solver_runs, shard_runs) -> None:
     kern = exact_residual(st, r.x, b)
     _require(abs(kern - plain) <= 1e-6 * plain,
              f"exact residual: kernel {kern:.6e} vs plain {plain:.6e}")
-    for name, st, b, r, wall, used in solver_runs + shard_runs:
+    for name, st, b, r, wall, used in solver_runs + shard_runs + mesh_runs:
         r_star = exact_residual(st, r.x, b)
         print(f"run {name}: converged={r.converged} outer={r.outer_iters} "
               f"detected={float(r.residual):.3e} exact r*={r_star:.3e} "
               f"wall={wall:.3f} s launches={json.dumps(used)}")
         _require(r.converged, f"{name}: did not converge")
         _require(r_star < EPS_TILDE, f"{name}: false detection, r* {r_star:.3e} >= ε̃")
-    name, st, b, r, _, _ = shard_runs[0]
-    T = r.outer_iters
-    ref = sr.convdiff_reference_trace(st, b, T, ord=INF)
-    err = float(((r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
-    print(f"{name}: trace vs synchronous reference over {T} steps, max rel {err:.3e} "
-          "(tolerance 5e-5)")
-    _require(err <= 5e-5, f"{name}: trace departs from the reference ({err:.3e})")
+    _check_trace(shard_runs[0])
+    _check_trace(mesh_runs[0])
+    (name0, _, _, r0, wall0, _), (name1, _, _, r1, wall1, _) = mesh_runs[1:3]
+    same = (r0.outer_iters == r1.outer_iters and torch.equal(r0.x, r1.x)
+            and torch.equal(r0.trace, r1.trace))
+    print(f"overlap vs no overlap, (3,2) hetero: outer {r1.outer_iters} / {r0.outer_iters}, "
+          f"x and trace bitwise equal: {same}; wall {wall1:.3f} / {wall0:.3f} s")
+    _require(same, "comm overlap is not bitwise equal to no overlap")
+    name1d, _, _, r1d, wall1d, _ = shard_runs[1]
+    print(f"wall, same knobs at n = {SHARD_N}: mesh (3,2) {wall0:.3f} s for "
+          f"{r0.outer_iters} steps ({1e3 * wall0 / r0.outer_iters:.3f} ms/step) vs 1-D p = 6 "
+          f"{wall1d:.3f} s for {r1d.outer_iters} steps "
+          f"({1e3 * wall1d / r1d.outer_iters:.3f} ms/step)")
 
 
 def nvidia_smi() -> str:
@@ -387,7 +524,19 @@ KERNELS = {
                                   "src/repro/kernels/jacobi3d/jacobi3d.py:131"),
     "diff_norm_partials": ("src/repro_torch/csrc/residual_norm.cu",
                            "src/repro/kernels/residual_norm/residual_norm.py:34"),
+    "fused_sweep_residual_halo": ("src/repro_torch/csrc/jacobi3d_halo.cu",
+                                  "src/repro/kernels/jacobi3d/jacobi3d.py:368"),
+    "fused_rbgs_sweep_residual_halo": ("src/repro_torch/csrc/jacobi3d_halo.cu",
+                                       "src/repro/kernels/jacobi3d/jacobi3d.py:412"),
 }
+# the main paths (phases 4–6) and the kernels each must launch
+PATHS = (
+    ("solve_single", run_solver, ("fused_sweep_residual", "fused_rbgs_sweep_residual")),
+    ("1-D shard runtime", run_shards,
+     ("fused_sweep_residual", "fused_rbgs_sweep_residual", "diff_norm_partials")),
+    ("mesh shard runtime", run_mesh,
+     ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")),
+)
 
 
 def main() -> int:
@@ -402,8 +551,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.jacobi3d import jacobi3d as jk
-    from repro_torch.kernels.residual_norm import residual_norm as rk
     from repro_torch.solvers.convdiff import Stencil
 
     dev = torch.device("cuda", 0)
@@ -424,23 +571,25 @@ def main() -> int:
     times = time_kernels(st, dev)
     print(nvidia_smi())  # the card and power limit the times were taken at
 
-    # the main path: launch counters from 0 just before, read just after
-    jk.reset_launches()
-    rk.reset_launches()
-    solver_runs = run_solver(dev)
-    shard_runs = run_shards(dev)
-    torch.cuda.synchronize()
-    launches = {**jk.LAUNCHES, **rk.LAUNCHES}
-    print("main-path launches:", json.dumps(launches))
-    verify_runs(solver_runs, shard_runs)
-    for k, v in launches.items():
-        _require(v > 0, f"{k}: not launched on the main path")
+    # the main paths: launch counters from 0 just before each, read just after
+    runs, launches = [], dict.fromkeys(KERNELS, 0)
+    for path, fn, kernels in PATHS:
+        _reset_launches()
+        runs.append(fn(dev))
+        torch.cuda.synchronize()
+        used = _launches()
+        print(f"main-path launches, {path}:", json.dumps(used))
+        for k in kernels:
+            _require(used[k] > 0, f"{k}: not launched on the {path} path")
+        for k in launches:
+            launches[k] += used[k]
+    verify_runs(*runs)
 
     rows = []
     for k, (source, replaces) in KERNELS.items():
         t = times["main"][k]
         # the swept block's error for the stencils, the partials' for #5;
-        # the shard-size times are on the "time ..." lines above
+        # the other shapes' times are on the "time ..." lines above
         out = "partials" if k == "diff_norm_partials" else "block"
         rows.append(dict(
             name=k, route="cuda", source=source, replaces=replaces,

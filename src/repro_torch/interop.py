@@ -1,10 +1,11 @@
 """Carry the JAX package's configuration and state across to the port.
 
 The solver has no learned weights: what a JAX run is made of is its
-stencil, its monitor / solver / shard-runtime configs and its arrays.  The
-readers below take any object with the JAX classes' fields (they read
-attributes only, so this module imports nothing of the JAX package) and
-build the port's frozen dataclasses; ``tensor_from`` moves arrays.
+stencil, its monitor / solver / shard-runtime configs, its mesh partition
+and its arrays.  The readers below take any object with the JAX classes'
+fields (they read attributes only, so this module imports nothing of the
+JAX package) and build the port's frozen dataclasses; ``tensor_from``
+moves arrays.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.core.detection import MonitorConfig
 from repro_torch.runtime.shard_runtime import ShardRuntimeConfig
 from repro_torch.solvers.convdiff import Stencil
 from repro_torch.solvers.fixed_point import SolverConfig
+from repro_torch.solvers.partition import MeshPartition
 
 
 def stencil_from(obj) -> Stencil:
@@ -45,17 +47,22 @@ def _per_shard_field(v):
 
 
 def shard_config_from(obj) -> ShardRuntimeConfig:
-    """The 1-D runtime's config; a multi-axis mesh or comm overlap has no
-    counterpart in the port yet and is refused."""
-    if getattr(obj, "mesh_shape", None) is not None or getattr(obj, "overlap", False):
-        raise ValueError("the port's shard runtime is 1-D without overlap")
+    """The shard runtime's config, mesh shape and comm overlap included."""
+    mesh_shape = getattr(obj, "mesh_shape", None)
     return ShardRuntimeConfig(
         monitor=monitor_from(obj.monitor), reduction=str(obj.reduction),
         inner_sweeps=_per_shard_field(obj.inner_sweeps),
         halo_delay=_per_shard_field(obj.halo_delay),
         contrib_lag=_per_shard_field(obj.contrib_lag),
         max_outer=int(obj.max_outer), trace_len=int(obj.trace_len),
-        sweep=str(obj.sweep))
+        sweep=str(obj.sweep),
+        mesh_shape=None if mesh_shape is None else tuple(int(s) for s in mesh_shape),
+        overlap=bool(getattr(obj, "overlap", False)))
+
+
+def partition_from(obj) -> MeshPartition:
+    """The port's ``MeshPartition`` of the same grid and mesh shape."""
+    return MeshPartition(int(obj.n), tuple(int(s) for s in obj.shape))
 
 
 def tensor_from(array, device: DeviceLike = None,

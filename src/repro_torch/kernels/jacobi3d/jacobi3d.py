@@ -1,4 +1,6 @@
-"""Wrappers of the fused sweep + residual CUDA kernels (``csrc/jacobi3d.cu``).
+"""Wrappers of the fused sweep + residual CUDA kernels: the ghosted-block
+sweeps (``csrc/jacobi3d.cu``) and their halo-consuming twins, which take an
+unghosted block and six face planes (``csrc/jacobi3d_halo.cu``).
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches (only
@@ -15,18 +17,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import DBL, INT, PTR
 from repro_torch.kernels.jacobi3d.ref import (
     DEFAULT_TILE,
+    fused_rbgs_sweep_residual_halo_ref,
     fused_rbgs_sweep_residual_ref,
+    fused_sweep_residual_halo_ref,
     fused_sweep_residual_ref,
     tile_grid,
 )
 
 LAUNCHES: Dict[str, int] = {"fused_sweep_residual": 0,
-                            "fused_rbgs_sweep_residual": 0}
+                            "fused_rbgs_sweep_residual": 0,
+                            "fused_sweep_residual_halo": 0,
+                            "fused_rbgs_sweep_residual_halo": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-# (g, b, out, parts, bx, by, bz, tx, ty, flag, linf, 7 coefs, stream)
-_SIG = (PTR,) * 4 + (INT,) * 7 + (DBL,) * 7 + (PTR,)
-_SIGNATURES = {f"{k}_{s}": _SIG for k in LAUNCHES for s in _SUFFIX.values()}
+_PLANES = ("gxm", "gxp", "gym", "gyp", "gzm", "gzp")
+# per source: its kernels and their C signature, (the block's inputs: g, or
+# x and the six planes; b, out, parts, bx, by, bz, tx, ty, flag, linf,
+# 7 coefs, stream)
+_SOURCES = {
+    "jacobi3d": (("fused_sweep_residual", "fused_rbgs_sweep_residual"),
+                 (PTR,) * 4 + (INT,) * 7 + (DBL,) * 7 + (PTR,)),
+    "jacobi3d_halo": (("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo"),
+                      (PTR,) * 10 + (INT,) * 7 + (DBL,) * 7 + (PTR,)),
+}
+_SOURCE_OF = {k: src for src, (kernels, _) in _SOURCES.items() for k in kernels}
+_SIGNATURES = {src: {f"{k}_{s}": sig for k in kernels for s in _SUFFIX.values()}
+               for src, (kernels, sig) in _SOURCES.items()}
 
 
 def reset_launches() -> None:
@@ -34,9 +50,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _validate(g: torch.Tensor, b: torch.Tensor, pad: Tuple[int, int, int]):
+def _check_block(b: torch.Tensor) -> None:
     if b.dim() != 3 or min(b.shape) < 1:
         raise ValueError(f"b must be a non-empty 3-D block, got {tuple(b.shape)}")
+
+
+def _validate(g: torch.Tensor, b: torch.Tensor, pad: Tuple[int, int, int]):
+    _check_block(b)
     want = tuple(n + p for n, p in zip(b.shape, pad))
     if tuple(g.shape) != want:
         raise ValueError(f"ghosted block has shape {tuple(g.shape)}, want {want}")
@@ -46,14 +66,34 @@ def _validate(g: torch.Tensor, b: torch.Tensor, pad: Tuple[int, int, int]):
         raise ValueError("kernel inputs must be contiguous")
 
 
-def _launch(kernel: str, g, b, out: Optional[torch.Tensor], tile, flag: int,
-            linf: bool, coefs: Sequence[float]) -> torch.Tensor:
+def _planes(halos, b: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The six face planes ``(gxm, gxp, gym, gyp, gzm, gzp)`` checked
+    against the block ``[bx, by, bz]`` — x-planes ``[by, bz]``, y-planes
+    ``[bx, bz]``, z-planes ``[bx, by]`` — and cast to its dtype, contiguous."""
+    _check_block(b)
+    if len(halos) != 6:
+        raise ValueError(f"need the six face planes {_PLANES}, got {len(halos)}")
+    bx, by, bz = b.shape
+    want = ((by, bz),) * 2 + ((bx, bz),) * 2 + ((bx, by),) * 2
+    for name, h, w in zip(_PLANES, halos, want):
+        if tuple(h.shape) != w:
+            raise ValueError(f"face plane {name} has shape {tuple(h.shape)}, want {w}")
+        if not h.is_floating_point():
+            raise TypeError(f"face plane {name} must be floating point, got {h.dtype}")
+    return tuple(h.to(b.dtype).contiguous() for h in halos)
+
+
+def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Tensor],
+            tile, flag: int, linf: bool, coefs: Sequence[float]) -> torch.Tensor:
+    """Launch ``kernel`` on the block's inputs ``ins`` (``g``, or ``x`` and
+    the six planes) and the rhs ``b``; returns the partials ``[nx, ny]``."""
     bx, by, bz = b.shape
     tx, ty, nx, ny = tile_grid(bx, by, tile)
     parts = torch.empty((nx, ny), dtype=torch.float32, device=b.device)
-    fn = getattr(_build.load("jacobi3d", _SIGNATURES), f"{kernel}_{_SUFFIX[b.dtype]}")
+    source = _SOURCE_OF[kernel]
+    fn = getattr(_build.load(source, _SIGNATURES[source]), f"{kernel}_{_SUFFIX[b.dtype]}")
     with torch.cuda.device(b.device):
-        err = fn(g.data_ptr(), b.data_ptr(),
+        err = fn(*(t.data_ptr() for t in ins), b.data_ptr(),
                  None if out is None else out.data_ptr(), parts.data_ptr(),
                  bx, by, bz, tx, ty, flag, int(linf), *map(float, coefs),
                  torch.cuda.current_stream(b.device).cuda_stream)
@@ -79,7 +119,7 @@ def fused_sweep_residual(g: torch.Tensor, b: torch.Tensor,
         return fused_sweep_residual_ref(g, b, coefs, tile=tile, op=op, linf=linf)
     _validate(g, b, (2, 2, 2))
     out = torch.empty_like(b) if op == "sweep" else None
-    parts = _launch("fused_sweep_residual", g, b, out, tile, int(op == "sweep"),
+    parts = _launch("fused_sweep_residual", (g,), b, out, tile, int(op == "sweep"),
                     linf, coefs)
     return (g[1:-1, 1:-1, 1:-1] if out is None else out), parts
 
@@ -97,6 +137,49 @@ def fused_rbgs_sweep_residual(g2: torch.Tensor, b: torch.Tensor,
                                              linf=linf)
     _validate(g2, b, (4, 4, 2))
     out = torch.empty_like(b)
-    parts = _launch("fused_rbgs_sweep_residual", g2, b, out, tile, int(oxy),
+    parts = _launch("fused_rbgs_sweep_residual", (g2,), b, out, tile, int(oxy),
                     linf, coefs)
+    return out, parts
+
+
+def fused_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
+                              coefs: Sequence[float],
+                              tile: Tuple[int, int] = DEFAULT_TILE,
+                              op: str = "sweep", linf: bool = True):
+    """Jacobi sweep of an unghosted block ``x[bx, by, bz]`` whose ghost
+    values are the six face planes ``halos = (gxm, gxp, gym, gyp, gzm,
+    gzp)``, with the input state's residual partials ``[nx, ny]`` (f32).
+
+    Planes are cast to the block's dtype.  ``op="residual"`` is the
+    residual-only pass: the kernel writes no block and ``x`` is returned.
+    """
+    if op not in ("sweep", "residual"):
+        raise ValueError(f"op {op!r} not in ('sweep', 'residual')")
+    halos = _planes(halos, b)
+    if not _build.on_cuda(x, b, *halos):
+        return fused_sweep_residual_halo_ref(x, halos, b, coefs, tile=tile, op=op,
+                                             linf=linf)
+    _validate(x, b, (0, 0, 0))
+    out = torch.empty_like(b) if op == "sweep" else None
+    parts = _launch("fused_sweep_residual_halo", (x, *halos), b, out, tile,
+                    int(op == "sweep"), linf, coefs)
+    return (x if out is None else out), parts
+
+
+def fused_rbgs_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
+                                   coefs: Sequence[float], oxyz: int,
+                                   tile: Tuple[int, int] = DEFAULT_TILE,
+                                   linf: bool = True):
+    """One-pass hybrid red-black GS sweep of an unghosted block and its six
+    face planes, plus the input state's residual partials ``[nx, ny]``
+    (f32).  ``oxyz = ox + oy + oz`` is the block's global checkerboard
+    phase; the ghost values stay frozen during the sweep."""
+    halos = _planes(halos, b)
+    if not _build.on_cuda(x, b, *halos):
+        return fused_rbgs_sweep_residual_halo_ref(x, halos, b, coefs, int(oxyz),
+                                                  tile=tile, linf=linf)
+    _validate(x, b, (0, 0, 0))
+    out = torch.empty_like(b)
+    parts = _launch("fused_rbgs_sweep_residual_halo", (x, *halos), b, out, tile,
+                    int(oxyz), linf, coefs)
     return out, parts

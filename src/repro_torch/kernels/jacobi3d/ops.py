@@ -9,6 +9,10 @@ swept block and the detection layer's local contribution (the residual of
 the *input* state).  The kernel wrappers pick the device: CPU tensors run
 the plain versions, CUDA tensors the kernels.
 
+The ``*_halo`` entries are the mesh runtime's: an unghosted block and six
+face planes go to the halo-consuming kernels as they are, with no ghost
+assembly at all.
+
 ``PASS_COUNTS`` counts calls per entry kind so tests can check that the
 solver drivers make the expected number of grid passes (in particular: no
 residual-only second pass on the fused path).  The JAX package counts at
@@ -23,7 +27,9 @@ import torch
 
 from repro_torch.kernels.jacobi3d.jacobi3d import (
     fused_rbgs_sweep_residual,
+    fused_rbgs_sweep_residual_halo,
     fused_sweep_residual,
+    fused_sweep_residual_halo,
 )
 from repro_torch.kernels.jacobi3d.ref import DEFAULT_TILE
 from repro_torch.solvers.convdiff import Stencil
@@ -129,4 +135,56 @@ def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
     linf = _linf(ord)
     _, parts = fused_sweep_residual(g, b, st.coefs, tile=tile, op="residual",
                                     linf=linf)
+    return parts.amax() if linf else parts.sum()
+
+
+# ---------------------------------------------------------------------------
+# Halo-consuming entries (unghosted block + six face planes)
+# ---------------------------------------------------------------------------
+
+
+def _sweep_halo_impl(st: Stencil, x, halos, b, sweep, ox, oy, oz, tile, linf):
+    """Twin of ``_sweep_impl`` for the mesh runtime, where any of x/y/z may
+    be partitioned: ``halos = (gxm, gxp, gym, gyp, gzm, gzp)``."""
+    if sweep == "jacobi":
+        return fused_sweep_residual_halo(x, halos, b, st.coefs, tile=tile,
+                                         op="sweep", linf=linf)
+    if sweep != "hybrid":
+        raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
+    return fused_rbgs_sweep_residual_halo(x, halos, b, st.coefs,
+                                          int(ox) + int(oy) + int(oz),
+                                          tile=tile, linf=linf)
+
+
+def sweep_halo(st: Stencil, x: torch.Tensor, halos, b: torch.Tensor,
+               sweep: str = "jacobi", ox: int = 0, oy: int = 0, oz: int = 0,
+               tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
+    """Halo-plane sweep-only entry (the kernel's partials are discarded)."""
+    PASS_COUNTS["sweep"] += 1
+    new, _ = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, True)
+    return new
+
+
+def sweep_with_contribution_halo(st: Stencil, x: torch.Tensor, halos,
+                                 b: torch.Tensor, sweep: str = "jacobi",
+                                 ox: int = 0, oy: int = 0, oz: int = 0,
+                                 ord: float = float("inf"),
+                                 tile: Tuple[int, int] = DEFAULT_TILE):
+    """Fused halo-plane hot path: ``(new_block, contrib)`` in one pass;
+    ``contrib`` is the pre-σ contribution of the *input* state's residual."""
+    PASS_COUNTS["fused"] += 1
+    linf = _linf(ord)
+    new, parts = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, linf)
+    return new, (parts.amax() if linf else parts.sum())
+
+
+def residual_contribution_halo(st: Stencil, x: torch.Tensor, halos,
+                               b: torch.Tensor, ord: float = float("inf"),
+                               tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
+    """Residual-only pass from an unghosted block and six face planes
+    (blocking mode's barrier pass and NFAIS2's exact verification)."""
+    PASS_COUNTS["residual"] += 1
+    linf = _linf(ord)
+    _, parts = fused_sweep_residual_halo(x, halos, b, st.coefs, tile=tile,
+                                         op="residual", linf=linf)
     return parts.amax() if linf else parts.sum()

@@ -67,3 +67,34 @@ def fused_rbgs_sweep_residual_ref(g2: torch.Tensor, b: torch.Tensor,
     new, r = gauss_seidel.redblack_gs_sweep_residual(
         Stencil(*coefs), g2[1:-1, 1:-1], b, oxy, 0)
     return new, residual_partials(r, tile=tile, linf=linf)
+
+
+def _ghosted6(x: torch.Tensor, halos) -> torch.Tensor:
+    # function-level import: fixed_point imports the kernel ops, which
+    # import this module
+    from repro_torch.solvers.fixed_point import ghosted6
+
+    return ghosted6(x, halos)
+
+
+def fused_sweep_residual_halo_ref(x: torch.Tensor, halos, b: torch.Tensor,
+                                  coefs: Sequence[float],
+                                  tile: Tuple[int, int] = DEFAULT_TILE,
+                                  op: str = "sweep", linf: bool = True):
+    """Jacobi sweep (or the unchanged field) of an unghosted block and its
+    six face planes ``(gxm, gxp, gym, gyp, gzm, gzp)``, with the input
+    state's residual partials: ``ghosted6`` then the ghosted version."""
+    return fused_sweep_residual_ref(_ghosted6(x, halos), b, coefs, tile=tile,
+                                    op=op, linf=linf)
+
+
+def fused_rbgs_sweep_residual_halo_ref(x: torch.Tensor, halos, b: torch.Tensor,
+                                       coefs: Sequence[float], oxyz: int,
+                                       tile: Tuple[int, int] = DEFAULT_TILE,
+                                       linf: bool = True):
+    """Hybrid red-black GS sweep of an unghosted block and its six face
+    planes, with the input state's residual partials; the checkerboard
+    phase is ``oxyz = ox + oy + oz``."""
+    new, r = gauss_seidel.redblack_gs_sweep_residual(
+        Stencil(*coefs), _ghosted6(x, halos), b, oxyz, 0)
+    return new, residual_partials(r, tile=tile, linf=linf)

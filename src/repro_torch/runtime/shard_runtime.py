@@ -25,6 +25,16 @@ monitor:
 * ``rdoubling``   — modified recursive doubling: one XOR-partner butterfly
   round per outer step; a global value completes every log2(p) steps.
 
+The grid is split into x-pencils (``p`` an int, the historical 1-D path)
+or into the blocks of a 2-D/3-D mesh (``p`` a mesh shape such as ``(3, 2)``
+or ``(2, 2, 2)``: ``solvers.partition.MeshPartition``, shards ranked
+row-major as in the JAX package).  A mesh shard exchanges one face plane
+per partitioned direction per outer step and sweeps through the
+halo-consuming kernel ops, which read the six face planes where they lie.
+With ``overlap`` the last sweep of a step first recomputes the new face
+planes from thickness-1 slabs and ships them, then sweeps the whole block
+— bitwise the same result as without overlap.
+
 Every sweep and contribution goes through the kernel ops (``jacobi3d``
 sweeps and residual passes, ``residual_norm.update_contribution``), so on
 the card the main path runs the CUDA kernels.
@@ -33,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,19 +53,26 @@ from repro_torch.core import detection
 from repro_torch.core import residual as res
 from repro_torch.core.reduction import get_reduction
 from repro_torch.kernels.jacobi3d import ops as jac_ops
+from repro_torch.kernels.jacobi3d.jacobi3d import fused_sweep_residual_halo
 from repro_torch.kernels.residual_norm import ops as rn_ops
 from repro_torch.solvers import jacobi
 from repro_torch.solvers.convdiff import Stencil
 from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
+from repro_torch.solvers.partition import MeshPartition
 
 
-def _per_shard(v: Union[int, Sequence[int]], p: int, name: str) -> np.ndarray:
+def _per_shard(v: Union[int, Sequence[int]], p: int, name: str,
+               mesh_shape: Optional[Tuple[int, ...]] = None) -> np.ndarray:
     """Broadcast/validate a per-shard config field: a scalar broadcasts over
-    all ``p`` shards; a sequence must have length ``p``."""
+    all ``p`` shards (row-major over the mesh axes); a sequence must match
+    the *total* shard count of the mesh, whatever its dimensionality."""
     arr = np.full(p, v, dtype=np.int64) if np.isscalar(v) else \
         np.asarray(v, dtype=np.int64)
     if arr.shape != (p,):
-        raise ValueError(f"{name} must be a scalar or length-{p}, got {arr.shape}")
+        where = (f" — mesh shape {tuple(mesh_shape)} has {p} shards total, "
+                 "row-major" if mesh_shape is not None else "")
+        raise ValueError(
+            f"{name} must be a scalar or length-{p}{where}, got {arr.shape}")
     if (arr < 0).any():
         raise ValueError(f"{name} must be >= 0, got {arr.tolist()}")
     return arr
@@ -74,11 +91,30 @@ class ShardRuntimeConfig:
     max_outer: int = 10_000
     trace_len: int = 0               # >0: record the launched-residual series
     sweep: str = "jacobi"            # "jacobi" | "hybrid"
+    mesh_shape: Optional[Tuple[int, ...]] = None  # (px[,py[,pz]]); None = 1-D
+    overlap: bool = False            # face slabs swept and shipped first
 
     def __post_init__(self):
         get_reduction(self.reduction)
         if self.sweep not in ("jacobi", "hybrid"):
             raise ValueError(f"sweep {self.sweep!r} not in ('jacobi', 'hybrid')")
+        if self.mesh_shape is not None:
+            shape = tuple(int(s) for s in self.mesh_shape)
+            if not 1 <= len(shape) <= 3 or any(s < 1 for s in shape):
+                raise ValueError(
+                    f"mesh_shape {self.mesh_shape!r} must be a tuple of 1-3 "
+                    "positive ints (px,), (px, py) or (px, py, pz)")
+            object.__setattr__(self, "mesh_shape", shape)
+        if self.overlap:
+            if self.sweep != "jacobi":
+                raise ValueError(
+                    "overlap=True requires sweep='jacobi': the red-black "
+                    "ordering serializes face updates behind the colour "
+                    "pass, so there is no independent slab to ship early")
+            if self.reduction == "blocking":
+                raise ValueError(
+                    "overlap=True is incompatible with the blocking barrier "
+                    "reference (its exact pass already serializes the step)")
 
     def effective_monitor(self) -> detection.MonitorConfig:
         """Monitor as the runtime runs it: blocking and recursive doubling
@@ -107,6 +143,12 @@ class _ShardProblem(NamedTuple):
     sweep: Callable          # (i, x_i, ghosts_i) -> x_i'
     sweep_contrib: Callable  # (i, x_i, ghosts_i) -> (x_i', pre-σ contrib)
     exact_contrib: Callable  # (i, x_i, ghosts_i) -> pre-σ contrib of x_i
+    # comm-overlapped final step: (i, x_i, ghosts_i) -> (x_i', contrib,
+    # faces_i), the new face planes recomputed as thin slabs *before* the
+    # full-block sweep; ``ship([faces_i]) -> [ghosts_i]`` hands them to the
+    # neighbours (None: no overlap)
+    fused_step: Optional[Callable] = None
+    ship: Optional[Callable] = None
 
 
 # ---------------------------------------------------------------------------
@@ -171,17 +213,18 @@ def _butterfly_step(lane: torch.Tensor, partial: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device):
+def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device,
+               mesh_shape: Optional[Tuple[int, ...]] = None):
     """Validate the per-shard config and return ``loop(prob, xs)``, which
     runs the shards (``xs``, updated in place) to detection or
     ``max_outer`` and returns ``(outer_iters, monitor_state, trace)``."""
     mon_cfg = cfg.effective_monitor()
     ord_ = mon_cfg.ord
-    inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps")
+    inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps", mesh_shape)
     if (inner < 1).any():
         raise ValueError("inner_sweeps must be >= 1 per shard")
-    delay = _per_shard(cfg.halo_delay, p, "halo_delay")
-    lag = _per_shard(cfg.contrib_lag, p, "contrib_lag")
+    delay = _per_shard(cfg.halo_delay, p, "halo_delay", mesh_shape)
+    lag = _per_shard(cfg.contrib_lag, p, "contrib_lag", mesh_shape)
     mode = get_reduction(cfg.reduction)
     blocking, butterfly = mode.barrier, mode.topology == "butterfly"
     if blocking and (delay.any() or lag.any()):
@@ -200,26 +243,32 @@ def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device):
             return res.psum_sigma(torch.stack(
                 [prob.exact_contrib(i, xs[i], ghosts[i]) for i in range(p)]), ord_)
 
+        overlapped = prob.fused_step is not None
         inf = torch.full((), float("inf"), dtype=torch.float32, device=device)
-        gring = _ring_fill(prob.exchange(xs), Lg)
+        # overlap double-buffers the halo ring: the exchange of step k+1
+        # lands in a slot the sweep of step k does not read
+        gring = _ring_fill(prob.exchange(xs), max(Lg, 2) if overlapped else Lg)
         crings = [_ring_fill(inf, Lc) for _ in range(p)]
         partial = visible = torch.full((p,), float("inf"), device=device)
         mon = detection.init_state(mon_cfg, device)
         trace = []
         k = 0
         while k < cfg.max_outer:
-            contribs = []
+            contribs, faces = [], []
             for i in range(p):
                 ghosts = _ring_read(gring, k - int(delay[i]))[i]
                 x = xs[i]
                 for _ in range(int(inner[i]) - (0 if blocking else 1)):
                     x = prob.sweep(i, x, ghosts)
                 c = None
-                if not blocking:
+                if overlapped:
+                    x, c, f = prob.fused_step(i, x, ghosts)
+                    faces.append(f)
+                elif not blocking:
                     x, c = prob.sweep_contrib(i, x, ghosts)
                 xs[i] = x
                 contribs.append(c)
-            fresh = prob.exchange(xs)
+            fresh = prob.ship(faces) if overlapped else prob.exchange(xs)
             _ring_write(gring, fresh, k + 1)
             lanes = []
             for i in range(p):
@@ -255,20 +304,44 @@ def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def make_convdiff_runtime(cfg: ShardRuntimeConfig, p: int, stencil: Stencil,
-                          n: int, device: DeviceLike = None):
-    """Build ``run(x0, b) -> ShardRunResult`` over ``p`` stacked shards.
-
-    ``x0, b`` are global (n, n, n) tensors or numpy arrays (moved to
-    ``device``, default ``cuda``).  Each shard owns an x-pencil of ``n // p``
-    planes and exchanges its two x-faces per outer step (y/z faces are the
-    physical boundary).
-    """
-    if n % p:
-        raise ValueError(f"n={n} not divisible by shard count p={p}")
+def _check_ord(cfg: ShardRuntimeConfig) -> None:
     ord_ = cfg.monitor.ord
     if not (np.isinf(ord_) or float(ord_) == 2.0):
         raise ValueError(f"the convdiff runtime supports ord 2 or inf, got {ord_}")
+
+
+def _as_global(x0, b, n: int, dev: torch.device):
+    b = torch.as_tensor(b, device=dev)
+    x0 = torch.as_tensor(x0, device=dev, dtype=b.dtype)
+    if tuple(b.shape) != (n, n, n) or x0.shape != b.shape:
+        raise ValueError(f"x0 and b must be ({n}, {n}, {n})")
+    return x0, b
+
+
+def make_convdiff_runtime(cfg: ShardRuntimeConfig,
+                          p: Union[int, Tuple[int, ...]], stencil: Stencil,
+                          n: int, device: DeviceLike = None):
+    """Build ``run(x0, b) -> ShardRunResult`` over stacked shards.
+
+    ``x0, b`` are global (n, n, n) tensors or numpy arrays (moved to
+    ``device``, default ``cuda``).  With an int ``p`` each of the ``p``
+    shards owns an x-pencil of ``n // p`` planes and exchanges its two
+    x-faces per outer step (y/z faces are the physical boundary).  A mesh
+    shape ``p = (px, py[, pz])`` — or ``cfg.overlap`` — routes to the
+    block-decomposed mesh runtime, as the JAX package routes a multi-axis
+    mesh; ``cfg.mesh_shape``, when set, must name the same mesh.
+    """
+    mesh = tuple(int(s) for s in p) if isinstance(p, (tuple, list)) else (int(p),)
+    if cfg.mesh_shape is not None and cfg.mesh_shape != mesh:
+        raise ValueError(f"cfg.mesh_shape {cfg.mesh_shape} does not match the "
+                         f"mesh shape {mesh}")
+    if len(mesh) > 1 or cfg.overlap:
+        return _make_convdiff_mesh_runtime(cfg, mesh, stencil, n, device)
+    p = mesh[0]
+    if n % p:
+        raise ValueError(f"n={n} not divisible by shard count p={p}")
+    _check_ord(cfg)
+    ord_ = cfg.monitor.ord
     dev = resolve_device(device)
     loop = _make_loop(cfg, p, dev)
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps")
@@ -276,10 +349,7 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig, p: int, stencil: Stencil,
     st = stencil
 
     def run(x0, b) -> ShardRunResult:
-        b = torch.as_tensor(b, device=dev)
-        x0 = torch.as_tensor(x0, device=dev, dtype=b.dtype)
-        if tuple(b.shape) != (n, n, n) or x0.shape != b.shape:
-            raise ValueError(f"x0 and b must be ({n}, {n}, {n})")
+        x0, b = _as_global(x0, b, n, dev)
         bs = b.split(bx)
         zx, zy = b.new_zeros((n, n)), b.new_zeros((bx, n))
 
@@ -314,6 +384,140 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig, p: int, stencil: Stencil,
             _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
         return ShardRunResult(
             x=torch.cat(xs), residual=mon.detected_residual, outer_iters=k,
+            converged=bool(mon.converged), local_sweeps=k * inner,
+            verifications=int(mon.verifications), trace=trace)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# ConvDiff shards on a 2-D/3-D mesh (blocks, per-face stale-halo exchange)
+# ---------------------------------------------------------------------------
+
+
+def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
+                                stencil: Stencil, n: int, device: DeviceLike):
+    """Multi-axis (or comm-overlapped) convdiff runtime.
+
+    The grid tiles by ``MeshPartition(n, shape)``: shard i (row-major rank)
+    owns an ``n/px × n/py × n/pz`` block and exchanges one face plane per
+    partitioned direction per outer step; faces on unpartitioned directions
+    are the physical boundary (ghost value 0).  Sweeps go through the
+    halo-consuming ops (``sweep_halo``/``sweep_with_contribution_halo``),
+    whose kernels keep the single-pass fused sweep + residual, so every
+    reduction consumes the same free by-product as the 1-D path.
+
+    With ``cfg.overlap`` the last sweep of each step is ``fused_step``: the
+    new face planes are first recomputed from thickness-1 slabs by the same
+    halo kernel (bitwise the faces the full sweep produces: same inputs,
+    same operations), handed to the exchange, and the full fused sweep then
+    runs with no dependence on them.
+    """
+    part = MeshPartition(n, shape)
+    p = part.p
+    block = part.block                                  # (bx, by, bz)
+    parted = tuple(d for d in range(part.ndim) if shape[d] > 1)
+    plane = {0: (block[1], block[2]), 1: (block[0], block[2]),
+             2: (block[0], block[1])}
+    if cfg.overlap:
+        for d in parted:
+            if block[d] < 2:
+                raise ValueError(
+                    "overlap=True needs block extent >= 2 on every "
+                    f"partitioned axis: mesh {shape} at n={n} gives "
+                    f"block {block}")
+    _check_ord(cfg)
+    ord_ = cfg.monitor.ord
+    dev = resolve_device(device)
+    loop = _make_loop(cfg, p, dev, mesh_shape=shape)
+    inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps", shape)
+    st = stencil
+    offsets = [part.offsets(i) for i in range(p)]
+    slices = [tuple(slice(o, o + e) for o, e in zip(off, block)) for off in offsets]
+    # per shard and partitioned direction: the (minus, plus) neighbour
+    # ranks, None at the mesh edge
+    nbrs = []
+    for i in range(p):
+        c = part.coords(i)
+        nbrs.append({d: tuple(part.rank(*c[:d], c[d] + s, *c[d + 1:])
+                              if 0 <= c[d] + s < shape[d] else None
+                              for s in (-1, 1)) for d in parted})
+
+    def run(x0, b) -> ShardRunResult:
+        x0, b = _as_global(x0, b, n, dev)
+        bs = [b[sl].contiguous() for sl in slices]
+        zeros = {d: b.new_zeros(plane[d]) for d in range(3)}
+
+        def ship(faces):
+            """Shard c's minus ghost is shard c−1's plus face, its plus ghost
+            shard c+1's minus face; the mesh edges get the zero plane."""
+            return [{d: tuple(zeros[d] if j is None else faces[j][d][1 - side]
+                              for side, j in enumerate(nbrs[i][d]))
+                     for d in parted} for i in range(p)]
+
+        def exchange(xs):
+            return ship([{d: (x.select(d, 0).contiguous(),
+                              x.select(d, -1).contiguous()) for d in parted}
+                         for x in xs])
+
+        def halos6(ghosts):
+            """The six face planes: exchanged ghosts on partitioned
+            directions, zeros (physical BC) elsewhere."""
+            return tuple(h for d in range(3)
+                         for h in ghosts.get(d, (zeros[d], zeros[d])))
+
+        def sweep(i, x, ghosts):
+            return jac_ops.sweep_halo(st, x, halos6(ghosts), bs[i], sweep=cfg.sweep,
+                                      ox=offsets[i][0], oy=offsets[i][1],
+                                      oz=offsets[i][2])
+
+        def sweep_contrib(i, x, ghosts):
+            return jac_ops.sweep_with_contribution_halo(
+                st, x, halos6(ghosts), bs[i], sweep=cfg.sweep, ox=offsets[i][0],
+                oy=offsets[i][1], oz=offsets[i][2], ord=ord_)
+
+        def exact_contrib(i, x, ghosts):
+            return jac_ops.residual_contribution_halo(st, x, halos6(ghosts), bs[i],
+                                                      ord=ord_)
+
+        def face_sweep(x, h6, b, d, last):
+            """The new values of one face of the block, as the full Jacobi
+            sweep will produce them, from a thickness-1 slab and its six
+            planes: along the face normal one side is the landed ghost and
+            the other the adjacent in-block plane (block extent >= 2);
+            transverse planes are the block's, restricted to the slab."""
+            idx = x.shape[d] - 1 if last else 0
+            sg = []
+            for e in range(3):
+                if e == d:
+                    sg += [x.select(d, idx - 1), h6[2 * d + 1]] if last else \
+                        [h6[2 * d], x.select(d, idx + 1)]
+                else:
+                    pos = d if d < e else d - 1   # axis d within e's plane
+                    sg += [h6[2 * e].narrow(pos, idx, 1),
+                           h6[2 * e + 1].narrow(pos, idx, 1)]
+            new, _ = fused_sweep_residual_halo(
+                x.narrow(d, idx, 1).contiguous(), sg,
+                b.narrow(d, idx, 1).contiguous(), st.coefs, op="sweep")
+            return new.squeeze(d)
+
+        def fused_step(i, x, ghosts):
+            h = halos6(ghosts)
+            faces = {d: (face_sweep(x, h, bs[i], d, False),
+                         face_sweep(x, h, bs[i], d, True)) for d in parted}
+            new, contrib = jac_ops.sweep_with_contribution_halo(
+                st, x, h, bs[i], sweep="jacobi", ord=ord_)
+            return new, contrib, faces
+
+        prob = _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib,
+                             *((fused_step, ship) if cfg.overlap else ()))
+        xs = [x0[sl].contiguous() for sl in slices]  # sweeps return new blocks
+        k, mon, trace = loop(prob, xs)
+        x = torch.empty_like(b)
+        for sl, xi in zip(slices, xs):
+            x[sl] = xi
+        return ShardRunResult(
+            x=x, residual=mon.detected_residual, outer_iters=k,
             converged=bool(mon.converged), local_sweeps=k * inner,
             verifications=int(mon.verifications), trace=trace)
 

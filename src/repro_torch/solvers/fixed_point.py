@@ -53,6 +53,25 @@ class SolverConfig:
     fuse_residual: bool = True   # residual as sweep by-product (no 2nd pass)
 
 
+def ghosted6(x: torch.Tensor, ghosts) -> torch.Tensor:
+    """The (bx+2, by+2, bz+2) ghosted block from six face planes
+    ``(gxm, gxp, gym, gyp, gzm, gzp)`` — the mesh runtime's assembly, where
+    any of x/y/z may be partitioned.  Unpartitioned or boundary faces pass
+    the zero Dirichlet plane; corners and edges stay zero (the 7-point
+    stencil never reads them)."""
+    gxm, gxp, gym, gyp, gzm, gzp = ghosts
+    bx, by, bz = x.shape
+    g = x.new_zeros((bx + 2, by + 2, bz + 2))
+    g[1:-1, 1:-1, 1:-1] = x
+    g[0, 1:-1, 1:-1] = gxm
+    g[-1, 1:-1, 1:-1] = gxp
+    g[1:-1, 0, 1:-1] = gym
+    g[1:-1, -1, 1:-1] = gyp
+    g[1:-1, 1:-1, 0] = gzm
+    g[1:-1, 1:-1, -1] = gzp
+    return g
+
+
 def _zero_ghosts(x: torch.Tensor):
     bx, by, bz = x.shape
     return (x.new_zeros((by, bz)), x.new_zeros((by, bz)),

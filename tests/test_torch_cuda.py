@@ -1,5 +1,6 @@
 """Tests that need the card: each CUDA kernel against its plain version, and
-the main path on the card against the same run on the CPU.
+the main paths (``solve_single``, the 1-D and the mesh shard runtimes) on
+the card against the same runs on the CPU.
 
 They import nothing of JAX, so they run on a machine with a GPU and no JAX
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``)::
@@ -102,3 +103,106 @@ def test_shard_runtime_on_card_matches_cpu(card, reduction, sweep):
     np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
     if reduction != "blocking" and sweep == "jacobi":
         assert trk.LAUNCHES["diff_norm_partials"] == p * gpu.outer_iters
+
+
+def _halo_planes(shape, gen, card, dtype):
+    bx, by, bz = shape
+    return [torch.rand(s, generator=gen, device=card, dtype=dtype) for s in
+            ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
+
+
+@pytest.mark.cuda
+def test_halo_kernels_match_plain_on_card(card):
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(1)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for shape in ((13, 37, 19), (1, 6, 9), (5, 1, 33)):
+            x = torch.rand(shape, generator=gen, device=card, dtype=dtype)
+            b = torch.rand(shape, generator=gen, device=card, dtype=dtype)
+            h = _halo_planes(shape, gen, card, dtype)
+            for linf in (True, False):
+                for op in ("sweep", "residual"):
+                    got = tk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, linf=linf)
+                    want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, op=op,
+                                                              linf=linf)
+                    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+                    torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
+                for oxyz in (0, 1, 5):
+                    got = tk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz,
+                                                            linf=linf)
+                    want = tref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz,
+                                                                   linf=linf)
+                    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+                    torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_halo_kernel_face_slab_is_bitwise_the_block_face(card):
+    """The comm overlap's premise: a thickness-1 slab swept by the halo
+    kernel gives bitwise the face of the whole block's sweep."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(2)
+    shape = (6, 7, 40)
+    x = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+    b = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+    h = _halo_planes(shape, gen, card, torch.float64)
+    full, _ = tk.fused_sweep_residual_halo(x, h, b, st.coefs)
+    for d in range(3):
+        for idx in (0, shape[d] - 1):
+            sg = []
+            for e in range(3):
+                if e == d:
+                    sg += [h[2 * d] if idx == 0 else x.select(d, idx - 1),
+                           x.select(d, idx + 1) if idx == 0 else h[2 * d + 1]]
+                else:
+                    pos = d if d < e else d - 1
+                    sg += [h[2 * e].narrow(pos, idx, 1), h[2 * e + 1].narrow(pos, idx, 1)]
+            slab, _ = tk.fused_sweep_residual_halo(
+                x.narrow(d, idx, 1).contiguous(), sg, b.narrow(d, idx, 1).contiguous(),
+                st.coefs)
+            assert torch.equal(slab, full.narrow(d, idx, 1)), (d, idx)
+
+
+MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 2, 1),
+                  contrib_lag=(0, 1, 0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,reduction,sweep,overlap", [
+    ((2, 2), "nonblocking", "jacobi", True),
+    ((2, 1, 2), "nonblocking", "hybrid", False),
+    ((2, 2), "blocking", "jacobi", False),
+    ((2, 2, 2), "rdoubling", "jacobi", False),
+])
+def test_mesh_runtime_on_card_matches_cpu(card, shape, reduction, sweep, overlap):
+    n = 12
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode("pfait", eps_tilde=1e-6, margin=10.0, ord=INF)
+    knobs = MESH_KNOBS if len(shape) == 2 and reduction != "blocking" else {}
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, sweep=sweep,
+                                 max_outer=2000, trace_len=64, overlap=overlap, **knobs)
+    b = make_rhs(n, seed=0)
+    x0 = np.zeros_like(b)
+    tk.reset_launches()
+    gpu = tsr.make_convdiff_runtime(cfg, shape, st, n, device=card)(x0, b)
+    kernel = "fused_rbgs_sweep_residual_halo" if sweep == "hybrid" else \
+        "fused_sweep_residual_halo"
+    assert tk.LAUNCHES[kernel] >= gpu.outer_iters
+    cpu = tsr.make_convdiff_runtime(cfg, shape, st, n, device="cpu")(x0, b)
+    assert gpu.converged and gpu.outer_iters == cpu.outer_iters
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_mesh_overlap_bitwise_on_card(card):
+    n = 12
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode("pfait", eps_tilde=1e-6, margin=10.0, ord=INF)
+    b = make_rhs(n, seed=1)
+    r0, r1 = (tsr.make_convdiff_runtime(
+        tsr.ShardRuntimeConfig(monitor=mon, max_outer=2000, trace_len=64, overlap=ov,
+                               **MESH_KNOBS), (2, 2), st, n, device=card)(np.zeros_like(b), b)
+        for ov in (False, True))
+    assert r0.converged and r0.outer_iters == r1.outer_iters
+    assert torch.equal(r0.x, r1.x) and torch.equal(r0.trace, r1.trace)

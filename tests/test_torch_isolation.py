@@ -30,7 +30,8 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 20, names
+    assert len(names) >= 21, names
+    assert "repro_torch.solvers.partition" in names, names
     print("ISOLATED", len(names))
 """)
 

@@ -132,7 +132,7 @@ def test_fused_sweep_residual_ref_matches_jax(op, linf, dtype):
     tol = 1e-12 if dtype == np.float64 else 1e-5
     _close_rel(new.numpy(), jnew, tol)
     _close_rel(parts.numpy(), jparts, 1e-6 if dtype == np.float64 else 1e-5)
-    assert tk.LAUNCHES == {"fused_sweep_residual": 0, "fused_rbgs_sweep_residual": 0}
+    assert sum(tk.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -301,6 +301,9 @@ def fake_card(monkeypatch):
 
     for mod, name in ((tk, "fused_sweep_residual_ref"),
                       (tk, "fused_rbgs_sweep_residual_ref"),
+                      (tk, "fused_sweep_residual_halo_ref"),
+                      (tk, "fused_rbgs_sweep_residual_halo_ref"),
+                      (tfp, "ghosted6"),
                       (trk, "diff_norm_partials_ref"),
                       (tjac, "jacobi_sweep"), (tjac, "jacobi_sweep_residual"),
                       (tjac, "residual_block"), (tgs, "redblack_gs_sweep"),
@@ -330,7 +333,9 @@ def test_cuda_tensors_launch_kernels_never_plain(fake_card):
     args = fake_card.calls[1][1]
     assert args[4:11] == (13, 37, 5) + tref.DEFAULT_TILE + (3, 1)
     assert fake_card.calls[2][1][9:11] == (0, 0)   # residual-only, l2
-    assert tk.LAUNCHES == {"fused_sweep_residual": 2, "fused_rbgs_sweep_residual": 1}
+    assert tk.LAUNCHES == {"fused_sweep_residual": 2, "fused_rbgs_sweep_residual": 1,
+                           "fused_sweep_residual_halo": 0,
+                           "fused_rbgs_sweep_residual_halo": 0}
     assert trk.LAUNCHES == {"diff_norm_partials": 2}
 
 
@@ -352,6 +357,63 @@ def test_kernel_launch_errors_and_bad_inputs_raise(fake_card):
     assert tk.LAUNCHES["fused_sweep_residual"] == 0
 
 
+def test_cuda_halo_tensors_launch_kernels_never_plain(fake_card):
+    _, st = _stencil()
+    bx, by, bz = 13, 37, 5
+    rng = np.random.default_rng(9)
+    x, b = (torch.as_tensor(rng.standard_normal((bx, by, bz))) for _ in range(2))
+    halos = tuple(torch.as_tensor(rng.standard_normal(s)).float() for s in
+                  ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by)))
+    new, _ = tops.sweep_with_contribution_halo(st, x, halos, b, sweep="jacobi")
+    tops.sweep_halo(st, x, halos, b, sweep="hybrid", ox=2, oy=1, oz=4)
+    same, _ = tk.fused_sweep_residual_halo(x, halos, b, st.coefs, op="residual")
+    tops.residual_contribution_halo(st, x.float(), halos, b.float(), ord=2.0)
+    names = [c[0] for c in fake_card.calls]
+    assert names == ["fused_sweep_residual_halo_f64", "fused_rbgs_sweep_residual_halo_f64",
+                     "fused_sweep_residual_halo_f64", "fused_sweep_residual_halo_f32"]
+    # (x, 6 planes, b, out, parts, bx, by, bz, tx, ty, flag, linf, coefs…)
+    args = fake_card.calls[1][1]
+    assert args[10:17] == (bx, by, bz) + tref.DEFAULT_TILE + (7, 1)
+    assert fake_card.calls[2][1][8] is None and same is x   # residual: no block
+    assert fake_card.calls[3][1][15:17] == (0, 0)            # residual-only, l2
+    assert new.shape == x.shape
+    assert tk.LAUNCHES == {"fused_sweep_residual": 0, "fused_rbgs_sweep_residual": 0,
+                           "fused_sweep_residual_halo": 3,
+                           "fused_rbgs_sweep_residual_halo": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.fused_sweep_residual_halo(x.transpose(0, 2).contiguous().transpose(0, 2),
+                                     halos, b, st.coefs)
+    fake_card.rc = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tk.fused_rbgs_sweep_residual_halo(x, halos, b, st.coefs, 0)
+    assert tk.LAUNCHES["fused_rbgs_sweep_residual_halo"] == 1
+
+
+@pytest.mark.parametrize("shape,overlap,sweep,per_step", [
+    # per outer step: one fused sweep per shard, plus two face slabs per
+    # partitioned direction with overlap
+    ((2, 2), True, "jacobi", {"fused_sweep_residual_halo": 4 * (1 + 4)}),
+    ((2, 1, 2), False, "hybrid", {"fused_rbgs_sweep_residual_halo": 4}),
+])
+def test_mesh_runtime_on_card_launches_halo_kernels(fake_card, shape, overlap, sweep,
+                                                    per_step):
+    """The mesh runtime's sweeps, contributions and overlap slabs all go
+    through the halo kernels on the card.  The fake kernels write nothing,
+    so only the count per outer step is checked."""
+    from repro_torch.runtime import shard_runtime as tsr
+
+    _, st = _stencil()
+    cfg = tsr.ShardRuntimeConfig(monitor=tdet.for_mode("pfait", 1e-6, ord=INF),
+                                 max_outer=3, sweep=sweep, overlap=overlap)
+    out = tsr.make_convdiff_runtime(cfg, shape, st, 8, device="cpu")(
+        np.zeros((8, 8, 8)), np.ones((8, 8, 8)))
+    assert 1 <= out.outer_iters <= 3
+    want = dict.fromkeys(tk.LAUNCHES, 0)
+    want.update({k: v * out.outer_iters for k, v in per_step.items()})
+    assert tk.LAUNCHES == want
+    assert trk.LAUNCHES == {"diff_norm_partials": 0}
+
+
 @pytest.mark.parametrize("sweep,fuse,per_iter", [
     ("hybrid", True, {"fused_sweep_residual": 0, "fused_rbgs_sweep_residual": 2}),
     ("jacobi", True, {"fused_sweep_residual": 2, "fused_rbgs_sweep_residual": 0}),
@@ -369,7 +431,8 @@ def test_default_solver_config_on_card_launches_kernels(fake_card, sweep, fuse,
     assert not cfg.use_kernel
     out = tfp.solve_single(cfg, np.zeros((6, 5, 4)), device="cpu")
     assert 1 <= out.outer_iters <= 3
-    assert tk.LAUNCHES == {k: v * out.outer_iters for k, v in per_iter.items()}
+    assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0),
+                           **{k: v * out.outer_iters for k, v in per_iter.items()}}
     bad = tfp.SolverConfig(stencil=st, monitor=tdet.for_mode("pfait", 1e-6, ord=3.0))
     with pytest.raises(ValueError, match="ord 2 or inf"):
         tfp.solve_single(bad, np.zeros((6, 5, 4)), device="cpu")

@@ -187,6 +187,10 @@ def test_shard_config_from_jax():
         ("rdoubling", (1, 2), 1, 8, "hybrid")
     assert t.monitor == tdet.MonitorConfig(mode="nfais5", eps=1e-5, eps_tilde=1e-5,
                                            staleness=1, persistence=2, ord=2.0)
-    with pytest.raises(ValueError, match="1-D"):
-        interop.shard_config_from(types.SimpleNamespace(**{**jcfg.__dict__,
-                                                           "mesh_shape": (2, 2)}))
+    assert (t.mesh_shape, t.overlap) == (None, False)
+    # the mesh shape and comm overlap are carried across (the port has the
+    # mesh runtime); a JAX-side list is normalised to a tuple
+    t = interop.shard_config_from(types.SimpleNamespace(**{
+        **jcfg.__dict__, "mesh_shape": [2, 2], "overlap": True, "sweep": "jacobi",
+        "reduction": "nonblocking"}))
+    assert (t.mesh_shape, t.overlap) == ((2, 2), True)
