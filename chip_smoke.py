@@ -26,17 +26,25 @@ Phases, each of which must pass or the script exits non-zero:
    reference trajectory, comm overlap must be bitwise equal to no overlap
    under heterogeneous knobs, and non-blocking hybrid, recursive doubling
    and NFAIS2 must detect with no false detection;
-7. print one JSON line of per-kernel numbers, the card's name and power
+7. serve qwen2-1.5b at full width (bf16, seed-initialised weights): batch 4,
+   2048-token prompts, 64 new tokens through ``launch.serve.serve``; every
+   layer's prefill attention must launch the flash kernel, every logit must
+   be finite; then, at the same width, the prefill's logits with the kernel
+   must match the same model's prefill with the plain attention, and a
+   prefill over S − 1 tokens plus one decode step must match the prefill
+   over S tokens;
+8. print one JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-Phases 4, 5 and 6 are the main paths.  The kernels' launch counters are set
-to 0 just before each of them and read just after; every kernel of a path
-must show launches there.  Needs CUDA: without a card, or without the
+Phases 4, 5, 6 and 7 are the main paths.  The kernels' launch counters are
+set to 0 just before each of them and read just after; every kernel of a
+path must show launches there.  Needs CUDA: without a card, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,6 +59,18 @@ SOLVER_N = 185                        # the paper's larger grid (EXPERIMENTS.md)
 SHARD_N = 150                         # the paper's smaller grid
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_F64_FLOPS = 34e12               # H100 SXM data sheet, f64 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12             # H100 SXM data sheet, dense bf16 on the tensor cores
+# the serving path: qwen2-1.5b at full width (28 layers, 12 q / 2 kv heads of
+# 128), batch 4, 2048-token prompts, 64 new tokens
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "qwen2-1.5b", 4, 2048, 64
+# flash attention cases (BH, BN, S, H, causal, window, dtype): the serving
+# path's prefill shape (B·N·P = 4·2·6 rows, B·N = 8 kv rows), a ragged S, a
+# window, the non-causal case and H = 64, in bf16 and f32
+FLASH_CASES = [(48, 8, 2048, 128, True, 0, "bf16"), (48, 8, 2048, 128, True, 0, "f32"),
+               (48, 8, 1000, 128, True, 0, "bf16"), (48, 8, 1000, 128, True, 0, "f32"),
+               (48, 8, 2048, 128, True, 256, "bf16"), (48, 8, 1000, 128, False, 0, "bf16"),
+               (48, 8, 1000, 128, False, 0, "f32"), (48, 8, 2048, 64, True, 0, "bf16"),
+               (48, 8, 1000, 64, True, 256, "f32")]
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
 # 25×150×150 block of one of 6 shards at n = 150, and a ragged block
@@ -64,7 +84,10 @@ HALO_SHAPES = {"mesh32": (50, 75, 150), "mesh222": (75, 75, 75), "main": (185, 1
 # order (at most ~150 sequential adds per thread, then a tree)
 TOL = {("block", "f64"): 1e-12, ("block", "f32"): 1e-5, ("block", "bf16"): 1e-5,
        ("max", "f64"): 1e-6, ("max", "f32"): 1e-5, ("max", "bf16"): 1e-6,
-       ("sum", "f64"): 2e-5, ("sum", "f32"): 2e-5, ("sum", "bf16"): 2e-5}
+       ("sum", "f64"): 2e-5, ("sum", "f32"): 2e-5, ("sum", "bf16"): 2e-5,
+       # attention outputs, as tests/test_kernels.py:83: f32 summation order,
+       # one bf16 rounding of the output
+       ("attn", "f32"): 2e-5, ("attn", "bf16"): 3e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -132,7 +155,7 @@ class Checker:
         err = float((g - w).abs().max())
         scale = max(float(w.abs().max()), 1e-30)
         tol = TOL[(kind, dt)]
-        out = "block" if kind == "block" else "partials"
+        out = "partials" if kind in ("max", "sum") else "block"
         self.abs_err[kernel, out] = max(self.abs_err.get((kernel, out), 0.0), err)
         self.rel_err[kernel] = max(self.rel_err.get(kernel, 0.0), err / scale)
         self.of_tol[kernel] = max(self.of_tol.get(kernel, 0.0), err / (tol * scale))
@@ -235,6 +258,66 @@ def check_kernels(st, dev, check: Checker) -> None:
               f"{check.abs_err.get((k, 'block'), 0.0):.3e}")
 
 
+def check_flash(dev, check: Checker) -> None:
+    """#6 against its plain version (``flash_attention_ref``) on the card."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for BH, BN, S, H, causal, window, dt in FLASH_CASES:
+        q, k, v = (torch.randn((n, S, H), generator=gen, device=dev).to(dtypes[dt])
+                   for n in (BH, BN, BN))
+        tag = f"{BH}x{S}x{H} kv {BN} {dt} causal={causal} window={window}"
+        check("flash_attention_flat", tag, "attn", dt,
+              fk.flash_attention_flat(q, k, v, causal=causal, window=window),
+              flash_attention_ref(q, k, v, causal=causal, window=window))
+        del q, k, v
+    torch.cuda.synchronize()
+    k = "flash_attention_flat"
+    print(f"flash attention vs plain: {len(FLASH_CASES)} cases within tolerance (f32 2e-5, "
+          f"bf16 3e-2 of the largest magnitude); max relative error {check.rel_err[k]:.2e}, "
+          f"worst case at {check.of_tol[k]:.3f} of its tolerance; max abs error "
+          f"{check.abs_err[k, 'block']:.3e}")
+
+
+def time_flash(dev) -> dict:
+    """#6 at the serving path's prefill shape (bf16, causal), beside its
+    plain version and ``F.scaled_dot_product_attention`` on the
+    ``[B, N·P, S, H]`` layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    BH, BN, S, H = FLASH_CASES[0][:4]
+    B, NP = SERVE_BATCH, BH // SERVE_BATCH
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((n, S, H), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (BH, BN, BN))
+    qs, ks, vs = q.view(B, NP, S, H), k.view(B, BN // B, S, H), v.view(B, BN // B, S, H)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v in, o out
+    flops = 4 * H * BH * S * (S + 1) / 2                     # the causal band
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    ms, call_ms = _time_ms(lambda: fk.flash_attention_flat(q, k, v))
+    plain_ms, _ = _time_ms(lambda: flash_attention_ref(q, k, v))
+    library_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True))
+    row = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"time flash_attention_flat at {BH}x{S}x{H} kv {BN} bf16 causal: kernel {ms:.4f} ms "
+          f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library (SDPA) "
+          f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_kernels(st, dev) -> dict:
     """Per-kernel times at the main-path shapes (f64, l∞)."""
     import torch
@@ -334,19 +417,21 @@ def time_kernels(st, dev) -> dict:
     return out
 
 
-def _launches():
+def _counters():
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
     from repro_torch.kernels.residual_norm import residual_norm as rk
 
-    return {**jk.LAUNCHES, **rk.LAUNCHES}
+    return jk, rk, fk
+
+
+def _launches():
+    return {k: v for mod in _counters() for k, v in mod.LAUNCHES.items()}
 
 
 def _reset_launches():
-    from repro_torch.kernels.jacobi3d import jacobi3d as jk
-    from repro_torch.kernels.residual_norm import residual_norm as rk
-
-    jk.reset_launches()
-    rk.reset_launches()
+    for mod in _counters():
+        mod.reset_launches()
 
 
 def _run(label, fn, st, b):
@@ -454,6 +539,172 @@ def run_mesh(dev) -> list:
                  st, b) for name, mesh, cfg in cells]
 
 
+def run_serve(dev) -> dict:
+    """Phase 7: ``serve`` at full width on the card."""
+    from repro_torch.launch.serve import serve
+
+    return serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                 max_new=SERVE_NEW, use_reduced=False, seed=0, device=dev)
+
+
+def warm_serve(dev) -> None:
+    """A short serve at the same width and prompt length before the counted
+    run (its launches are not counted), so the counted run is warm; prints
+    the cold first prefill."""
+    from repro_torch.launch.serve import serve
+
+    out = serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, max_new=2,
+                use_reduced=False, seed=0, device=dev)
+    print(f"serve warm-up (cold start): prefill {1e3 * out['prefill_s']:.3f} ms, "
+          f"decode {1e3 * out['decode_s']:.3f} ms for 1 step")
+
+
+def _jax_bar(got, want) -> float:
+    """The JAX contract's bar for two computations of the same logits
+    (``tests/test_models.py:88-91``): the worst element's share of
+    5e-2 + 1e-2·|want| (≤ 1 passes)."""
+    return float(((got - want).abs() / (5e-2 + 1e-2 * want.abs())).max())
+
+
+def _maxdiff(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def verify_serve(out, used, dev) -> None:
+    """The serve run's shape, health and launches; then the kernel inside
+    the model at full width.
+
+    f32 (the bf16 weights cast to f32, every op in f32): prefill logits
+    with #6 against the plain attention, max|Δ| ≤ 1e-4 × max|logit|
+    (summation order through 28 layers), and prefill(S−1) + one decode vs
+    prefill(S) at the JAX bar.  bf16: two bf16 evaluations of this model
+    drift apart by more than the JAX bar, so the kernel is held to being as
+    accurate as the plain attention against the f32 plain prefill,
+    max|kernel − f32| ≤ 1.5 × max|plain − f32|, and so is the decode path;
+    the JAX-bar ratios of the bf16 pairs are printed."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import forward
+
+    cfg = get_arch(SERVE_ARCH)
+    steps = out["steps"]
+    print(f"serve {SERVE_ARCH} full width (bf16, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, max_new {SERVE_NEW}: "
+          f"tokens {out['tokens'].shape}, steps {steps}, stopped_by {out['stopped_by']}, "
+          f"prefill {1e3 * out['prefill_s']:.3f} ms, decode {1e3 * out['decode_s'] / steps:.3f} "
+          f"ms/step, {out['tok_per_s']:.1f} tok/s over the whole run "
+          f"({SERVE_BATCH * steps / out['decode_s']:.1f} tok/s in the decode loop), "
+          f"flash launches {used['flash_attention_flat']}")
+    _require(used["flash_attention_flat"] == cfg.num_layers,
+             f"serve: {used['flash_attention_flat']} flash launches, want one per layer "
+             f"({cfg.num_layers}) in the one prefill")
+    _require(out["logits_finite"], "serve: NaN or inf in the logits")
+    _require(out["tokens"].shape == (SERVE_BATCH, SERVE_NEW),
+             f"serve: tokens {out['tokens'].shape}")
+    _require(out["stopped_by"] in ("budget", "detector"), f"serve: {out['stopped_by']}")
+
+    S = SERVE_PROMPT
+    prompts = torch.as_tensor(make_prompts(cfg.vocab_size, SERVE_BATCH, S, 0),
+                              device=dev).long()
+    m16 = Model(cfg, device=dev)
+    p16 = m16.init(torch.Generator(device=dev).manual_seed(0))
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    p32 = copy.deepcopy(p16).float()
+    logits = {}
+    with torch.inference_mode():
+        for tag, m, p in (("bf16", m16, p16), ("f32", m32, p32)):
+            prefill, decode = m.make_prefill(), m.make_decode_step()
+            logits[tag, "kernel"], _ = prefill(p, prompts)
+            x, head, _, _ = forward(p, prompts, m.plan, m._ctx("prefill")._replace(
+                use_kernel=False))
+            logits[tag, "plain"] = L.lm_head(x[:, -1:], head)
+            del x
+            _, cache = prefill(p, prompts[:, :S - 1], max_len=S)
+            logits[tag, "decode"], _ = decode(p, cache, prompts[:, S - 1:], S - 1)
+            del cache
+    for v in logits.values():
+        _require(bool(v.isfinite().all()), "in-model check: non-finite logits")
+    ref = logits["f32", "plain"]
+    scale = float(ref.abs().max())
+    f32_kernel = _maxdiff(logits["f32", "kernel"], ref)
+    f32_decode = _jax_bar(logits["f32", "decode"], logits["f32", "kernel"])
+    err = {k: _maxdiff(logits["bf16", k], ref) for k in ("kernel", "plain", "decode")}
+    print(f"in-model, f32: prefill logits flash kernel vs plain attention max|Δ| "
+          f"{f32_kernel:.3e} over logits up to {scale:.3e} ({f32_kernel / scale:.2e} of the "
+          f"largest; tolerance 1e-4); prefill over {S - 1} + one decode vs prefill over {S}: "
+          f"worst element at {f32_decode:.4f} of the JAX bar (atol 5e-2 + rtol 1e-2)")
+    print(f"in-model, bf16 against the f32 plain prefill: max|Δ| kernel {err['kernel']:.3e}, "
+          f"plain {err['plain']:.3e}, prefill over {S - 1} + decode {err['decode']:.3e}; "
+          f"ratios to plain {err['kernel'] / err['plain']:.3f} / "
+          f"{err['decode'] / err['plain']:.3f} (tolerance 1.5); JAX-bar ratio, not gated: "
+          f"kernel vs plain {_jax_bar(logits['bf16', 'kernel'], logits['bf16', 'plain']):.3f}, "
+          f"decode vs prefill {_jax_bar(logits['bf16', 'decode'], logits['bf16', 'kernel']):.3f}")
+    profile_serve(m16, p16, prompts)
+    del p16, p32, logits, ref
+    torch.cuda.empty_cache()
+    _require(f32_kernel <= 1e-4 * scale, "f32 in-model: flash kernel departs from the plain "
+             "attention")
+    _require(f32_decode <= 1.0, "f32 in-model: decode departs from prefill (JAX bar)")
+    _require(err["kernel"] <= 1.5 * err["plain"], "bf16 in-model: the flash kernel is less "
+             "accurate than the plain attention")
+    _require(err["decode"] <= 1.5 * err["plain"], "bf16 in-model: decode is less accurate "
+             "than the plain prefill")
+
+
+def profile_serve(m, params, prompts) -> None:
+    """Device time by kernel and the device's busy share over one warm
+    prefill and 4 decode steps, from ``torch.profiler`` (diagnostic only:
+    a profiler that cannot trace the card prints so and the run goes on)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    S = prompts.shape[1]
+    prefill, decode = m.make_prefill(), m.make_decode_step()
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        # kernels only: an aten op's device time repeats its kernels'
+        rows = sorted(((getattr(e, "device_time_total", 0.0), e.count, e.key)
+                       for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
+        if not rows:
+            print(f"profile {name}: wall {wall_us / 1e3:.3f} ms; the profiler saw no kernels")
+            return
+        busy = sum(r[0] for r in rows)   # one stream: the kernels do not overlap
+        print(f"profile {name}: wall {wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms "
+              f"(device busy {100 * busy / wall_us:.1f}%); top kernels by device time:")
+        for dev_us, count, key in rows[:10]:
+            print(f"  {dev_us / 1e3:9.3f} ms  {count:6d}×  {key[:90]}")
+
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, prompts, max_len=S + 4)
+
+    def run_decode():
+        tok = state["logits"][:, -1].argmax(dim=-1)
+        for i in range(4):
+            logits, state["cache"] = decode(params, state["cache"], tok[:, None], S + i)
+            tok = logits[:, -1].argmax(dim=-1)
+
+    with torch.inference_mode():
+        window("prefill (warm)", run_prefill)
+        window("4 decode steps", run_decode)
+    state.clear()
+
+
 def exact_residual(st, x, b):
     """max|b − A x| of a global state, through the residual kernel."""
     from repro_torch.kernels.jacobi3d import ops as jops
@@ -528,6 +779,8 @@ KERNELS = {
                                   "src/repro/kernels/jacobi3d/jacobi3d.py:368"),
     "fused_rbgs_sweep_residual_halo": ("src/repro_torch/csrc/jacobi3d_halo.cu",
                                        "src/repro/kernels/jacobi3d/jacobi3d.py:412"),
+    "flash_attention_flat": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/flash_attention.py:90"),
 }
 # the main paths (phases 4–6) and the kernels each must launch
 PATHS = (
@@ -536,7 +789,10 @@ PATHS = (
      ("fused_sweep_residual", "fused_rbgs_sweep_residual", "diff_norm_partials")),
     ("mesh shard runtime", run_mesh,
      ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")),
+    ("serve", run_serve, ("flash_attention_flat",)),
 )
+# run before a path's counters are set to 0
+WARMUPS = {"serve": warm_serve}
 
 
 def main() -> int:
@@ -568,35 +824,43 @@ def main() -> int:
     st = Stencil.for_contraction(SOLVER_N, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
     check = Checker()
     check_kernels(st, dev, check)
+    check_flash(dev, check)
     times = time_kernels(st, dev)
+    flash_time = time_flash(dev)
     print(nvidia_smi())  # the card and power limit the times were taken at
 
     # the main paths: launch counters from 0 just before each, read just after
-    runs, launches = [], dict.fromkeys(KERNELS, 0)
+    runs, used_by, launches = {}, {}, dict.fromkeys(KERNELS, 0)
     for path, fn, kernels in PATHS:
+        if path in WARMUPS:
+            WARMUPS[path](dev)
         _reset_launches()
-        runs.append(fn(dev))
+        runs[path] = fn(dev)
         torch.cuda.synchronize()
-        used = _launches()
+        used_by[path] = used = _launches()
         print(f"main-path launches, {path}:", json.dumps(used))
         for k in kernels:
             _require(used[k] > 0, f"{k}: not launched on the {path} path")
         for k in launches:
             launches[k] += used[k]
-    verify_runs(*runs)
+    verify_runs(*(runs[path] for path, _, _ in PATHS[:3]))
+    verify_serve(runs["serve"], used_by["serve"], dev)
 
     rows = []
     for k, (source, replaces) in KERNELS.items():
-        t = times["main"][k]
-        # the swept block's error for the stencils, the partials' for #5;
-        # the other shapes' times are on the "time ..." lines above
-        out = "partials" if k == "diff_norm_partials" else "block"
+        if k == "flash_attention_flat":
+            t, shape, out = flash_time, "48x2048x128 kv 8 bf16 causal", "block"
+        else:
+            # the swept block's error for the stencils, the partials' for #5;
+            # the other shapes' times are on the "time ..." lines above
+            t, shape = times["main"][k], "185x185x185 f64"
+            out = "partials" if k == "diff_norm_partials" else "block"
         rows.append(dict(
             name=k, route="cuda", source=source, replaces=replaces,
             launches=launches[k], max_abs_err=check.abs_err[k, out],
             max_abs_err_of=out, ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shape="185x185x185 f64"))
+            library_ms=t["library_ms"], shape=shape))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,15 @@
+"""Qwen2-1.5B [dense] — GQA kv=2, QKV bias. [arXiv:2407.10671; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b",
+    family="dense",
+    num_layers=28,
+    d_model=1536,
+    num_heads=12,
+    num_kv_heads=2,
+    d_ff=8960,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

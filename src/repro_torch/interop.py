@@ -1,23 +1,32 @@
 """Carry the JAX package's configuration and state across to the port.
 
-The solver has no learned weights: what a JAX run is made of is its
-stencil, its monitor / solver / shard-runtime configs, its mesh partition
-and its arrays.  The readers below take any object with the JAX classes'
-fields (they read attributes only, so this module imports nothing of the
-JAX package) and build the port's frozen dataclasses; ``tensor_from``
-moves arrays.
+A solver run is made of its stencil, its monitor / solver / shard-runtime
+configs, its mesh partition and its arrays; a model of its
+``ModelConfig`` and its parameter tree.  The readers below take any object
+with the JAX classes' fields (they read attributes only, so this module
+imports nothing of the JAX package) and build the port's frozen
+dataclasses; ``tensor_from`` moves arrays and ``params_from`` a JAX
+parameter tree, as numpy arrays, into a port model's parameters.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.detection import MonitorConfig
 from repro_torch.runtime.shard_runtime import ShardRuntimeConfig
 from repro_torch.solvers.convdiff import Stencil
 from repro_torch.solvers.fixed_point import SolverConfig
 from repro_torch.solvers.partition import MeshPartition
+
+if TYPE_CHECKING:
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import Transformer
 
 
 def stencil_from(obj) -> Stencil:
@@ -71,3 +80,58 @@ def tensor_from(array, device: DeviceLike = None,
     as a tensor on ``device`` (default ``cuda``)."""
     return torch.as_tensor(np.asarray(array), dtype=dtype,
                            device=resolve_device(device))
+
+
+def model_config_from(obj) -> ModelConfig:
+    """The port's ``ModelConfig`` with every field of ``obj``."""
+    return ModelConfig(**{f.name: getattr(obj, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor.  bf16 arrives as an ``ml_dtypes`` array,
+    which ``torch.as_tensor`` refuses: its bits are viewed as uint16 and
+    reinterpreted, which is exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _leaf_names(tree: Mapping[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaf_names(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}"
+
+
+def params_from(tree: Mapping[str, Any], model: "Model") -> "Transformer":
+    """A JAX parameter tree (``Model.init``'s, leaves as numpy arrays) as
+    the port model's parameters on ``model.device``.  The JAX layers are a
+    tuple over the scan period of dicts whose leaves are stacked
+    ``[steps, …]``; layer ``i`` of the port takes step ``i // period`` of
+    entry ``i % period``."""
+    from repro_torch.models.transformer import Transformer
+
+    params = Transformer(model.plan, model.device)
+    with torch.no_grad():
+        for name in ("embed", "lm_head", "final_norm"):
+            if getattr(params, name) is not None:
+                getattr(params, name).copy_(_as_tensor(tree[name]))
+        units = tree["layers"]
+        period = len(units)
+        for i, blk in enumerate(params.layers):
+            unit = units[i % period]
+            step = i // period
+            names = dict(blk.named_parameters())
+            if set(names) != set(_leaf_names(unit)):
+                raise ValueError(f"layer {i}: JAX leaves {sorted(_leaf_names(unit))} "
+                                 f"!= port parameters {sorted(names)}")
+            for pname, t in names.items():
+                leaf = unit
+                for part in pname.split("."):
+                    leaf = leaf[part]
+                t.copy_(_as_tensor(np.asarray(leaf)[step]))
+    return params

@@ -1,0 +1,62 @@
+"""Wrapper of the flash attention CUDA kernel (``csrc/flash_attention.cu``),
+the port of ``kernels/flash_attention/flash_attention.py::flash_attention_flat``.
+
+A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches only.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import INT, PTR
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+LAUNCHES: Dict[str, int] = {"flash_attention_flat": 0}
+
+HEAD_DIMS = (16, 32, 64, 128)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# (q, k, v, o, BH, BN, Sq, Skv, H, causal, window, stream)
+_SIGNATURES = {f"flash_attention_{s}": (PTR,) * 4 + (INT,) * 7 + (PTR,)
+               for s in _SUFFIX.values()}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Blocked online-softmax attention, q [BH, Sq, H] against k/v
+    [BN, Skv, H] (GQA: q-row ``bh`` reads kv-row ``bh // (BH // BN)``) →
+    [BH, Sq, H] in q's dtype.  Any ``Sq``/``Skv``: the kernel clips its last
+    tiles."""
+    if not _build.on_cuda(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"need q [BH, Sq, H] and k/v [BN, Skv, H], got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    BH, Sq, H = q.shape
+    BN, Skv, Hk = k.shape
+    if Hk != H or H not in HEAD_DIMS:
+        raise ValueError(f"head dim must match and be one of {HEAD_DIMS}, got {H}/{Hk}")
+    if BN < 1 or BH % BN or min(Sq, Skv) < 1:
+        raise ValueError(f"need BH a multiple of BN and non-empty sequences, got "
+                         f"BH={BH} BN={BN} Sq={Sq} Skv={Skv}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SUFFIX:
+        raise TypeError(f"need matching f32/bf16 inputs, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    out = torch.empty_like(q)
+    fn = getattr(_build.load("flash_attention", _SIGNATURES),
+                 f"flash_attention_{_SUFFIX[q.dtype]}")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, BN, Sq,
+                 Skv, H, int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_flat")
+    LAUNCHES["flash_attention_flat"] += 1
+    return out

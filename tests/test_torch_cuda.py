@@ -1,6 +1,7 @@
 """Tests that need the card: each CUDA kernel against its plain version, and
-the main paths (``solve_single``, the 1-D and the mesh shard runtimes) on
-the card against the same runs on the CPU.
+the main paths (``solve_single``, the 1-D and the mesh shard runtimes, the
+serving loop of a reduced dense model) on the card against the same runs
+on the CPU.
 
 They import nothing of JAX, so they run on a machine with a GPU and no JAX
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``)::
@@ -10,13 +11,24 @@ They import nothing of JAX, so they run on a machine with a GPU and no JAX
 Elsewhere each test skips, deciding inside the test.  Tolerances: f64
 blocks 1e-12 (FMA contraction), f32 blocks 1e-5, f32 partial sums 2e-5
 relative (summation order); solves on the card and on the CPU must take the
-same number of outer iterations and agree to 1e-10 in x.
+same number of outer iterations and agree to 1e-10 in x.  Flash attention:
+2e-5 (f32) and 3e-2 (bf16) of the largest output magnitude, as
+``tests/test_kernels.py:83``; an f32 model served on the card gives the
+CPU's tokens.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry as treg
+from repro_torch.configs.base import reduced
 from repro_torch.core import detection
+from repro_torch.kernels.flash_attention import flash_attention as tfk
+from repro_torch.kernels.flash_attention import ops as tflash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref as tflash_ref
+from repro_torch.launch import serve as tserve
+from repro_torch.models.attention import attention_fwd as tattention_fwd
+from repro_torch.models.model import Model
 from repro_torch.kernels.jacobi3d import jacobi3d as tk
 from repro_torch.kernels.jacobi3d import ref as tref
 from repro_torch.kernels.residual_norm import ref as trn_ref
@@ -206,3 +218,51 @@ def test_mesh_overlap_bitwise_on_card(card):
         for ov in (False, True))
     assert r0.converged and r0.outer_iters == r1.outer_iters
     assert torch.equal(r0.x, r1.x) and torch.equal(r0.trace, r1.trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BN,S,H,causal,window", [
+    (12, 2, 200, 128, True, 0), (8, 4, 256, 64, True, 0), (4, 4, 256, 128, False, 0),
+    (6, 2, 384, 64, True, 128), (6, 1, 77, 16, True, 0), (4, 2, 130, 32, False, 40),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(card, BH, BN, S, H, causal, window, dtype):
+    gen = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn((n, S, H), generator=gen, device=card).to(dtype)
+               for n in (BH, BN, BN))
+    tfk.reset_launches()
+    got = tfk.flash_attention_flat(q, k, v, causal=causal, window=window)
+    assert tfk.LAUNCHES["flash_attention_flat"] == 1
+    want = tflash_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    err = float((got.float() - want.float()).abs().max())
+    assert got.dtype == dtype and err <= tol * float(want.float().abs().max())
+    # the model layout through the dispatcher, against the blocked plain version
+    B, N = BN, 1
+    qm = q.reshape(B, BH // BN, S, H).movedim(2, 1)[:, :, None]     # [B,S,1,P,H]
+    km, vm = k[:, :, None], v[:, :, None]
+    got = tflash_ops.flash_attention(qm, km, vm, causal=causal, window=window)
+    want = tattention_fwd(qm, km, vm, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_reduced_serve_on_card_matches_cpu(card, monkeypatch):
+    arch = "qwen2-1.5b-f32-card-test"
+    cfg = reduced(treg.get_arch("qwen2-1.5b"), dtype="float32", name=arch)
+    monkeypatch.setitem(treg.ARCHS, arch, cfg)
+    prompts = tserve.make_prompts(cfg.vocab_size, 3, 70, 0)
+    outs = []
+    for dev in (card, "cpu"):
+        m = Model(cfg, device=dev)
+        params = m.init(torch.Generator().manual_seed(0))   # CPU draws: the same weights
+        tfk.reset_launches()
+        outs.append(tserve.generate(m, params, prompts, 12))
+        launches = tfk.LAUNCHES["flash_attention_flat"]
+        assert launches == (cfg.num_layers if m.device.type == "cuda" else 0)
+    gpu, cpu = outs
+    np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
+    assert gpu["steps"] == cpu["steps"] and gpu["stopped_by"] == cpu["stopped_by"]
+    out = tserve.serve("qwen2-1.5b", batch=2, prompt_len=40, max_new=6)   # bf16, on the card
+    assert out["tokens"].shape == (2, 6)
