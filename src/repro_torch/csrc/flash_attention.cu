@@ -49,6 +49,7 @@ constexpr int RQ = BQ / TY;     // q rows per thread
 constexpr int CK = BKV / TX;    // score columns per thread
 constexpr int PS = BKV + 4;     // P row stride (f32)
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_DEVICES = 64; // devices whose shared-memory limit is remembered
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -279,14 +280,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
                    int Sq, int Skv, int causal, int window, cudaStream_t stream) {
   constexpr size_t bytes = Layout<T, H>::bytes;
   auto kern = flash_fwd_kernel<T, H>;
-  // above 48 KB a block's shared memory must be asked for explicitly; once
-  // per instantiation, so a later launch may be captured in a CUDA graph
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  // above 48 KB a block's shared memory must be asked for explicitly, for
+  // each device; once per instantiation and device, so a later launch may be
+  // captured in a CUDA graph (a device past MAX_DEVICES asks every time)
+  static bool sized[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !sized[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    sized = true;
+    if (dev < MAX_DEVICES) sized[dev] = true;
   }
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(H)));
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);

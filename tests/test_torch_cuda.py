@@ -13,8 +13,10 @@ blocks 1e-12 (FMA contraction), f32 blocks 1e-5, f32 partial sums 2e-5
 relative (summation order); solves on the card and on the CPU must take the
 same number of outer iterations and agree to 1e-10 in x.  Flash attention:
 2e-5 (f32) and 3e-2 (bf16) of the largest output magnitude, as
-``tests/test_kernels.py:83``; an f32 model served on the card gives the
-CPU's tokens.
+``tests/test_kernels.py:83``, and in bf16 against the flat plain version
+also element by element, |Δ| ≤ 2^-7·|want| + 2^-7·rms(want) (both round one
+f32 result to bf16); an f32 model served on the card gives the CPU's
+tokens.
 """
 import numpy as np
 import pytest
@@ -237,6 +239,10 @@ def test_flash_kernel_matches_plain_on_card(card, BH, BN, S, H, causal, window, 
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     err = float((got.float() - want.float()).abs().max())
     assert got.dtype == dtype and err <= tol * float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        g, w = got.double(), want.double()
+        rms = float(w.square().mean().sqrt())
+        assert bool(((g - w).abs() <= 2 ** -7 * (w.abs() + rms)).all())
     # the model layout through the dispatcher, against the blocked plain version
     B, N = BN, 1
     qm = q.reshape(B, BH // BN, S, H).movedim(2, 1)[:, :, None]     # [B,S,1,P,H]
