@@ -4,28 +4,46 @@
 // Replaces the TPU kernel
 //   src/repro/kernels/residual_norm/residual_norm.py  diff_norm_partials (:34, body _kernel :18-30)
 //
-// What bounds it on an H100: bytes.  Both operands are read once (at 185^3
-// f64 about 101 MB, 30 us at 3.35 TB/s) and a few floats are written; the
-// arithmetic is 3 flops per element.  Design: a streaming reduction, one
-// CUDA block per output partial, whose threads walk the block's elements
-// with a stride of the thread count (consecutive threads on consecutive
-// addresses, so loads are coalesced), then reduce in shared memory and
-// write one float.  No atomics, so results are deterministic.  As on the
-// TPU, the difference is taken in the wider of (input type, f32) and only
-// then cast: f64 update differences near 1e-13 must not quantise to 0.
-// Few partials (at 65,536 elements each) mean few blocks at shard sizes;
-// that is this first version's known cost.
+// What bounds it on an H100: bytes.  Both operands are read once and a few
+// floats are written; the arithmetic is 3 flops per element.  On the main
+// path (the 1-D shard runtime's 25x150x150 f64 block, 9.0 MB) that is
+// 2.7 us at 3.35 TB/s, so the kernel has to put every SM to work on only 9
+// partials of 65,536 elements.  Design:
+//   * while the partials alone would leave half the SMs idle, a
+//     thread-block cluster of C CTAs per partial (C up to 16, the
+//     non-portable size), enough to put a CTA on every SM: 15 x 9 = 135
+//     CTAs at the shard block; with more partials one CTA each (97 at
+//     185^3), since splitting them further only unbalances the SMs.  Each
+//     CTA streams its slice with 16-byte loads, four of a and four of b in
+//     flight per thread;
+//   * each CTA reduces its threads in shared memory, then CTA rank 0 of the
+//     cluster reads the other CTAs' results through distributed shared
+//     memory, in rank order, and writes the partial.  One launch, no
+//     scratch, no atomics: the summation order is fixed by (n, block,
+//     type), so two calls on the same inputs are bitwise equal.
+// As on the TPU, the difference is taken in the wider of (input type, f32)
+// and only then cast: f64 update differences near 1e-13 must not quantise
+// to 0.  NaN propagates through both reductions.
 //
 // C interface (ctypes): pointers and the stream are void*; every entry
 // returns cudaGetLastError() after its launch.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kUnroll = 4;          // 16-byte loads of each operand in flight per thread
+constexpr int kMaxCluster = 16;     // non-portable cluster size (portable: 8)
+constexpr int kMaxDevices = 64;
 
 // the subtraction type: double for f64 inputs, float otherwise
 template <typename T> struct Wide { using type = float; };
@@ -41,33 +59,177 @@ __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 v) {
 }
 
 template <typename T, bool kLinf>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float accumulate(float acc, T x, T y) {
+  const float d = static_cast<float>(widen(x) - widen(y));
+  return kLinf ? repro::nanmax(acc, repro::absv(d)) : acc + d * d;
+}
+
+// kVec elements per 16-byte load (1 when the operands are not 16-byte
+// aligned).  CTA `rank` of cluster `part` reduces elements [s0, s1) of
+// partial `part`.
+template <typename T, bool kLinf, int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
 diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  float* __restrict__ parts, long n, long block) {
-  const long start = blockIdx.x * block;
-  const long end = min(start + block, n);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long part = blockIdx.x / csize;
+  const long start = part * block, end = min(start + block, n);
+  // equal slices, rounded up to whole vectors so each slice starts aligned
+  long per = (end - start + csize - 1) / csize;
+  per = (per + kVec - 1) / kVec * kVec;
+  const long s0 = min(start + rank * per, end), s1 = min(s0 + per, end);
+
   float acc = 0.f;
-  for (long i = start + threadIdx.x; i < end; i += blockDim.x) {
-    const float d = static_cast<float>(widen(a[i]) - widen(b[i]));
-    acc = kLinf ? repro::nanmax(acc, repro::absv(d)) : acc + d * d;
+  if constexpr (kVec == 1) {
+    for (long i = s0 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
+  } else {
+    static_assert(kVec * sizeof(T) == 16, "one vector is 16 bytes");
+    // a scalar head up to the first whole vector, the vectors, a scalar tail
+    const long v0 = min((s0 + kVec - 1) / kVec * kVec, s1);
+    const long v1 = v0 + (s1 - v0) / kVec * kVec;
+    for (long i = s0 + threadIdx.x; i < v0; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
+    for (long i = v1 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
+    const uint4* av = reinterpret_cast<const uint4*>(a);
+    const uint4* bv = reinterpret_cast<const uint4*>(b);
+    const long w1 = v1 / kVec;
+    long w = v0 / kVec + threadIdx.x;
+    for (; w + (kUnroll - 1) * kThreads < w1; w += kUnroll * kThreads) {
+      uint4 x[kUnroll], y[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        x[u] = __ldg(av + w + u * kThreads);
+        y[u] = __ldg(bv + w + u * kThreads);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const T* xs = reinterpret_cast<const T*>(&x[u]);
+        const T* ys = reinterpret_cast<const T*>(&y[u]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc = accumulate<T, kLinf>(acc, xs[e], ys[e]);
+      }
+    }
+    for (; w < w1; w += kThreads) {
+      const uint4 x = __ldg(av + w), y = __ldg(bv + w);
+      const T* xs = reinterpret_cast<const T*>(&x);
+      const T* ys = reinterpret_cast<const T*>(&y);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc = accumulate<T, kLinf>(acc, xs[e], ys[e]);
+    }
   }
+
+  __shared__ float cta_total;
   const float tot = repro::block_reduce<kThreads>(acc, kLinf);
-  if (threadIdx.x == 0) parts[blockIdx.x] = tot;
+  if (threadIdx.x == 0) cta_total = tot;
+  cluster.sync();  // every CTA's total is written
+  if (rank == 0 && threadIdx.x == 0) {
+    float r = cta_total;
+    for (int c = 1; c < csize; ++c) {
+      const float v = *cluster.map_shared_rank(&cta_total, c);
+      r = kLinf ? repro::nanmax(r, v) : r + v;
+    }
+    parts[part] = r;
+  }
+  cluster.sync();  // no CTA leaves while rank 0 still reads its shared memory
+}
+
+// What a launch of `kern` needs to know of the current device: its SM
+// count and the largest cluster it can hold (16 where the card can, else
+// the portable 8).  `known` is the kernel's own per-device memo, so the
+// attribute calls run once per kernel and device and stay out of
+// CUDA-graph captures after the first launch.
+struct DeviceFit {
+  int sms = 0, cmax = 0;
+};
+
+template <typename K>
+cudaError_t device_fit(K kern, DeviceFit (&known)[kMaxDevices], DeviceFit* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev].sms) {
+    *out = known[dev];
+    return cudaSuccess;
+  }
+  DeviceFit fit;
+  err = cudaDeviceGetAttribute(&fit.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int c = 8;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
+      cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kMaxCluster;
+    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(kMaxCluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) == cudaSuccess && clusters > 0)
+      c = kMaxCluster;
+  }
+  cudaGetLastError();  // a refused query leaves no error behind
+  fit.cmax = c;
+  if (dev < kMaxDevices) known[dev] = fit;
+  *out = fit;
+  return cudaSuccess;
+}
+
+template <typename T, bool kLinf, int kVec>
+cudaError_t launch_vec(const T* a, const T* b, float* parts, long n, long block,
+                       cudaStream_t s) {
+  auto kern = diff_norm_kernel<T, kLinf, kVec>;
+  static DeviceFit known[kMaxDevices];
+  DeviceFit fit;
+  cudaError_t err = device_fit(kern, known, &fit);
+  if (err != cudaSuccess) return err;
+  const long nparts = (n + block - 1) / block;
+  // a CTA on every SM while the partials cover less than half of them,
+  // each CTA with at least one full round of vectors; else one per partial
+  long c = 1;
+  if (2 * nparts < fit.sms) {
+    c = (fit.sms + nparts - 1) / nparts;
+    c = std::min(c, std::max(1L, block / (static_cast<long>(kThreads) * kVec)));
+    c = std::min(c, static_cast<long>(fit.cmax));
+  }
+  if (nparts * c > 0x7fffffffL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(c);
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(nparts * c));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, a, b, parts, n, block);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* parts, long n, long block,
            int linf, void* stream) {
-  const unsigned nblk = static_cast<unsigned>((n + block - 1) / block);
+  if (n <= 0 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto ap = static_cast<const T*>(a);
   auto bp = static_cast<const T*>(b);
   auto pp = static_cast<float*>(parts);
-  if (linf)
-    diff_norm_kernel<T, true><<<nblk, kThreads, 0, s>>>(ap, bp, pp, n, block);
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+  cudaError_t err;
+  if (aligned)
+    err = linf ? launch_vec<T, true, V>(ap, bp, pp, n, block, s)
+               : launch_vec<T, false, V>(ap, bp, pp, n, block, s);
   else
-    diff_norm_kernel<T, false><<<nblk, kThreads, 0, s>>>(ap, bp, pp, n, block);
-  return static_cast<int>(cudaGetLastError());
+    err = linf ? launch_vec<T, true, 1>(ap, bp, pp, n, block, s)
+               : launch_vec<T, false, 1>(ap, bp, pp, n, block, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace

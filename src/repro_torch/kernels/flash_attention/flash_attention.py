@@ -2,7 +2,8 @@
 the port of ``kernels/flash_attention/flash_attention.py::flash_attention_flat``.
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches only.
+launches the kernel or raises: bf16 inputs the tensor-core kernel, f32
+inputs the f32 (CUDA-core) kernel.  ``LAUNCHES`` counts launches of both.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"need matching f32/bf16 inputs, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel inputs must start on a 16-byte boundary")
     out = torch.empty_like(q)
     fn = getattr(_build.load("flash_attention", _SIGNATURES),
                  f"flash_attention_{_SUFFIX[q.dtype]}")

@@ -29,6 +29,7 @@ from repro.models import layers as jL
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as tfk
 from repro_torch.kernels.flash_attention import ops as tflash_ops
+from repro_torch.kernels.flash_attention.ref import bf16_output_bar
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref as tflash_ref
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tL
@@ -76,6 +77,76 @@ def test_flash_ref_matches_jax(BH, BN, Sq, H, causal, window, dt):
     _close(got, want, dt)
     # on the CPU the kernel's wrapper is its plain version
     assert torch.equal(tfk.flash_attention_flat(tq, tk, tv, causal=causal, window=window), got)
+
+
+def _tensor_core_arithmetic(q, k, v, causal, window, block=128):
+    """The bf16 kernel's arithmetic in plain PyTorch: 128-row q and kv
+    tiles over the causal / window band, f32 scores scaled in f32 into
+    log2 units, NEG_INF masking, f32 (m, l, acc) with exp2, l summed from
+    the f32 p, p rounded to bf16 for the P·V product, the output rounded
+    once to bf16."""
+    BH, Sq, H = q.shape
+    BN, Skv, _ = k.shape
+    scale = np.float32(np.log2(np.e) / np.sqrt(H))
+    out = torch.empty_like(q)
+    n_kv = -(-Skv // block)
+    for bh in range(BH):
+        kf, vf = k[bh // (BH // BN)].float(), v[bh // (BH // BN)].float()
+        for q0 in range(0, Sq, block):
+            qf = q[bh, q0:q0 + block].float()
+            q_pos = torch.arange(q0, q0 + qf.shape[0])[:, None]
+            hi = min((q0 + block - 1) // block + 1, n_kv) if causal else n_kv
+            lo = (q0 - window + 1) // block if window > 0 and q0 - window + 1 > 0 else 0
+            m = torch.full((qf.shape[0], 1), -1e30)
+            l = torch.zeros((qf.shape[0], 1))
+            acc = torch.zeros((qf.shape[0], H))
+            for jb in range(lo, hi):
+                kv = slice(jb * block, (jb + 1) * block)
+                s = (qf @ kf[kv].T) * scale
+                kv_pos = torch.arange(jb * block, jb * block + s.shape[1])[None, :]
+                ok = torch.ones_like(s, dtype=torch.bool)
+                if causal:
+                    ok &= kv_pos <= q_pos
+                if window > 0:
+                    ok &= kv_pos > q_pos - window
+                s = torch.where(ok, s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new)
+                l = l * alpha + p.sum(dim=1, keepdim=True)
+                acc = acc * alpha + p.bfloat16().float() @ vf[kv]
+                m = m_new
+            out[bh, q0:q0 + block] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("BH,BN,S,H,causal,window", [
+    (4, 2, 300, 32, True, 0), (4, 2, 300, 32, True, 40), (4, 2, 300, 32, False, 0),
+    (6, 1, 77, 16, True, 0), (2, 2, 260, 64, True, 0),
+])
+def test_tensor_core_arithmetic_stays_under_the_derived_bf16_bar(BH, BN, S, H, causal, window):
+    """The element-wise bar ``bf16_output_bar`` (the one ``chip_smoke.py``
+    and the card tests hold the bf16 kernel to) admits the rounding of p to
+    bf16 that the tensor-core kernel makes, measured against the JAX plain
+    version, and still fails an output that drops a kv tile."""
+    rng = np.random.default_rng(5)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.standard_normal((n, S, H)), BF16)
+                                    for n in (BH, BN, BN))
+    want = torch.from_numpy(np.array(jflash_ref(jq, jk, jv, causal=causal, window=window),
+                                     np.float32)).bfloat16()
+    bar = bf16_output_bar(want, tq, tk, tv, causal=causal, window=window)
+    # its spread term is the plain version applied to |v|
+    spread = (bar - 2.0 ** -7 * (want.double().abs() + want.double().square().mean().sqrt()))
+    jspread = jflash_ref(jq.astype(jnp.float32), jk.astype(jnp.float32),
+                         jnp.abs(jv.astype(jnp.float32)), causal=causal, window=window)
+    np.testing.assert_allclose((2.0 ** 8 * spread).numpy(), np.asarray(jspread), rtol=2e-5,
+                               atol=2e-6)
+    got = _tensor_core_arithmetic(tq, tk, tv, causal, window)
+    share = float(((got.double() - want.double()).abs() / bar).max())
+    assert got.dtype == torch.bfloat16 and 0.0 < share <= 1.0
+    if causal and window == 0:
+        dropped = tflash_ref(tq, tk, tv, causal=True, window=S - 64)
+        assert float(((dropped.double() - want.double()).abs() / bar).max()) > 1.0
 
 
 # (B, S, N, P, H, causal, window, dtype) on the model's grouped layout
@@ -308,6 +379,16 @@ def test_cuda_tensors_launch_the_flash_kernel_never_plain(fake_card):
     assert fake_card.calls[1][0] == "flash_attention_f32"
     assert fake_card.calls[1][1][4:11] == (4, 2, 30, 24, 16, 0, 0)
     assert tfk.LAUNCHES == {"flash_attention_flat": 2}
+
+
+def test_flash_kernel_refuses_misaligned_inputs(fake_card):
+    """TMA and the 16-byte loads need each operand on a 16-byte boundary."""
+    k = torch.randn(2, 16, 32, dtype=torch.bfloat16)
+    q = torch.randn(6 * 16 * 32 + 1, dtype=torch.bfloat16)[1:].view(6, 16, 32)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tfk.flash_attention_flat(q, k, k)
+    assert fake_card.calls == [] and tfk.LAUNCHES["flash_attention_flat"] == 0
 
 
 def test_flash_kernel_bad_inputs_and_launch_errors_raise(fake_card):

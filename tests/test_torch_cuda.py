@@ -12,11 +12,14 @@ Elsewhere each test skips, deciding inside the test.  Tolerances: f64
 blocks 1e-12 (FMA contraction), f32 blocks 1e-5, f32 partial sums 2e-5
 relative (summation order); solves on the card and on the CPU must take the
 same number of outer iterations and agree to 1e-10 in x.  Flash attention:
-2e-5 (f32) and 3e-2 (bf16) of the largest output magnitude, as
+2e-5 (f32, on the f32 kernel: a bf16 or TF32 product would miss it) and
+3e-2 (bf16, on the tensor-core kernel) of the largest output magnitude, as
 ``tests/test_kernels.py:83``, and in bf16 against the flat plain version
-also element by element, |Δ| ≤ 2^-7·|want| + 2^-7·rms(want) (both round one
-f32 result to bf16); an f32 model served on the card gives the CPU's
-tokens.
+also element by element under ``flash_attention.ref.bf16_output_bar``,
+|Δ| ≤ 2^-7·(|want| + rms(want)) + 2^-8·ref(q, k, |v|) (one bf16 step of
+the output plus the rounding of p to bf16 for the P·V product); an f32
+model served on the card gives the CPU's tokens.  Diff-norm partials: l∞
+1e-6 and l2 2e-5 relative (summation order), bitwise equal across calls.
 """
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.core import detection
 from repro_torch.kernels.flash_attention import flash_attention as tfk
 from repro_torch.kernels.flash_attention import ops as tflash_ops
+from repro_torch.kernels.flash_attention.ref import bf16_output_bar
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref as tflash_ref
 from repro_torch.launch import serve as tserve
 from repro_torch.models.attention import attention_fwd as tattention_fwd
@@ -240,9 +244,8 @@ def test_flash_kernel_matches_plain_on_card(card, BH, BN, S, H, causal, window, 
     err = float((got.float() - want.float()).abs().max())
     assert got.dtype == dtype and err <= tol * float(want.float().abs().max())
     if dtype == torch.bfloat16:
-        g, w = got.double(), want.double()
-        rms = float(w.square().mean().sqrt())
-        assert bool(((g - w).abs() <= 2 ** -7 * (w.abs() + rms)).all())
+        bar = bf16_output_bar(want, q, k, v, causal=causal, window=window)
+        assert bool(((got.double() - want.double()).abs() <= bar).all())
     # the model layout through the dispatcher, against the blocked plain version
     B, N = BN, 1
     qm = q.reshape(B, BH // BN, S, H).movedim(2, 1)[:, :, None]     # [B,S,1,P,H]
@@ -272,3 +275,81 @@ def test_reduced_serve_on_card_matches_cpu(card, monkeypatch):
     assert gpu["steps"] == cpu["steps"] and gpu["stopped_by"] == cpu["stopped_by"]
     out = tserve.serve("qwen2-1.5b", batch=2, prompt_len=40, max_new=6)   # bf16, on the card
     assert out["tokens"].shape == (2, 6)
+
+
+def _flash_against_plain(card, BH, BN, S, H, causal, window, dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn((n, S, H), generator=gen, device=card).to(dtype)
+               for n in (BH, BN, BN))
+    tfk.reset_launches()
+    got = tfk.flash_attention_flat(q, k, v, causal=causal, window=window)
+    assert tfk.LAUNCHES["flash_attention_flat"] == 1 and got.dtype == dtype
+    want = tflash_ref(q, k, v, causal=causal, window=window)
+    err = float((got.double() - want.double()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert err <= tol * float(want.double().abs().max())
+    return q, k, v, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 100, 1000, 2048])
+@pytest.mark.parametrize("H", [16, 32, 64, 128])
+def test_flash_bf16_tensor_core_kernel_on_card(card, H, S):
+    """Every head dim, a tile shorter than the 128-row q tile (S = 1, 100)
+    and a ragged last tile (1000); the bar still fails a dropped kv tile."""
+    q, k, v, got, want = _flash_against_plain(card, 12, 2, S, H, True, 0, torch.bfloat16)
+    bar = bf16_output_bar(want, q, k, v)
+    assert bool(((got.double() - want.double()).abs() <= bar).all())
+    if S > 128:
+        dropped = tflash_ref(q, k, v, causal=True, window=S - 64)
+        assert bool(((dropped.double() - want.double()).abs() > bar).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BN,S,H,causal,window", [
+    (12, 2, 1000, 128, True, 100), (12, 4, 777, 64, False, 0), (4, 2, 130, 32, False, 40),
+    (6, 1, 2048, 128, True, 2000), (8, 8, 300, 16, False, 0),
+])
+def test_flash_bf16_window_and_non_causal_on_card(card, BH, BN, S, H, causal, window):
+    q, k, v, got, want = _flash_against_plain(card, BH, BN, S, H, causal, window,
+                                              torch.bfloat16)
+    bar = bf16_output_bar(want, q, k, v, causal=causal, window=window)
+    assert bool(((got.double() - want.double()).abs() <= bar).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,causal,window", [(1000, 128, True, 0), (1000, 64, False, 0),
+                                               (300, 16, True, 40)])
+def test_flash_f32_stays_on_the_f32_kernel(card, S, H, causal, window):
+    """f32 inputs keep full f32 products: within 2e-5 of the largest
+    magnitude, which a bf16 or TF32 tensor-core product would miss."""
+    _flash_against_plain(card, 12, 2, S, H, causal, window, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((25, 150, 150), 65536), ((25, 150, 150), 4097),
+                                         ((13, 37, 19), 65536), ((70001,), 65536),
+                                         ((185, 185, 185), 65536)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_diff_norm_split_partials_on_card(card, shape, block, dtype):
+    """The shard block, a block the per-partial split does not divide, n <
+    block, a ragged last partial and 185³: against the plain version, and
+    bitwise equal across two calls."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    a, b = (torch.rand(shape, generator=gen, device=card, dtype=torch.float64).to(dtype)
+            for _ in range(2))
+    for linf, rtol in ((True, 1e-6), (False, 2e-5)):
+        got = trk.diff_norm_partials(a, b, block=block, linf=linf)
+        assert torch.equal(got, trk.diff_norm_partials(a, b, block=block, linf=linf))
+        want = trn_ref.diff_norm_partials_ref(a, b, block=block, linf=linf)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.cuda
+def test_diff_norm_nan_propagates_on_card(card):
+    a = torch.rand((25, 150, 150), device=card, dtype=torch.float64)
+    b = a.clone()
+    b.view(-1)[70000] = float("nan")            # in partial 1 of 9
+    for linf in (True, False):
+        got = trk.diff_norm_partials(a, b, linf=linf)
+        assert got.isnan().tolist() == [i == 1 for i in range(9)]
