@@ -10,12 +10,16 @@ Phases, each of which must pass or the script exits non-zero:
 2. hold every kernel against its plain PyTorch version on the card, at the
    main path's shapes and a ragged block, over every variant, with the
    tolerance stated beside each check (bf16 attention element by element
-   as well, under the bar its tensor-core arithmetic allows); count the
-   tensor-core instructions in the flash library's SASS;
+   as well, under the bar its tensor-core arithmetic allows); the stencil
+   kernels' partials must be bitwise equal across two calls and carry a
+   NaN, and a face slab swept by the halo kernel must be bitwise the
+   block's face; count the tensor-core instructions in the flash
+   library's SASS;
 3. time each kernel, its plain version, the nearest single PyTorch call and
    the least time the card could take (CUDA events over 20 CUDA-graph replays,
    so host launch overhead is left out; the eager per-call time is kept
-   beside it);
+   beside it), and the two shard-block sweeps also over six shards' worth
+   of rotating inputs, more than the 50 MB L2, as the runtime finds them;
 4. ``solve_single`` at n = 185, f64 (the paper's larger grid), for the four
    detection modes with the hybrid sweep, Jacobi, and the unfused baseline:
    each run must converge with the exact residual of its result under ε̃;
@@ -36,8 +40,10 @@ Phases, each of which must pass or the script exits non-zero:
    prefill over S − 1 tokens plus one decode step must match the prefill
    over S tokens, in f32 and in bf16 (where the bar is read against two
    plain evaluations and a faulty one in the same run);
-8. print one JSON line of per-kernel numbers, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+8. rank the stencil kernels by launches x (device ms - bound ms) over the
+   (kernel, block shape) pairs the main paths launched, each timed at its
+   shape; print one JSON line of per-kernel numbers, the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 Phases 4, 5, 6 and 7 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from collections import Counter
 import statistics
 import subprocess
 import sys
@@ -76,12 +83,18 @@ FLASH_CASES = [(48, 8, 2048, 128, True, 0, "bf16"), (48, 8, 2048, 128, True, 0, 
                (48, 8, 1000, 64, True, 256, "f32")]
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
-# 25×150×150 block of one of 6 shards at n = 150, and a ragged block
-SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "ragged": (13, 37, 19)}
+# 25×150×150 block of one of 6 shards and the 75×150×150 block of one of 2
+# at n = 150, and a ragged block
+SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p2": (75, 150, 150),
+          "ragged": (13, 37, 19)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
-# n = 150, the 185³ grid, the ragged block and an overlap face slab
-HALO_SHAPES = {"mesh32": (50, 75, 150), "mesh222": (75, 75, 75), "main": (185, 185, 185),
-               "ragged": (13, 37, 19), "slab": (1, 75, 150)}
+# n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
+# (3, 2) mesh's two overlap face slabs.  The halo Jacobi sweep splits a
+# tile over a cluster at the mesh blocks, the shard block and the x slab,
+# and keeps one CTA per tile at 185³, the ragged block and the y slab
+HALO_SHAPES = {"mesh32": (50, 75, 150), "mesh222": (75, 75, 75), "shard": (25, 150, 150),
+               "main": (185, 185, 185), "ragged": (13, 37, 19), "slab": (1, 75, 150),
+               "slab_y": (50, 1, 150)}
 # stated tolerances, relative to the largest magnitude of the plain result:
 # f64 blocks differ by FMA contraction only; f32 sums differ by summation
 # order (at most ~150 sequential adds per thread, then a tree)
@@ -119,7 +132,9 @@ def _require(ok: bool, what: str) -> None:
 
 
 def _time_ms(fn, calls: int = 10, reps: int = 20):
-    """``(device_ms, call_ms)`` per call of ``fn``.
+    """``(device_ms, call_ms)`` per call of ``fn``, or of a list of calls
+    taken in turn (rotating inputs: each call finds its inputs as the
+    others left the L2).
 
     ``device_ms`` is the device's time alone: ``calls`` calls are captured
     in a CUDA graph, and the median of ``reps`` timed replays (CUDA events)
@@ -128,20 +143,22 @@ def _time_ms(fn, calls: int = 10, reps: int = 20):
     loop pays."""
     import torch
 
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
     for _ in range(3):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    for _ in range(calls):
-        fn()
+    for c in range(calls):
+        fns[c % len(fns)]()
     ev[1].record()
     torch.cuda.synchronize()
     call_ms = ev[0].elapsed_time(ev[1]) / calls
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for c in range(calls):
+            fns[c % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     evs = []
@@ -229,6 +246,9 @@ def check_kernels(st, dev, check: Checker) -> None:
                     n_cases += 1
                 for ox, oy in ((0, 0), (3, 5), (0, 1)):
                     got = jk.fused_rbgs_sweep_residual(g2, b, st.coefs, ox + oy, linf=linf)
+                    _require(torch.equal(got[1], jk.fused_rbgs_sweep_residual(
+                        g2, b, st.coefs, ox + oy, linf=linf)[1]),
+                        f"fused_rbgs_sweep_residual {sname}: two calls' partials differ")
                     want = jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, ox + oy,
                                                               linf=linf)
                     tag = f"{sname} {dt} phase=({ox},{oy}) {red}"
@@ -254,6 +274,9 @@ def check_kernels(st, dev, check: Checker) -> None:
                 red = "max" if linf else "sum"
                 for op in ("sweep", "residual"):
                     got = jk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, linf=linf)
+                    _require(torch.equal(got[1], jk.fused_sweep_residual_halo(
+                        x, h, b, st.coefs, op=op, linf=linf)[1]),
+                        f"fused_sweep_residual_halo {sname}: two calls' partials differ")
                     want = jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, op=op,
                                                               linf=linf)
                     tag = f"{sname} {dt} op={op} {red}"
@@ -274,6 +297,7 @@ def check_kernels(st, dev, check: Checker) -> None:
                           got[1], want[1])
                     n_cases += 1
             del x, b, h
+    check_nan_and_slabs(st, dev, rand)
     # f64 update differences near 1e-13 must survive the cast to f32
     a = 1.0 + rand(SHAPES["shard"], torch.float64)
     c = a + 1e-13 * rand(SHAPES["shard"], torch.float64)
@@ -286,12 +310,70 @@ def check_kernels(st, dev, check: Checker) -> None:
         n_cases += 1
     torch.cuda.synchronize()
     print(f"kernels vs plain: {n_cases} cases within tolerance; diff_norm_partials bitwise "
-          f"equal across two calls at {', '.join(SHAPES)}")
+          f"equal across two calls at {', '.join(SHAPES)}; fused_rbgs_sweep_residual's and "
+          f"fused_sweep_residual_halo's partials bitwise equal across two calls at every "
+          f"shape, variant and phase; a NaN in the block reaches their l∞ partial at "
+          f"{', '.join(NAN_SHAPES)}; the halo sweep's six face slabs bitwise the block's "
+          f"faces at {'x'.join(map(str, HALO_SHAPES['mesh32']))}")
     for k, v in check.rel_err.items():
         print(f"  {k}: max relative error {v:.2e}; worst case at {check.of_tol[k]:.3f} "
               f"of its tolerance (tolerances: blocks f64 1e-12, f32 1e-5; max "
               f"partials 1e-6/1e-5; sum partials 2e-5); max abs error of the block "
               f"{check.abs_err.get((k, 'block'), 0.0):.3e}")
+
+
+NAN_SHAPES = ("main", "shard", "ragged")
+
+
+def check_nan_and_slabs(st, dev, rand) -> None:
+    """A NaN in the block reaches the l∞ partials of the tiles whose input
+    residual it touches, as in the plain version, in #2 and #3 (split and
+    unsplit grids); a thickness-1 face slab
+    swept by #3 is bitwise that face of the block's sweep at the (3, 2)
+    mesh block, where the grid splits (the comm overlap's premise)."""
+    import torch
+
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ref as jref
+
+    f64 = torch.float64
+    for name in NAN_SHAPES:
+        bx, by, bz = shape = SHAPES[name]
+        i, j, z = bx // 2, by // 2, bz // 2
+        g2, b = rand((bx + 4, by + 4, bz + 2), f64), rand(shape, f64)
+        g2[i + 2, j + 2, z + 1] = float("nan")
+        got = jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0)[1].isnan()
+        want = jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0)[1].isnan()
+        _require(bool(want.any()) and torch.equal(got, want),
+                 f"fused_rbgs_sweep_residual {name}: a NaN does not reach the partials")
+        x, b = rand(shape, f64), rand(shape, f64)
+        h = [rand(s, f64) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
+        x[i, j, z] = float("nan")
+        got = jk.fused_sweep_residual_halo(x, h, b, st.coefs)[1].isnan()
+        want = jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)[1].isnan()
+        _require(bool(want.any()) and torch.equal(got, want),
+                 f"fused_sweep_residual_halo {name}: a NaN does not reach the partials")
+    shape = HALO_SHAPES["mesh32"]
+    x, b = rand(shape, f64), rand(shape, f64)
+    h = [rand(s, f64) for s in ((shape[1], shape[2]),) * 2 + ((shape[0], shape[2]),) * 2
+         + ((shape[0], shape[1]),) * 2]
+    full, _ = jk.fused_sweep_residual_halo(x, h, b, st.coefs)
+    for d in range(3):
+        for idx in (0, shape[d] - 1):
+            sg = []
+            for e in range(3):
+                if e == d:
+                    sg += [h[2 * d] if idx == 0 else x.select(d, idx - 1),
+                           x.select(d, idx + 1) if idx == 0 else h[2 * d + 1]]
+                else:
+                    pos = d if d < e else d - 1
+                    sg += [h[2 * e].narrow(pos, idx, 1), h[2 * e + 1].narrow(pos, idx, 1)]
+            slab, _ = jk.fused_sweep_residual_halo(
+                x.narrow(d, idx, 1).contiguous(), sg, b.narrow(d, idx, 1).contiguous(),
+                st.coefs)
+            _require(torch.equal(slab, full.narrow(d, idx, 1)),
+                     f"halo sweep: face slab (axis {d}, index {idx}) is not bitwise the "
+                     f"block's face")
 
 
 def check_flash(dev, check: Checker) -> None:
@@ -385,17 +467,74 @@ def time_flash(dev) -> dict:
     return row
 
 
+HALO_KERNELS = ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")
+
+
+def _stencil_case(k, shape, st, rand):
+    """A stencil kernel at a block shape, f64, l∞, on random inputs:
+    ``(kernel call, plain call, ghosted block for the library call, bytes,
+    flops)``.  Bytes count each input read once and each output written
+    once: the block (or the ghosted block) and the rhs in, the new block
+    and the partials out, the six face planes for the halo kernels."""
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ops as jops
+    from repro_torch.kernels.jacobi3d import ref as jref
+    from repro_torch.solvers.fixed_point import ghosted6
+
+    bx, by, bz = shape
+    cells = bx * by * bz
+    x, b = rand(shape), rand(shape)
+    _, _, nx, ny = jref.tile_grid(bx, by, jref.DEFAULT_TILE)
+    flops = 18 * cells if k in ("fused_sweep_residual", "fused_sweep_residual_halo") \
+        else 25 * cells
+    if k in HALO_KERNELS:
+        h = [rand(s) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
+        nbytes = 8 * (3 * cells + sum(p.numel() for p in h)) + 4 * nx * ny
+        if k == "fused_sweep_residual_halo":
+            kern = lambda: jk.fused_sweep_residual_halo(x, h, b, st.coefs)  # noqa: E731
+            plain = lambda: jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)  # noqa: E731
+        else:
+            kern = lambda: jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, 1)  # noqa: E731
+            plain = lambda: jref.fused_rbgs_sweep_residual_halo_ref(  # noqa: E731
+                x, h, b, st.coefs, 1)
+        return kern, plain, ghosted6(x, h), nbytes, flops
+    ghosts = (rand((by, bz)), rand((by, bz)), rand((bx, bz)), rand((bx, bz)))
+    g = jops.ghost_pad1(x, ghosts)
+    if k == "fused_sweep_residual":
+        kern = lambda: jk.fused_sweep_residual(g, b, st.coefs)  # noqa: E731
+        plain = lambda: jref.fused_sweep_residual_ref(g, b, st.coefs)  # noqa: E731
+        nbytes = 8 * (g.numel() + 2 * cells) + 4 * nx * ny
+    else:
+        g2 = jops.ghost_pad2(x, ghosts)
+        kern = lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0)  # noqa: E731
+        plain = lambda: jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0)  # noqa: E731
+        nbytes = 8 * (g2.numel() + 2 * cells) + 4 * nx * ny
+    return kern, plain, g, nbytes, flops
+
+
+def _bound(nbytes, flops):
+    """The least time (ms) the card could take, and which of bytes and
+    operations sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _shape_str(shape) -> str:
+    return "x".join(map(str, shape))
+
+
 def time_kernels(st, dev) -> dict:
-    """Per-kernel times at the main-path shapes (f64, l∞)."""
+    """Per-kernel times (f64, l∞) keyed by (kernel, block shape): the
+    stencils at every main-path shape, #5 at its two; and keyed by
+    (kernel, shape, "cold") the two shard-block sweeps over six shards'
+    worth of rotating inputs."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
     from repro_torch.kernels.jacobi3d import ops as jops
-    from repro_torch.kernels.jacobi3d import ref as jref
     from repro_torch.kernels.residual_norm import ref as rref
     from repro_torch.kernels.residual_norm import residual_norm as rk
-    from repro_torch.solvers.fixed_point import ghosted6
 
     gen = torch.Generator(device=dev).manual_seed(1)
     f64 = torch.float64
@@ -403,85 +542,106 @@ def time_kernels(st, dev) -> dict:
     def rand(shape):
         return torch.rand(shape, generator=gen, device=dev, dtype=f64) * 2 - 1
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F64_FLOPS
-        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     # the nearest single PyTorch call for the stencils: the off-diagonal
     # apply alone as a 3-D convolution (it computes less than the kernels)
     w = torch.zeros((1, 1, 3, 3, 3), dtype=f64, device=dev)
     w[0, 0, 0, 1, 1], w[0, 0, 2, 1, 1] = st.xm, st.xp
     w[0, 0, 1, 0, 1], w[0, 0, 1, 2, 1] = st.ym, st.yp
     w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = st.zm, st.zp
-
-    def timed(k, shape, fns):
-        kern, plain, lib, (bound_ms, bound_by) = fns
-        (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
-        print(f"time {k} at {'x'.join(map(str, shape))} f64: kernel {ms:.4f} ms (eager "
-              f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
-
     out = {}
-    for name in ("main", "mesh32", "mesh222"):
-        bx, by, bz = shape = HALO_SHAPES[name]
-        cells = bx * by * bz
-        x, b = rand(shape), rand(shape)
-        h = [rand(s) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
-        _, _, nx, ny = jref.tile_grid(bx, by, jref.DEFAULT_TILE)
-        # x, b and the new block, the six planes, the partials
-        nbytes = 8 * (3 * cells + sum(p.numel() for p in h)) + 4 * nx * ny
+
+    def record(k, shape, fns, bound):
+        kern, plain, lib = fns
+        (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
+        print(f"time {k} at {_shape_str(shape)} f64: kernel {ms:.4f} ms (eager "
+              f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        out[k, shape] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
+
+    def stencil(k, shape):
+        kern, plain, gin, nbytes, flops = _stencil_case(k, shape, st, rand)
         # the library call: the off-diagonal apply as a convolution of the
         # ghosted block, its assembly left out
-        gin = ghosted6(x, h)[None, None]
-        rows = out.setdefault(name, {})
-        rows["fused_sweep_residual_halo"] = timed("fused_sweep_residual_halo", shape, (
-            lambda: jk.fused_sweep_residual_halo(x, h, b, st.coefs),
-            lambda: jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs),
-            lambda: F.conv3d(gin, w), bound(nbytes, 18 * cells)))
-        rows["fused_rbgs_sweep_residual_halo"] = timed(
-            "fused_rbgs_sweep_residual_halo", shape, (
-                lambda: jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, 1),
-                lambda: jref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, 1),
-                lambda: F.conv3d(gin, w), bound(nbytes, 25 * cells)))
+        gin = gin[None, None]
+        record(k, shape, (kern, plain, lambda: F.conv3d(gin, w)), _bound(nbytes, flops))
+
+    for name in ("main", "mesh32", "mesh222"):
+        shape = HALO_SHAPES[name]
+        for k in HALO_KERNELS:
+            stencil(k, shape)
         # what the halo kernel saves: assembling the ghosted block first
         # (ghost_pad1, the 1-D path's assembly) and sweeping it with #1
-        pad_ms, pad_call_ms = _time_ms(
-            lambda: jk.fused_sweep_residual(jops.ghost_pad1(x, h[:4]), b, st.coefs))
-        print(f"time ghost_pad1 + fused_sweep_residual at {bx}x{by}x{bz} f64: "
-              f"{pad_ms:.4f} ms (eager call {pad_call_ms:.4f} ms)")
-        del x, b, h, gin
-    for name, shape in (("main", SHAPES["main"]), ("shard", SHAPES["shard"])):
         bx, by, bz = shape
-        cells = bx * by * bz
         x, b = rand(shape), rand(shape)
-        ghosts = (rand((by, bz)), rand((by, bz)), rand((bx, bz)), rand((bx, bz)))
-        g, g2 = jops.ghost_pad1(x, ghosts), jops.ghost_pad2(x, ghosts)
-        _, _, nx, ny = jref.tile_grid(bx, by, jref.DEFAULT_TILE)
-        gin = g[None, None]
-        fns = {
-            "fused_sweep_residual": (
-                lambda: jk.fused_sweep_residual(g, b, st.coefs),
-                lambda: jref.fused_sweep_residual_ref(g, b, st.coefs),
-                lambda: F.conv3d(gin, w),
-                bound(8 * (g.numel() + 2 * cells) + 4 * nx * ny, 18 * cells)),
-            "fused_rbgs_sweep_residual": (
-                lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0),
-                lambda: jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0),
-                lambda: F.conv3d(gin, w),
-                bound(8 * (g2.numel() + 2 * cells) + 4 * nx * ny, 25 * cells)),
-            "diff_norm_partials": (
-                lambda: rk.diff_norm_partials(x, b),
-                lambda: rref.diff_norm_partials_ref(x, b),
-                lambda: torch.dist(x, b, INF),
-                bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells)),
-        }
-        rows = out.setdefault(name, {})
-        for k, fn in fns.items():
-            rows[k] = timed(k, shape, fn)
-        del x, b, g, g2, gin
+        h = [rand(s) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz))]
+        pad_ms, pad_call_ms = _time_ms(
+            lambda: jk.fused_sweep_residual(jops.ghost_pad1(x, h), b, st.coefs))
+        print(f"time ghost_pad1 + fused_sweep_residual at {_shape_str(shape)} f64: "
+              f"{pad_ms:.4f} ms (eager call {pad_call_ms:.4f} ms)")
+        del x, b, h
+    for name in ("slab", "slab_y"):   # the (3, 2) mesh's overlap face slabs
+        stencil("fused_sweep_residual_halo", HALO_SHAPES[name])
+    for name in ("main", "shard", "p2"):
+        for k in ("fused_sweep_residual", "fused_rbgs_sweep_residual"):
+            if (k, name) != ("fused_rbgs_sweep_residual", "p2"):   # hybrid runs at p = 6
+                stencil(k, SHAPES[name])
+    for name in ("main", "shard"):
+        shape = SHAPES[name]
+        cells = shape[0] * shape[1] * shape[2]
+        x, b = rand(shape), rand(shape)
+        record("diff_norm_partials", shape, (
+            lambda: rk.diff_norm_partials(x, b), lambda: rref.diff_norm_partials_ref(x, b),
+            lambda: torch.dist(x, b, INF)),
+            _bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells))
+        del x, b
+    # the runtime sweeps its six shards in turn, so each finds its block
+    # gone from the L2: six shards' worth of inputs (> 50 MB), taken in turn
+    for k, shape in (("fused_sweep_residual_halo", HALO_SHAPES["mesh32"]),
+                     ("fused_rbgs_sweep_residual", SHAPES["shard"])):
+        cases = [_stencil_case(k, shape, st, rand) for _ in range(6)]
+        nbytes = cases[0][3]
+        ms, call_ms = _time_ms([c[0] for c in cases], calls=12)
+        warm = out[k, shape]["ms"]
+        print(f"time {k} at {_shape_str(shape)} f64, six shards' inputs in turn "
+              f"({6 * nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms (eager call {call_ms:.4f} "
+              f"ms); one warm input {warm:.4f} ms")
+        out[k, shape, "cold"] = dict(ms=ms, call_ms=call_ms)
+        del cases
+        torch.cuda.empty_cache()
     return out
+
+
+def rank_launches(st, dev, shape_launches, times) -> list:
+    """The stencil kernels' main-path launches by (kernel, block shape),
+    each priced at its shape's device time less its bound, largest first.
+    A shape no timing above covered is timed here (device time only).
+    Residual-only passes of the Jacobi kernels are priced at the sweep's
+    numbers (they write no block, so this over-prices them a little)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+
+    rows = []
+    for (k, shape), n in shape_launches.items():
+        t = times.get((k, shape))
+        if t is None:
+            kern, _, _, nbytes, flops = _stencil_case(k, shape, st, rand)
+            ms, _ = _time_ms(kern)
+            bound_ms, _ = _bound(nbytes, flops)
+            t = dict(ms=ms, bound_ms=bound_ms)
+        rows.append(dict(kernel=k, shape=_shape_str(shape), launches=n, ms=t["ms"],
+                         bound_ms=t["bound_ms"], loss_ms=n * (t["ms"] - t["bound_ms"])))
+    rows.sort(key=lambda r: -r["loss_ms"])
+    print("rank by launches x (device ms - bound ms) over the main paths (f64 device ms at "
+          "each block shape):")
+    for r in rows:
+        print(f"  {r['kernel']:32s} {r['shape']:>12s}  launches {r['launches']:6d}  device "
+              f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  loss {r['loss_ms']:.1f} ms")
+    return rows
 
 
 def _counters():
@@ -932,7 +1092,10 @@ def main() -> int:
     print(nvidia_smi())  # the card and power limit the times were taken at
 
     # the main paths: launch counters from 0 just before each, read just after
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+
     runs, used_by, launches = {}, {}, dict.fromkeys(KERNELS, 0)
+    shape_launches = Counter()   # (stencil kernel, block shape) -> main-path launches
     warm_serve(dev)
     for path, fn, kernels in PATHS:
         _reset_launches()
@@ -944,8 +1107,10 @@ def main() -> int:
             _require(used[k] > 0, f"{k}: not launched on the {path} path")
         for k in launches:
             launches[k] += used[k]
+        shape_launches.update(jk.LAUNCH_SHAPES)
     verify_runs(*(runs[path] for path, _, _ in PATHS[:3]))
     verify_serve(runs["serve"], used_by["serve"], dev)
+    rank_launches(st, dev, shape_launches, times)
 
     rows = []
     for k, (source, replaces) in KERNELS.items():
@@ -953,11 +1118,11 @@ def main() -> int:
             t, shape, out = flash_time, "48x2048x128 kv 8 bf16 causal", "block"
         elif k == "diff_norm_partials":
             # its main-path shape, the 1-D shard block; 185³ is on a "time" line
-            t, shape, out = times["shard"][k], "25x150x150 f64", "partials"
+            t, shape, out = times[k, SHAPES["shard"]], "25x150x150 f64", "partials"
         else:
             # the swept block's error; the other shapes' times are on the
-            # "time ..." lines above
-            t, shape, out = times["main"][k], "185x185x185 f64", "block"
+            # "time ..." and "rank" lines above
+            t, shape, out = times[k, SHAPES["main"]], "185x185x185 f64", "block"
         rows.append(dict(
             name=k, route="cuda", source=source, replaces=replaces,
             launches=launches[k], max_abs_err=check.abs_err[k, out],

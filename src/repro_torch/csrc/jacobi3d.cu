@@ -19,27 +19,66 @@
 //   * each block reduces its residual partial (max|r| or sum r^2, squared
 //     in the field's type and then cast to f32, as on the TPU) in shared
 //     memory and writes one float: no atomics, deterministic results.
-// The red-black Gauss–Seidel flavour keeps the colour dependency inside a
-// thread, as the TPU design kept it inside a tile: a colour-1 cell
-// recomputes the colour-0 updates of its <= 6 in-block neighbours from the
-// input (they are colour 0 by construction); ghost cells stay frozen (the
-// TPU kernel's `real` mask) and z ghosts are the Dirichlet zeros.  The
-// extra reads hit L1/L2, not DRAM.  The checkerboard phase is the global
-// ox + oy, and the residual is the input state's, sharing the first
-// off-diagonal apply.
+// The red-black Gauss–Seidel flavour shares each colour-0 update through
+// shared memory, as the TPU kernel ordered its tile: colour 0 over the tile
+// plus its ring first, then colour 1 (jacobi3d.py:114-121):
+//   * a CTA covers a sub-box of one tile, at most 8 rows by 100 z, and
+//     marches x through the tile plane by plane.  For each plane p it first
+//     computes the colour-0 update of every colour-0 cell of the sub-box and
+//     its one-cell y/z ring into a ring of four x-planes in shared memory
+//     (the x-ring planes i0 - 1 and i1 without their own y/z ring); cells
+//     outside the block keep their frozen ghost values (the TPU kernel's
+//     `real` mask; z ghosts are the Dirichlet zeros of g2).  After one
+//     barrier, the colour-1 cells of plane p - 1 read their six neighbours'
+//     new values from shared memory.  Four slots, not three, so the next
+//     plane's writes never race the previous plane's reads and one barrier
+//     per plane is enough.  A colour-1 cell thus issues its own eight
+//     loads, not the ~49 of recomputing its neighbours;
+//   * threads take the cells in (colour-0, colour-1) pairs of adjacent z:
+//     each colour pass gives every lane a cell, so a warp never runs both
+//     colours' branches;
+//   * a tile is cut into ceil(ty / 8) x S_z sub-boxes, S_z >= bz / 100 for
+//     the shared-memory ring (33 KB in f64, which leaves L1 room for the
+//     neighbour loads), and S_z grows, down to 16 z a sub-box, until the
+//     sub-boxes fill the CTAs the card holds at once (its SMs times the
+//     CTAs of this kernel one SM holds, read from the device once):
+//     25x150x150 has 133 tiles, S_z = 4; 185^3 keeps S_z = 2.  The
+//     sub-boxes of a tile are the CTAs of a thread-block cluster (at most
+//     its largest; a CTA takes every C-th sub-box beyond that), and their
+//     partials meet in rank order through distributed shared memory
+//     (common.cuh): one launch, no atomics, bitwise repeatable;
+//   * every cell's residual is the input state's, from the same
+//     off-diagonal apply as its colour-0 update where it has one; the
+//     checkerboard phase is the global ox + oy.
+// The ring's colour-0 updates outside the sub-box are computed again by the
+// CTA that owns them (0.78 extra updates per colour-0 cell at 4 x 8 x 93),
+// from L1/L2, not DRAM.  Four other layouts timed no faster at 185^3:
+// issuing both colours' loads before the barrier, staging the input planes
+// in shared memory split by z parity (with or without cp.async one plane
+// ahead), and marching one CTA through several tiles along x.
 //
 // C interface (ctypes): pointers and the stream are void*, coefficients
 // are (diag, xm, xp, ym, yp, zm, zp) as doubles, and every entry returns
 // cudaGetLastError() after its launch.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreadsZ = 32;  // lanes along z (contiguous)
 constexpr int kThreadsY = 8;   // rows of the tile per pass
 constexpr int kThreads = kThreadsZ * kThreadsY;
+// RB-GS: a CTA's sub-box of a tile and its shared-memory ring
+constexpr int kRbgsThreads = 256;
+constexpr int kSubRows = 8;      // rows of a sub-box
+constexpr int kSubZ = 100;       // z extent of a sub-box, at most
+constexpr int kMinSubZ = 16;     // z extent below which a split stops
+constexpr int kSlots = 4;        // x-planes of colour-0 results in the ring
 
 template <typename T>
 struct Coefs {
@@ -97,50 +136,89 @@ sweep_kernel(const T* __restrict__ g, const T* __restrict__ b,
 // One-pass hybrid red-black GS sweep over the twice-padded block
 // g2[(bx+4),(by+4),(bz+2)] (ghosts one ring in, as ops.ghost_pad2 lays it
 // out; the outermost ring is never read) with the unpadded rhs b[bx,by,bz].
+// Cluster `tile` covers tile (ti, tj); its tile is cut into sy_n x sz_n
+// sub-boxes of kSubRows rows and zc z, and CTA `rank` takes sub-boxes
+// rank, rank + csize, ...
 template <typename T, bool kLinf>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRbgsThreads)
 rbgs_kernel(const T* __restrict__ g2, const T* __restrict__ b,
             T* __restrict__ out, float* __restrict__ parts, int bx, int by,
-            int bz, int tx, int ty, int oxy, Coefs<T> k) {
-  const int i0 = blockIdx.x * tx, i1 = min(i0 + tx, bx);
-  const int j0 = blockIdx.y * ty, j1 = min(j0 + ty, by);
+            int bz, int tx, int ty, int zc, int oxy, Coefs<T> k) {
+  // colour-0 results of the sub-box and its ring, x-planes p mod kSlots
+  __shared__ T ring[kSlots][kSubRows + 2][kSubZ + 2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ny = (by + ty - 1) / ty;
+  const int tile = blockIdx.x / csize, ti = tile / ny, tj = tile - ti * ny;
+  const int i0 = ti * tx, i1 = min(i0 + tx, bx);
+  const int j0 = tj * ty, j1 = min(j0 + ty, by);
   const long sy = bz + 2, sx = (by + 4) * sy;
   const long bsx = (long)by * bz;
-  // colour-0 update of the in-block cell at (g2 index, b index)
-  auto upd0 = [&](long gn, long bn) {
-    return (b[bn] - offdiag(g2, gn, sx, sy, k)) / k.diag;
-  };
+  const int sz_n = (bz + zc - 1) / zc;
+  const int nsub = ((j1 - j0 + kSubRows - 1) / kSubRows) * sz_n;
+  // g2 and b indices of block cell (i, j, z); i, j may be -1 or bx / by
+  auto gidx = [&](int i, int j, int z) { return (i + 2) * sx + (j + 2) * sy + (z + 1); };
+  auto bidx = [&](int i, int j, int z) { return i * bsx + (long)j * bz + z; };
   float acc = 0.f;
-  for (int j = j0 + threadIdx.y; j < j1; j += blockDim.y) {
-    for (int z = threadIdx.x; z < bz; z += blockDim.x) {
-      for (int i = i0; i < i1; ++i) {
-        const long gc = (i + 2) * sx + (j + 2) * sy + (z + 1);
-        const long bc = i * bsx + (long)j * bz + z;
-        const T off0 = offdiag(g2, gc, sx, sy, k);
-        const T bv = b[bc];
-        const T r = bv - (k.diag * g2[gc] + off0);
-        acc = contribution(acc, r, kLinf);
-        T nv;
-        if (((i + j + z + oxy) & 1) == 0) {
-          nv = (bv - off0) / k.diag;
+  for (int sub = rank; sub < nsub; sub += csize) {
+    const int ja = j0 + (sub / sz_n) * kSubRows, jb = min(ja + kSubRows, j1);
+    const int za = (sub % sz_n) * zc, zb = min(za + zc, bz);
+    __syncthreads();  // the previous sub-box's last reads of the ring are done
+    for (int p = i0 - 1; p <= i1; ++p) {
+      // colour 0 of plane p: the sub-box and its y/z ring (no ring on the
+      // x-ring planes), rows ra..rb-1 and z from zlo on, in z pairs
+      const bool xring = p < i0 || p >= i1;
+      const int ra = xring ? ja : ja - 1, rb = xring ? jb : jb + 1;
+      const int zlo = xring ? za : za - 1, zhi = xring ? zb : zb + 1;  // [zlo, zhi)
+      const int npair = (zhi - zlo + 1) / 2;
+      const int slot = (p - i0 + 1) % kSlots;
+      const bool in_x = p >= 0 && p < bx;
+      for (int e = threadIdx.x; e < (rb - ra) * npair; e += kRbgsThreads) {
+        const int rr = e / npair;
+        const int j = ra + rr, z0 = zlo + 2 * (e - rr * npair);
+        const int z = z0 + ((p + j + z0 + oxy) & 1);  // the pair's colour-0 cell
+        if (z >= zhi) continue;
+        const long gc = gidx(p, j, z);
+        T v;
+        if (in_x && j >= 0 && j < by && z >= 0 && z < bz) {
+          const T off0 = offdiag(g2, gc, sx, sy, k);
+          const T bv = b[bidx(p, j, z)];
+          v = (bv - off0) / k.diag;
+          if (!xring && j >= ja && j < jb && z >= za && z < zb) {  // owned
+            acc = contribution(acc, bv - (k.diag * g2[gc] + off0), kLinf);
+            out[bidx(p, j, z)] = v;
+          }
         } else {
-          const T vxm = i > 0 ? upd0(gc - sx, bc - bsx) : g2[gc - sx];
-          const T vxp = i < bx - 1 ? upd0(gc + sx, bc + bsx) : g2[gc + sx];
-          const T vym = j > 0 ? upd0(gc - sy, bc - bz) : g2[gc - sy];
-          const T vyp = j < by - 1 ? upd0(gc + sy, bc + bz) : g2[gc + sy];
-          const T vzm = z > 0 ? upd0(gc - 1, bc - 1) : g2[gc - 1];
-          const T vzp = z < bz - 1 ? upd0(gc + 1, bc + 1) : g2[gc + 1];
-          const T off1 = k.xm * vxm + k.xp * vxp + k.ym * vym + k.yp * vyp +
-                         k.zm * vzm + k.zp * vzp;
-          nv = (bv - off1) / k.diag;
+          v = g2[gc];  // frozen ghost
         }
-        out[bc] = nv;
+        ring[slot][j - (ja - 1)][z - (za - 1)] = v;
+      }
+      __syncthreads();
+      // colour 1 of plane q = p - 1, owned cells only
+      const int q = p - 1;
+      if (q < i0) continue;
+      const int sq = (q - i0 + 1) % kSlots;
+      const int sm = (q - i0) % kSlots, sp = (q - i0 + 2) % kSlots;
+      const int npair1 = (zb - za + 1) / 2;
+      for (int e = threadIdx.x; e < (jb - ja) * npair1; e += kRbgsThreads) {
+        const int rr = e / npair1;
+        const int j = ja + rr, z0 = za + 2 * (e - rr * npair1);
+        const int z = z0 + 1 - ((q + j + z0 + oxy) & 1);  // the pair's colour-1 cell
+        if (z >= zb) continue;
+        const long gc = gidx(q, j, z);
+        const T off0 = offdiag(g2, gc, sx, sy, k);
+        const T bv = b[bidx(q, j, z)];
+        acc = contribution(acc, bv - (k.diag * g2[gc] + off0), kLinf);
+        const int r = j - (ja - 1), c = z - (za - 1);
+        const T off1 = k.xm * ring[sm][r][c] + k.xp * ring[sp][r][c] +
+                       k.ym * ring[sq][r - 1][c] + k.yp * ring[sq][r + 1][c] +
+                       k.zm * ring[sq][r][c - 1] + k.zp * ring[sq][r][c + 1];
+        out[bidx(q, j, z)] = (bv - off1) / k.diag;
       }
     }
   }
-  const float tot = repro::block_reduce<kThreads>(acc, kLinf);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    parts[blockIdx.x * gridDim.y + blockIdx.y] = tot;
+  repro::cluster_partial<kRbgsThreads>(acc, kLinf, parts + tile);
 }
 
 template <typename T>
@@ -171,22 +249,44 @@ int launch_sweep(const void* g, const void* b, void* out, void* parts, int bx,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kLinf>
+cudaError_t launch_rbgs_as(const T* g2, const T* b, T* out, float* parts, int bx,
+                           int by, int bz, int tx, int ty, int oxy, Coefs<T> k,
+                           cudaStream_t s) {
+  auto kern = rbgs_kernel<T, kLinf>;
+  static repro::DeviceFit known[repro::kMaxDevices];
+  repro::DeviceFit fit;
+  cudaError_t err = repro::device_fit(kern, kRbgsThreads, known, &fit);
+  if (err != cudaSuccess) return err;
+  const long tiles = (long)((bx + tx - 1) / tx) * ((by + ty - 1) / ty);
+  const long sy_n = (ty + kSubRows - 1) / kSubRows;
+  // z sub-boxes: as few as the ring allows, more until the sub-boxes fill
+  // the CTAs the card holds at once, none under kMinSubZ
+  long sz_n = (bz + kSubZ - 1) / kSubZ;
+  const long want = ((long)fit.per_sm * fit.sms + tiles * sy_n - 1) / (tiles * sy_n);
+  sz_n = std::max(sz_n, std::min(want, std::max(1L, (long)bz / kMinSubZ)));
+  const int zc = static_cast<int>((bz + sz_n - 1) / sz_n);
+  sz_n = (bz + zc - 1) / zc;
+  const long c = std::min(sy_n * sz_n, (long)fit.cmax);
+  return repro::launch_clusters(kern, tiles, static_cast<int>(c), kRbgsThreads, s, g2,
+                                b, out, parts, bx, by, bz, tx, ty, zc, oxy, k);
+}
+
 template <typename T>
 int launch_rbgs(const void* g2, const void* b, void* out, void* parts, int bx,
                 int by, int bz, int tx, int ty, int oxy, int linf, Coefs<T> k,
                 void* stream) {
-  const dim3 grid((bx + tx - 1) / tx, (by + ty - 1) / ty);
-  const dim3 block(kThreadsZ, kThreadsY);
+  if (tx < 1 || ty < 1 || bx < 1 || by < 1 || bz < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto gp = static_cast<const T*>(g2);
   auto bp = static_cast<const T*>(b);
   auto op = static_cast<T*>(out);
   auto pp = static_cast<float*>(parts);
-  if (linf)
-    rbgs_kernel<T, true><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k);
-  else
-    rbgs_kernel<T, false><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      linf ? launch_rbgs_as<T, true>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k, s)
+           : launch_rbgs_as<T, false>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace

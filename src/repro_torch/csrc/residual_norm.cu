@@ -27,7 +27,6 @@
 //
 // C interface (ctypes): pointers and the stream are void*; every entry
 // returns cudaGetLastError() after its launch.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,8 +41,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kUnroll = 4;          // 16-byte loads of each operand in flight per thread
-constexpr int kMaxCluster = 16;     // non-portable cluster size (portable: 8)
-constexpr int kMaxDevices = 64;
 
 // the subtraction type: double for f64 inputs, float otherwise
 template <typename T> struct Wide { using type = float; };
@@ -119,72 +116,16 @@ diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
   }
 
-  __shared__ float cta_total;
-  const float tot = repro::block_reduce<kThreads>(acc, kLinf);
-  if (threadIdx.x == 0) cta_total = tot;
-  cluster.sync();  // every CTA's total is written
-  if (rank == 0 && threadIdx.x == 0) {
-    float r = cta_total;
-    for (int c = 1; c < csize; ++c) {
-      const float v = *cluster.map_shared_rank(&cta_total, c);
-      r = kLinf ? repro::nanmax(r, v) : r + v;
-    }
-    parts[part] = r;
-  }
-  cluster.sync();  // no CTA leaves while rank 0 still reads its shared memory
-}
-
-// What a launch of `kern` needs to know of the current device: its SM
-// count and the largest cluster it can hold (16 where the card can, else
-// the portable 8).  `known` is the kernel's own per-device memo, so the
-// attribute calls run once per kernel and device and stay out of
-// CUDA-graph captures after the first launch.
-struct DeviceFit {
-  int sms = 0, cmax = 0;
-};
-
-template <typename K>
-cudaError_t device_fit(K kern, DeviceFit (&known)[kMaxDevices], DeviceFit* out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && known[dev].sms) {
-    *out = known[dev];
-    return cudaSuccess;
-  }
-  DeviceFit fit;
-  err = cudaDeviceGetAttribute(&fit.sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  int c = 8;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) ==
-      cudaSuccess) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = kMaxCluster;
-    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
-    cfg.gridDim = dim3(kMaxCluster);
-    cfg.blockDim = dim3(kThreads);
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) == cudaSuccess && clusters > 0)
-      c = kMaxCluster;
-  }
-  cudaGetLastError();  // a refused query leaves no error behind
-  fit.cmax = c;
-  if (dev < kMaxDevices) known[dev] = fit;
-  *out = fit;
-  return cudaSuccess;
+  repro::cluster_partial<kThreads>(acc, kLinf, parts + part);
 }
 
 template <typename T, bool kLinf, int kVec>
 cudaError_t launch_vec(const T* a, const T* b, float* parts, long n, long block,
                        cudaStream_t s) {
   auto kern = diff_norm_kernel<T, kLinf, kVec>;
-  static DeviceFit known[kMaxDevices];
-  DeviceFit fit;
-  cudaError_t err = device_fit(kern, known, &fit);
+  static repro::DeviceFit known[repro::kMaxDevices];
+  repro::DeviceFit fit;
+  cudaError_t err = repro::device_fit(kern, kThreads, known, &fit);
   if (err != cudaSuccess) return err;
   const long nparts = (n + block - 1) / block;
   // a CTA on every SM while the partials cover less than half of them,
@@ -195,20 +136,8 @@ cudaError_t launch_vec(const T* a, const T* b, float* parts, long n, long block,
     c = std::min(c, std::max(1L, block / (static_cast<long>(kThreads) * kVec)));
     c = std::min(c, static_cast<long>(fit.cmax));
   }
-  if (nparts * c > 0x7fffffffL) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(c);
-  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(static_cast<unsigned>(nparts * c));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, a, b, parts, n, block);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return repro::launch_clusters(kern, nparts, static_cast<int>(c), kThreads, s, a, b,
+                                parts, n, block);
 }
 
 template <typename T>

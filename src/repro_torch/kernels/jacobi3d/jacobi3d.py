@@ -5,10 +5,12 @@ unghosted block and six face planes (``csrc/jacobi3d_halo.cu``).
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches (only
 launches — the CPU path does not count), so a run can show that its main
-path went through the kernels.
+path went through the kernels; ``LAUNCH_SHAPES`` counts the same launches
+by (kernel, block shape), so a run can price them at each shape's time.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -28,6 +30,7 @@ LAUNCHES: Dict[str, int] = {"fused_sweep_residual": 0,
                             "fused_rbgs_sweep_residual": 0,
                             "fused_sweep_residual_halo": 0,
                             "fused_rbgs_sweep_residual_halo": 0}
+LAUNCH_SHAPES: Counter = Counter()   # (kernel, (bx, by, bz)) -> launches
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _PLANES = ("gxm", "gxp", "gym", "gyp", "gzm", "gzp")
@@ -48,6 +51,7 @@ _SIGNATURES = {src: {f"{k}_{s}": sig for k in kernels for s in _SUFFIX.values()}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def _check_block(b: torch.Tensor) -> None:
@@ -99,6 +103,7 @@ def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Ten
                  torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(err, kernel)
     LAUNCHES[kernel] += 1
+    LAUNCH_SHAPES[kernel, (bx, by, bz)] += 1
     return parts
 
 

@@ -10,8 +10,10 @@ They import nothing of JAX, so they run on a machine with a GPU and no JAX
 
 Elsewhere each test skips, deciding inside the test.  Tolerances: f64
 blocks 1e-12 (FMA contraction), f32 blocks 1e-5, f32 partial sums 2e-5
-relative (summation order); solves on the card and on the CPU must take the
-same number of outer iterations and agree to 1e-10 in x.  Flash attention:
+relative (summation order), f64 l∞ partials 1e-6 (the f32 cast), the
+stencil sweeps' partials bitwise equal across two calls; solves on the card
+and on the CPU must take the same number of outer iterations and agree to
+1e-10 in x.  Flash attention:
 2e-5 (f32, on the f32 kernel: a bf16 or TF32 product would miss it) and
 3e-2 (bf16, on the tensor-core kernel) of the largest output magnitude, as
 ``tests/test_kernels.py:83``, and in bf16 against the flat plain version
@@ -157,28 +159,130 @@ def test_halo_kernels_match_plain_on_card(card):
 @pytest.mark.cuda
 def test_halo_kernel_face_slab_is_bitwise_the_block_face(card):
     """The comm overlap's premise: a thickness-1 slab swept by the halo
-    kernel gives bitwise the face of the whole block's sweep."""
+    kernel gives bitwise the face of the whole block's sweep — at a small
+    block and at the (3, 2) mesh's 50×75×150 block, where the grid splits
+    each tile over a cluster (and the x slab's does too)."""
     st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
     gen = torch.Generator(device=card).manual_seed(2)
-    shape = (6, 7, 40)
+    for shape in ((6, 7, 40), (50, 75, 150)):
+        x = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+        b = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+        h = _halo_planes(shape, gen, card, torch.float64)
+        full, _ = tk.fused_sweep_residual_halo(x, h, b, st.coefs)
+        for d in range(3):
+            for idx in (0, shape[d] - 1):
+                sg = []
+                for e in range(3):
+                    if e == d:
+                        sg += [h[2 * d] if idx == 0 else x.select(d, idx - 1),
+                               x.select(d, idx + 1) if idx == 0 else h[2 * d + 1]]
+                    else:
+                        pos = d if d < e else d - 1
+                        sg += [h[2 * e].narrow(pos, idx, 1), h[2 * e + 1].narrow(pos, idx, 1)]
+                slab, _ = tk.fused_sweep_residual_halo(
+                    x.narrow(d, idx, 1).contiguous(), sg, b.narrow(d, idx, 1).contiguous(),
+                    st.coefs)
+                assert torch.equal(slab, full.narrow(d, idx, 1)), (shape, d, idx)
+
+
+def _rel_close(got, want, tol):
+    """max|got − want| ≤ tol × max|want|: chip_smoke.py's bar."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max()) <= tol * max(float(w.abs().max()), 1e-30)
+
+
+# chip_smoke.py's tolerances: blocks (f64 FMA contraction, f32 rounding), and
+# partials (l∞ max of f32-cast values, l2 f32 summation order)
+_BLOCK_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+_PART_TOL = {(torch.float64, True): 1e-6, (torch.float32, True): 1e-5,
+             (torch.float64, False): 2e-5, (torch.float32, False): 2e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", [
+    ((50, 75, 150), [(4, 8)]), ((75, 75, 75), [(4, 8)]), ((25, 150, 150), [(4, 8)]),
+    ((1, 75, 150), [(4, 8)]), ((185, 185, 185), [(4, 8)]),
+    ((13, 37, 19), [(4, 8), (3, 5), (8, 128)]),
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_halo_sweep_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
+    """#3 with each tile split over a cluster (the mesh blocks, the shard
+    block, the x overlap slab) and with one CTA per tile (185³, the
+    ragged block, tiles that do not divide it): against the plain
+    version, and its partials bitwise equal across two calls."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
+    h = _halo_planes(shape, gen, card, dtype)
+    for tile in tiles:
+        for linf in (True, False):
+            for op in ("sweep", "residual"):
+                got = tk.fused_sweep_residual_halo(x, h, b, st.coefs, tile=tile, op=op,
+                                                   linf=linf)
+                again = tk.fused_sweep_residual_halo(x, h, b, st.coefs, tile=tile, op=op,
+                                                     linf=linf)
+                want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, tile=tile,
+                                                          op=op, linf=linf)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, linf, op)
+                assert got[1].shape == want[1].shape
+                assert _rel_close(got[1], want[1], _PART_TOL[dtype, linf]), (tile, linf, op)
+                assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", [
+    ((185, 185, 185), [(4, 8)]), ((25, 150, 150), [(4, 8)]), ((75, 150, 150), [(4, 8)]),
+    ((13, 37, 19), [(4, 8), (3, 5), (8, 128)]),
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rbgs_sweep_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
+    """#2 over sub-boxes split to fill the card (the shard block), split
+    only for its shared-memory ring (185³, 75×150×150) and unsplit (the
+    ragged block; a tall tile that takes more sub-boxes than a cluster
+    holds CTAs): both checkerboard phases against the plain version, and
+    its partials bitwise equal across two calls."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(6)
+    bx, by, bz = shape
+    g2 = torch.rand((bx + 4, by + 4, bz + 2), generator=gen, device=card, dtype=dtype)
+    b = torch.rand(shape, generator=gen, device=card, dtype=dtype)
+    for tile in tiles:
+        for oxy in (0, 1):
+            for linf in (True, False):
+                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, tile=tile, linf=linf)
+                again = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, tile=tile,
+                                                     linf=linf)
+                want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy, tile=tile,
+                                                          linf=linf)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, oxy, linf)
+                assert got[1].shape == want[1].shape
+                assert _rel_close(got[1], want[1], _PART_TOL[dtype, linf]), (tile, oxy, linf)
+                assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(50, 75, 150), (25, 150, 150), (185, 185, 185), (13, 37, 19)])
+def test_stencil_nan_reaches_linf_partials_on_card(card, shape):
+    """A NaN in the block reaches the l∞ partials of #2 and #3 exactly where
+    it reaches the plain version's, split grid or not."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(7)
+    bx, by, bz = shape
+    i, j, z = bx // 2, by // 3, bz - 1
     x = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
     b = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
     h = _halo_planes(shape, gen, card, torch.float64)
-    full, _ = tk.fused_sweep_residual_halo(x, h, b, st.coefs)
-    for d in range(3):
-        for idx in (0, shape[d] - 1):
-            sg = []
-            for e in range(3):
-                if e == d:
-                    sg += [h[2 * d] if idx == 0 else x.select(d, idx - 1),
-                           x.select(d, idx + 1) if idx == 0 else h[2 * d + 1]]
-                else:
-                    pos = d if d < e else d - 1
-                    sg += [h[2 * e].narrow(pos, idx, 1), h[2 * e + 1].narrow(pos, idx, 1)]
-            slab, _ = tk.fused_sweep_residual_halo(
-                x.narrow(d, idx, 1).contiguous(), sg, b.narrow(d, idx, 1).contiguous(),
-                st.coefs)
-            assert torch.equal(slab, full.narrow(d, idx, 1)), (d, idx)
+    x[i, j, z] = float("nan")
+    got = tk.fused_sweep_residual_halo(x, h, b, st.coefs)[1].isnan()
+    want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)[1].isnan()
+    assert bool(want.any()) and torch.equal(got, want)
+    g2 = torch.rand((bx + 4, by + 4, bz + 2), generator=gen, device=card, dtype=torch.float64)
+    g2[i + 2, j + 2, z + 1] = float("nan")
+    for oxy in (0, 1):
+        got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy)[1].isnan()
+        want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy)[1].isnan()
+        assert bool(want.any()) and torch.equal(got, want)
 
 
 MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 2, 1),
