@@ -8,30 +8,32 @@ Phases, each of which must pass or the script exits non-zero:
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. hold every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a ragged block, over every variant, with the
-   tolerance stated beside each check (bf16 attention element by element
-   as well, under the bar its tensor-core arithmetic allows); the stencil
-   kernels' partials must be bitwise equal across two calls and carry a
-   NaN, and a face slab swept by the halo kernel must be bitwise the
-   block's face; count the tensor-core instructions in the flash
-   library's SASS;
+   main path's shapes and a ragged block, over every variant and, for the
+   stencil and diff-norm kernels, every partial mode (l∞ max|r|, l2 Σr²,
+   l1 Σ|r|), with the tolerance stated beside each check (bf16 attention
+   element by element as well, under the bar its tensor-core arithmetic
+   allows); the stencil kernels' outputs and partials must be bitwise equal
+   across two calls and carry a NaN, and a face slab swept by the halo
+   kernel must be bitwise the block's face; count the tensor-core
+   instructions in the flash library's SASS;
 3. time each kernel, its plain version, the nearest single PyTorch call and
    the least time the card could take (CUDA events over 20 CUDA-graph replays,
    so host launch overhead is left out; the eager per-call time is kept
    beside it), and the two shard-block sweeps also over six shards' worth
    of rotating inputs, more than the 50 MB L2, as the runtime finds them;
 4. ``solve_single`` at n = 185, f64 (the paper's larger grid), for the four
-   detection modes with the hybrid sweep, Jacobi, and the unfused baseline:
-   each run must converge with the exact residual of its result under ε̃;
+   detection modes with the hybrid sweep, Jacobi, and the unfused baseline,
+   in l∞, and PFAIT with the hybrid sweep in l1: each run must converge
+   with the exact residual of its result, in its norm, under ε̃;
 5. the stacked 1-D shard runtime at n = 150, f64, p = 6: blocking must
    follow the synchronous reference trajectory, and non-blocking
-   (heterogeneous Jacobi shards, and hybrid) and recursive doubling (p = 2)
-   must detect with no false detection;
+   (heterogeneous Jacobi shards, in l∞ and in l1, and hybrid) and
+   recursive doubling (p = 2) must detect with no false detection;
 6. the mesh shard runtime at n = 150, f64, on the paper's (3, 2) process
    grid and a (2, 2, 2) mesh: blocking must follow the synchronous
-   reference trajectory, comm overlap must be bitwise equal to no overlap
-   under heterogeneous knobs, and non-blocking hybrid, recursive doubling
-   and NFAIS2 must detect with no false detection;
+   reference trajectory (in l∞ and in l1), comm overlap must be bitwise
+   equal to no overlap under heterogeneous knobs, and non-blocking hybrid,
+   recursive doubling and NFAIS2 must detect with no false detection;
 7. serve qwen2-1.5b at full width (bf16, seed-initialised weights): batch 4,
    2048-token prompts, 64 new tokens through ``launch.serve.serve``; every
    layer's prefill attention must launch the flash kernel, every logit must
@@ -57,6 +59,7 @@ import dataclasses
 import json
 from collections import Counter
 import statistics
+from typing import NamedTuple
 import subprocess
 import sys
 import time
@@ -210,6 +213,15 @@ def _bar_share(got, want, bar) -> float:
     return float(((got.double() - want.double()).abs() / bar).max())
 
 
+# the partial modes: max|r| (l∞), Σr² (l2), Σ|r| (l1), and the reduction
+# each is held as
+ORDS = {INF: "max", 2.0: "sum", 1.0: "sum"}
+
+
+def _ord_tag(ord_) -> str:
+    return {INF: "linf", 2.0: "l2", 1.0: "l1"}[ord_]
+
+
 def check_kernels(st, dev, check: Checker) -> None:
     import torch
 
@@ -223,35 +235,41 @@ def check_kernels(st, dev, check: Checker) -> None:
     def rand(shape, dtype):
         return torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 2 - 1
 
+    def same_twice(kernel, tag, call):
+        """The kernel's output and partials bitwise equal across two calls."""
+        got = call()
+        again = call()
+        _require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                 f"{kernel} {tag}: two calls on the same inputs differ")
+        return got
+
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     n_cases = 0
     for sname, (bx, by, bz) in SHAPES.items():
         a, c = rand((bx, by, bz), torch.float64), rand((bx, by, bz), torch.float64)
-        for linf in (True, False):
-            _require(torch.equal(rk.diff_norm_partials(a, c, linf=linf),
-                                 rk.diff_norm_partials(a, c, linf=linf)),
-                     f"diff_norm_partials {sname}: two calls on the same inputs differ")
+        for ord_ in ORDS:
+            same_twice("diff_norm_partials", sname,
+                       lambda: (rk.diff_norm_partials(a, c, ord=ord_),))
         for dt, dtype in dtypes.items():
             g = rand((bx + 2, by + 2, bz + 2), dtype)
             g2 = rand((bx + 4, by + 4, bz + 2), dtype)
             b = rand((bx, by, bz), dtype)
-            for linf in (True, False):
-                red = "max" if linf else "sum"
+            for ord_, red in ORDS.items():
                 for op in ("sweep", "residual"):
-                    got = jk.fused_sweep_residual(g, b, st.coefs, op=op, linf=linf)
-                    want = jref.fused_sweep_residual_ref(g, b, st.coefs, op=op, linf=linf)
-                    tag = f"{sname} {dt} op={op} {red}"
+                    tag = f"{sname} {dt} op={op} {_ord_tag(ord_)}"
+                    got = same_twice("fused_sweep_residual", tag, lambda: jk.fused_sweep_residual(
+                        g, b, st.coefs, op=op, ord=ord_))
+                    want = jref.fused_sweep_residual_ref(g, b, st.coefs, op=op, ord=ord_)
                     check("fused_sweep_residual", tag + " block", "block", dt, got[0], want[0])
                     check("fused_sweep_residual", tag + " partials", red, dt, got[1], want[1])
                     n_cases += 1
                 for ox, oy in ((0, 0), (3, 5), (0, 1)):
-                    got = jk.fused_rbgs_sweep_residual(g2, b, st.coefs, ox + oy, linf=linf)
-                    _require(torch.equal(got[1], jk.fused_rbgs_sweep_residual(
-                        g2, b, st.coefs, ox + oy, linf=linf)[1]),
-                        f"fused_rbgs_sweep_residual {sname}: two calls' partials differ")
+                    tag = f"{sname} {dt} phase=({ox},{oy}) {_ord_tag(ord_)}"
+                    got = same_twice("fused_rbgs_sweep_residual", tag,
+                                     lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs,
+                                                                          ox + oy, ord=ord_))
                     want = jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, ox + oy,
-                                                              linf=linf)
-                    tag = f"{sname} {dt} phase=({ox},{oy}) {red}"
+                                                              ord=ord_)
                     check("fused_rbgs_sweep_residual", tag + " block", "block", dt,
                           got[0], want[0])
                     check("fused_rbgs_sweep_residual", tag + " partials", red, dt,
@@ -259,38 +277,36 @@ def check_kernels(st, dev, check: Checker) -> None:
                     n_cases += 1
         for dt, dtype in (*dtypes.items(), ("bf16", torch.bfloat16)):
             a, c = rand((bx, by, bz), dtype), rand((bx, by, bz), dtype)
-            for linf in (True, False):
-                red = "max" if linf else "sum"
-                check("diff_norm_partials", f"{sname} {dt} {red}", red, dt,
-                      rk.diff_norm_partials(a, c, linf=linf),
-                      rref.diff_norm_partials_ref(a, c, linf=linf))
+            for ord_, red in ORDS.items():
+                check("diff_norm_partials", f"{sname} {dt} {_ord_tag(ord_)}", red, dt,
+                      rk.diff_norm_partials(a, c, ord=ord_),
+                      rref.diff_norm_partials_ref(a, c, ord=ord_))
                 n_cases += 1
     for sname, (bx, by, bz) in HALO_SHAPES.items():
         for dt, dtype in dtypes.items():
             x, b = rand((bx, by, bz), dtype), rand((bx, by, bz), dtype)
             h = [rand(s, dtype) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz),
                                            (bx, by), (bx, by))]
-            for linf in (True, False):
-                red = "max" if linf else "sum"
+            for ord_, red in ORDS.items():
                 for op in ("sweep", "residual"):
-                    got = jk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, linf=linf)
-                    _require(torch.equal(got[1], jk.fused_sweep_residual_halo(
-                        x, h, b, st.coefs, op=op, linf=linf)[1]),
-                        f"fused_sweep_residual_halo {sname}: two calls' partials differ")
+                    tag = f"{sname} {dt} op={op} {_ord_tag(ord_)}"
+                    got = same_twice("fused_sweep_residual_halo", tag,
+                                     lambda: jk.fused_sweep_residual_halo(
+                                         x, h, b, st.coefs, op=op, ord=ord_))
                     want = jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, op=op,
-                                                              linf=linf)
-                    tag = f"{sname} {dt} op={op} {red}"
+                                                              ord=ord_)
                     check("fused_sweep_residual_halo", tag + " block", "block", dt,
                           got[0], want[0])
                     check("fused_sweep_residual_halo", tag + " partials", red, dt,
                           got[1], want[1])
                     n_cases += 1
                 for oxyz in (0, 1, 5):
-                    got = jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz,
-                                                            linf=linf)
+                    tag = f"{sname} {dt} oxyz={oxyz} {_ord_tag(ord_)}"
+                    got = same_twice("fused_rbgs_sweep_residual_halo", tag,
+                                     lambda: jk.fused_rbgs_sweep_residual_halo(
+                                         x, h, b, st.coefs, oxyz, ord=ord_))
                     want = jref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz,
-                                                                   linf=linf)
-                    tag = f"{sname} {dt} oxyz={oxyz} {red}"
+                                                                   ord=ord_)
                     check("fused_rbgs_sweep_residual_halo", tag + " block", "block", dt,
                           got[0], want[0])
                     check("fused_rbgs_sweep_residual_halo", tag + " partials", red, dt,
@@ -301,18 +317,17 @@ def check_kernels(st, dev, check: Checker) -> None:
     # f64 update differences near 1e-13 must survive the cast to f32
     a = 1.0 + rand(SHAPES["shard"], torch.float64)
     c = a + 1e-13 * rand(SHAPES["shard"], torch.float64)
-    for linf in (True, False):
-        red = "max" if linf else "sum"
-        got = rk.diff_norm_partials(a, c, linf=linf)
+    for ord_, red in ORDS.items():
+        got = rk.diff_norm_partials(a, c, ord=ord_)
         _require(bool((got > 0).all()), "diff_norm_partials: tiny f64 differences lost")
-        check("diff_norm_partials", f"tiny-f64 {red}", red, "f64", got,
-              rref.diff_norm_partials_ref(a, c, linf=linf))
+        check("diff_norm_partials", f"tiny-f64 {_ord_tag(ord_)}", red, "f64", got,
+              rref.diff_norm_partials_ref(a, c, ord=ord_))
         n_cases += 1
     torch.cuda.synchronize()
-    print(f"kernels vs plain: {n_cases} cases within tolerance; diff_norm_partials bitwise "
-          f"equal across two calls at {', '.join(SHAPES)}; fused_rbgs_sweep_residual's and "
-          f"fused_sweep_residual_halo's partials bitwise equal across two calls at every "
-          f"shape, variant and phase; a NaN in the block reaches their l∞ partial at "
+    print(f"kernels vs plain: {n_cases} cases within tolerance, each in the three partial "
+          f"modes (l∞ max|r|, l2 Σr², l1 Σ|r|); every stencil kernel's output and partials "
+          f"and diff_norm_partials' partials bitwise equal across two calls at every shape, "
+          f"variant, phase and mode; a NaN in the block reaches the l∞ partial of #1-#4 at "
           f"{', '.join(NAN_SHAPES)}; the halo sweep's six face slabs bitwise the block's "
           f"faces at {'x'.join(map(str, HALO_SHAPES['mesh32']))}")
     for k, v in check.rel_err.items():
@@ -322,37 +337,47 @@ def check_kernels(st, dev, check: Checker) -> None:
               f"{check.abs_err.get((k, 'block'), 0.0):.3e}")
 
 
-NAN_SHAPES = ("main", "shard", "ragged")
+NAN_SHAPES = ("main", "shard", "ragged", "mesh222")
 
 
 def check_nan_and_slabs(st, dev, rand) -> None:
     """A NaN in the block reaches the l∞ partials of the tiles whose input
-    residual it touches, as in the plain version, in #2 and #3 (split and
-    unsplit grids); a thickness-1 face slab
-    swept by #3 is bitwise that face of the block's sweep at the (3, 2)
-    mesh block, where the grid splits (the comm overlap's premise)."""
+    residual it touches, as in the plain version, in #1-#4 (split and
+    unsplit grids); a thickness-1 face slab swept by #3 is bitwise that
+    face of the block's sweep at the (3, 2) mesh block, where the grid
+    splits (the comm overlap's premise)."""
     import torch
 
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
     from repro_torch.kernels.jacobi3d import ref as jref
 
     f64 = torch.float64
-    for name in NAN_SHAPES:
-        bx, by, bz = shape = SHAPES[name]
-        i, j, z = bx // 2, by // 2, bz // 2
-        g2, b = rand((bx + 4, by + 4, bz + 2), f64), rand(shape, f64)
-        g2[i + 2, j + 2, z + 1] = float("nan")
-        got = jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0)[1].isnan()
-        want = jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0)[1].isnan()
+
+    def nan_reaches(kernel, got, want, name):
+        got, want = got[1].isnan(), want[1].isnan()
         _require(bool(want.any()) and torch.equal(got, want),
-                 f"fused_rbgs_sweep_residual {name}: a NaN does not reach the partials")
-        x, b = rand(shape, f64), rand(shape, f64)
+                 f"{kernel} {name}: a NaN does not reach the partials as in the plain version")
+
+    for name in NAN_SHAPES:
+        bx, by, bz = shape = {**SHAPES, **HALO_SHAPES}[name]
+        i, j, z = bx // 2, by // 2, bz // 2
+        b = rand(shape, f64)
+        g, g2 = rand((bx + 2, by + 2, bz + 2), f64), rand((bx + 4, by + 4, bz + 2), f64)
+        g[i + 1, j + 1, z + 1] = float("nan")
+        g2[i + 2, j + 2, z + 1] = float("nan")
+        nan_reaches("fused_sweep_residual", jk.fused_sweep_residual(g, b, st.coefs),
+                    jref.fused_sweep_residual_ref(g, b, st.coefs), name)
+        nan_reaches("fused_rbgs_sweep_residual", jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0),
+                    jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0), name)
+        x = rand(shape, f64)
         h = [rand(s, f64) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
         x[i, j, z] = float("nan")
-        got = jk.fused_sweep_residual_halo(x, h, b, st.coefs)[1].isnan()
-        want = jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)[1].isnan()
-        _require(bool(want.any()) and torch.equal(got, want),
-                 f"fused_sweep_residual_halo {name}: a NaN does not reach the partials")
+        nan_reaches("fused_sweep_residual_halo", jk.fused_sweep_residual_halo(x, h, b, st.coefs),
+                    jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs), name)
+        nan_reaches("fused_rbgs_sweep_residual_halo",
+                    jk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, 1),
+                    jref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, 1), name)
+        del g, g2, x, h, b
     shape = HALO_SHAPES["mesh32"]
     x, b = rand(shape, f64), rand(shape, f64)
     h = [rand(s, f64) for s in ((shape[1], shape[2]),) * 2 + ((shape[0], shape[2]),) * 2
@@ -586,7 +611,7 @@ def time_kernels(st, dev) -> dict:
         for k in ("fused_sweep_residual", "fused_rbgs_sweep_residual"):
             if (k, name) != ("fused_rbgs_sweep_residual", "p2"):   # hybrid runs at p = 6
                 stencil(k, SHAPES[name])
-    for name in ("main", "shard"):
+    for name in ("main", "shard", "p2"):
         shape = SHAPES[name]
         cells = shape[0] * shape[1] * shape[2]
         x, b = rand(shape), rand(shape)
@@ -661,8 +686,20 @@ def _reset_launches():
         mod.reset_launches()
 
 
-def _run(label, fn, st, b):
-    """One main-path run: wall time and the kernel launches it made."""
+class Run(NamedTuple):
+    """One main-path run: its result, wall time and the kernel launches it
+    made, and the norm order it detected in."""
+
+    name: str
+    st: object
+    b: object
+    r: object
+    wall: float
+    used: dict
+    ord: float = INF
+
+
+def _run(label, fn, st, b, ord=INF) -> Run:
     import torch
 
     before = _launches()
@@ -672,7 +709,13 @@ def _run(label, fn, st, b):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     used = {k: v - before[k] for k, v in _launches().items()}
-    return (label, st, b, r, wall, used)
+    return Run(label, st, b, r, wall, used, ord)
+
+
+def eps_tilde(ord, n) -> float:
+    """The target ε̃ of a run: 1e-6 in l∞, and in l1 ε̃·n³, the l1 norm of a
+    residual of ε̃ in every cell (at n = 185: 6.33; at n = 150: 3.375)."""
+    return EPS_TILDE if ord == INF else EPS_TILDE * n ** 3
 
 
 def run_solver(dev) -> list:
@@ -686,18 +729,24 @@ def run_solver(dev) -> list:
     n = SOLVER_N
     st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
     b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
-    runs = [(m, "hybrid", True) for m in ("sync", "pfait", "nfais2", "nfais5")]
-    runs += [("pfait", "jacobi", True), ("pfait", "hybrid", False)]
+    runs = [(m, "hybrid", True, INF) for m in ("sync", "pfait", "nfais2", "nfais5")]
+    runs += [("pfait", "jacobi", True, INF), ("pfait", "hybrid", False, INF),
+             ("pfait", "hybrid", True, 1.0)]
     results = []
-    for mode, sweep, fuse in runs:
-        mon = detection.for_mode(mode, eps_tilde=EPS_TILDE, margin=10.0,
+    for mode, sweep, fuse, ord in runs:
+        mon = detection.for_mode(mode, eps_tilde=eps_tilde(ord, n), margin=10.0,
                                  staleness=0 if mode == "sync" else 4,
-                                 persistence=4, ord=INF)
+                                 persistence=4, ord=ord)
         cfg = SolverConfig(stencil=st, monitor=mon, inner_sweeps=2, max_outer=50_000,
                            sweep=sweep, use_kernel=True, fuse_residual=fuse)
-        results.append(_run(f"{mode}/{sweep}/{'fused' if fuse else 'unfused'}",
-                            lambda: solve_single(cfg, b, device=dev), st, b))
+        label = f"{mode}/{sweep}/{'fused' if fuse else 'unfused'}" + (" l1" if ord == 1 else "")
+        results.append(_run(label, lambda: solve_single(cfg, b, device=dev), st, b, ord))
     return results
+
+
+# heterogeneous per-shard knobs of the 6-shard runs, 1-D and mesh
+MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
+                  contrib_lag=(0, 1, 0, 1, 0, 0))
 
 
 def run_shards(dev) -> list:
@@ -713,24 +762,21 @@ def run_shards(dev) -> list:
     b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
     x0 = torch.zeros_like(b)
     mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, n), margin=10.0, ord=1.0)
     cells = [
         ("blocking/jacobi p=6", 6, sr.ShardRuntimeConfig(
             monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
         ("nonblocking/jacobi p=6 hetero", 6, sr.ShardRuntimeConfig(
-            monitor=mon, reduction="nonblocking", max_outer=5000,
-            inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
-            contrib_lag=(0, 1, 0, 1, 0, 0))),
+            monitor=mon, reduction="nonblocking", max_outer=5000, **MESH_KNOBS)),
         ("nonblocking/hybrid p=6", 6, sr.ShardRuntimeConfig(
             monitor=mon, reduction="nonblocking", sweep="hybrid", max_outer=5000)),
         ("rdoubling/jacobi p=2", 2, sr.ShardRuntimeConfig(
             monitor=mon, reduction="rdoubling", max_outer=5000)),
+        ("nonblocking/jacobi p=6 hetero l1", 6, sr.ShardRuntimeConfig(
+            monitor=mon1, reduction="nonblocking", max_outer=5000, **MESH_KNOBS)),
     ]
     return [_run(name, lambda: sr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b),
-                 st, b) for name, p, cfg in cells]
-
-
-MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
-                  contrib_lag=(0, 1, 0, 1, 0, 0))
+                 st, b, cfg.monitor.ord) for name, p, cfg in cells]
 
 
 def run_mesh(dev) -> list:
@@ -746,6 +792,7 @@ def run_mesh(dev) -> list:
     b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
     x0 = torch.zeros_like(b)
     mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, n), margin=10.0, ord=1.0)
     nfais2 = detection.for_mode("nfais2", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
     cells = [
         ("(a) mesh (3,2) blocking/jacobi", (3, 2), sr.ShardRuntimeConfig(
@@ -761,9 +808,11 @@ def run_mesh(dev) -> list:
             monitor=mon, reduction="rdoubling", max_outer=5000)),
         ("(e) mesh (3,2) nfais2/jacobi", (3, 2), sr.ShardRuntimeConfig(
             monitor=nfais2, max_outer=5000)),
+        ("(f) mesh (3,2) blocking/jacobi l1", (3, 2), sr.ShardRuntimeConfig(
+            monitor=mon1, reduction="blocking", max_outer=5000, trace_len=5000)),
     ]
     return [_run(name, lambda: sr.make_convdiff_runtime(cfg, mesh, st, n, device=dev)(x0, b),
-                 st, b) for name, mesh, cfg in cells]
+                 st, b, cfg.monitor.ord) for name, mesh, cfg in cells]
 
 
 def run_serve(dev) -> dict:
@@ -961,56 +1010,64 @@ def profile_serve(m, params, prompts) -> None:
     state.clear()
 
 
-def exact_residual(st, x, b):
-    """max|b − A x| of a global state, through the residual kernel."""
+def exact_residual(st, x, b, ord=INF):
+    """The exact residual of a global state in the run's norm, through the
+    residual kernel: max|b − A x| (l∞) or Σ|b − A x| (l1)."""
     from repro_torch.kernels.jacobi3d import ops as jops
     from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
 
-    return float(jops.residual_contribution(st, ghosted(x, _zero_ghosts(x)), b, ord=INF))
+    return float(jops.residual_contribution(st, ghosted(x, _zero_ghosts(x)), b, ord=ord))
 
 
-def _check_trace(run) -> None:
-    """A blocking run follows the synchronous reference trajectory."""
+def _check_trace(run: Run) -> None:
+    """A blocking run follows the synchronous reference trajectory in its
+    norm."""
     from repro_torch.runtime import shard_runtime as sr
 
-    name, st, b, r, _, _ = run
-    T = r.outer_iters
-    ref = sr.convdiff_reference_trace(st, b, T, ord=INF)
-    err = float(((r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
-    print(f"{name}: trace vs synchronous reference over {T} steps, max rel {err:.3e} "
-          "(tolerance 5e-5)")
-    _require(err <= 5e-5, f"{name}: trace departs from the reference ({err:.3e})")
+    T = run.r.outer_iters
+    ref = sr.convdiff_reference_trace(run.st, run.b, T, ord=run.ord)
+    err = float(((run.r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
+    print(f"{run.name}: trace vs synchronous reference ({_ord_tag(run.ord)}) over {T} steps, "
+          f"max rel {err:.3e} (tolerance 5e-5)")
+    _require(err <= 5e-5, f"{run.name}: trace departs from the reference ({err:.3e})")
 
 
 def verify_runs(solver_runs, shard_runs, mesh_runs) -> None:
-    """r* < ε̃ for every run (no false detection); blocking follows the
-    synchronous reference trajectory; comm overlap is bitwise no overlap."""
+    """r* < ε̃ for every run, in its norm (no false detection); blocking
+    follows the synchronous reference trajectory; comm overlap is bitwise
+    no overlap."""
     import torch
 
     from repro_torch.solvers import jacobi
     from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
 
-    name, st, b, r, _, _ = solver_runs[0]
-    plain = float(jacobi.residual_block(st, ghosted(r.x, _zero_ghosts(r.x)), b).abs().max())
-    kern = exact_residual(st, r.x, b)
-    _require(abs(kern - plain) <= 1e-6 * plain,
-             f"exact residual: kernel {kern:.6e} vs plain {plain:.6e}")
-    for name, st, b, r, wall, used in solver_runs + shard_runs + mesh_runs:
-        r_star = exact_residual(st, r.x, b)
-        print(f"run {name}: converged={r.converged} outer={r.outer_iters} "
-              f"detected={float(r.residual):.3e} exact r*={r_star:.3e} "
-              f"wall={wall:.3f} s launches={json.dumps(used)}")
-        _require(r.converged, f"{name}: did not converge")
-        _require(r_star < EPS_TILDE, f"{name}: false detection, r* {r_star:.3e} >= ε̃")
-    _check_trace(shard_runs[0])
-    _check_trace(mesh_runs[0])
-    (name0, _, _, r0, wall0, _), (name1, _, _, r1, wall1, _) = mesh_runs[1:3]
+    # the exact residual through the kernel against the plain version: l∞
+    # exact up to the f32 cast, l1 up to f32 summation order
+    for run, tol in ((solver_runs[0], 1e-6), (solver_runs[-1], 1e-5)):
+        r = jacobi.residual_block(run.st, ghosted(run.r.x, _zero_ghosts(run.r.x)), run.b).abs()
+        plain = float(r.max() if run.ord == INF else r.sum())
+        kern = exact_residual(run.st, run.r.x, run.b, run.ord)
+        _require(abs(kern - plain) <= tol * plain,
+                 f"exact {_ord_tag(run.ord)} residual: kernel {kern:.6e} vs plain {plain:.6e}")
+    for run in solver_runs + shard_runs + mesh_runs:
+        r = run.r
+        r_star = exact_residual(run.st, r.x, run.b, run.ord)
+        target = eps_tilde(run.ord, run.b.shape[0])
+        print(f"run {run.name}: converged={r.converged} outer={r.outer_iters} "
+              f"detected={float(r.residual):.3e} exact r*={r_star:.3e} ({_ord_tag(run.ord)}, "
+              f"ε̃ {target:g}) wall={run.wall:.3f} s launches={json.dumps(run.used)}")
+        _require(r.converged, f"{run.name}: did not converge")
+        _require(r_star < target, f"{run.name}: false detection, r* {r_star:.3e} >= ε̃")
+    for run in (shard_runs[0], mesh_runs[0], mesh_runs[-1]):
+        _check_trace(run)
+    r0, r1 = (run.r for run in mesh_runs[1:3])
+    wall0, wall1 = (run.wall for run in mesh_runs[1:3])
     same = (r0.outer_iters == r1.outer_iters and torch.equal(r0.x, r1.x)
             and torch.equal(r0.trace, r1.trace))
     print(f"overlap vs no overlap, (3,2) hetero: outer {r1.outer_iters} / {r0.outer_iters}, "
           f"x and trace bitwise equal: {same}; wall {wall1:.3f} / {wall0:.3f} s")
     _require(same, "comm overlap is not bitwise equal to no overlap")
-    name1d, _, _, r1d, wall1d, _ = shard_runs[1]
+    r1d, wall1d = shard_runs[1].r, shard_runs[1].wall
     print(f"wall, same knobs at n = {SHARD_N}: mesh (3,2) {wall0:.3f} s for "
           f"{r0.outer_iters} steps ({1e3 * wall0 / r0.outer_iters:.3f} ms/step) vs 1-D p = 6 "
           f"{wall1d:.3f} s for {r1d.outer_iters} steps "

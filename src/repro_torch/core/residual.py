@@ -26,6 +26,25 @@ def _as_ord(ord: Ord) -> float:
     return float(ord)
 
 
+#: what a kernel's partials reduce (the C interface's ``int mode``): Σr²,
+#: max|r| or Σ|r|
+L2, LINF, L1 = 0, 1, 2
+
+
+def partial_mode(ord: Ord) -> int:
+    """The kernels' partial mode for the l-norm order ``ord``: Σr² for 2,
+    max|r| for ∞, Σ|r| for 1.  The kernels have no other mode, so any other
+    order raises (the JAX kernel ops treat every finite order as 2)."""
+    lp = _as_ord(ord)
+    if np.isinf(lp):
+        return LINF
+    if lp == 2.0:
+        return L2
+    if lp == 1.0:
+        return L1
+    raise ValueError(f"the kernels support ord 1, 2 or inf, got {ord}")
+
+
 def local_contribution(diff: torch.Tensor, ord: Ord = 2) -> torch.Tensor:
     """``r_i``: the local, *pre-reduction* contribution of one worker (f32).
 

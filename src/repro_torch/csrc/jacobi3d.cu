@@ -8,17 +8,23 @@
 // the rhs once and writes the new block once (at 185^3 f64 about 154 MB,
 // 46 us at 3.35 TB/s); its ~17 flops per cell take about 3 us at the f64
 // rate.  So the design is about touching DRAM once:
-//   * one CUDA block per (tx, ty) column tile of the (x, y) plane, exactly
-//     the TPU kernel's partials layout [nx, ny]; threads lie along z, the
-//     contiguous axis, so every load and store is coalesced (the TPU kernel
-//     kept z as its lane axis for the same reason), and each thread marches
-//     along x through the tile with its x-1, x, x+1 centre values in
-//     registers; the y and z neighbours come from L1/L2;
-//   * the tile may be ragged: a block masks the rows past the block edge,
-//     so any (bx, by, bz) works (the Pallas wrapper asserted divisibility);
-//   * each block reduces its residual partial (max|r| or sum r^2, squared
-//     in the field's type and then cast to f32, as on the TPU) in shared
-//     memory and writes one float: no atomics, deterministic results.
+//   * partials stay one float per (tx, ty) column tile of the (x, y) plane,
+//     the TPU kernel's layout [nx, ny] (ragged tiles clipped, so any
+//     (bx, by, bz) works; the Pallas wrapper asserted divisibility): max|r|,
+//     sum r^2 (squared in the field's type, then cast to f32, as on the
+//     TPU) or sum |r| (cast to f32, then added);
+//   * the Jacobi sweep takes jacobi3d_halo.cu's layout: a tile's (j, z)
+//     columns, flattened (contiguous in memory for each x, so every lane of
+//     a warp is busy and loads are coalesced whatever bz is), are cut into
+//     C contiguous ranges, one per CTA of a thread-block cluster, with C > 1
+//     only while the tiles do not fill one wave of CTAs (common.cuh:
+//     column_split): 25x150x150 has 133 tiles, 75x150x150 399; 185^3 keeps
+//     one CTA per tile.  Each thread marches its columns along x, loading
+//     two x-steps (x+1, four side neighbours, rhs) before using either,
+//     twelve independent loads in flight; all six neighbours come from the
+//     ghosted block, so the inner loop has no branch.  The CTAs' partials
+//     meet in rank order through distributed shared memory (common.cuh):
+//     one launch, no atomics, bitwise repeatable;
 // The red-black Gauss–Seidel flavour shares each colour-0 update through
 // shared memory, as the TPU kernel ordered its tile: colour 0 over the tile
 // plus its ring first, then colour 1 (jacobi3d.py:114-121):
@@ -39,10 +45,11 @@
 //     colours' branches;
 //   * a tile is cut into ceil(ty / 8) x S_z sub-boxes, S_z >= bz / 100 for
 //     the shared-memory ring (33 KB in f64, which leaves L1 room for the
-//     neighbour loads), and S_z grows, down to 16 z a sub-box, until the
+//     neighbour loads), and S_z grows, down to 32 z a sub-box, until the
 //     sub-boxes fill the CTAs the card holds at once (its SMs times the
-//     CTAs of this kernel one SM holds, read from the device once):
-//     25x150x150 has 133 tiles, S_z = 4; 185^3 keeps S_z = 2.  The
+//     CTAs of this kernel one SM holds, read from the device once;
+//     common.cuh: rbgs_split): 25x150x150 has 133 tiles, S_z = 4; 185^3
+//     keeps S_z = 2.  The
 //     sub-boxes of a tile are the CTAs of a thread-block cluster (at most
 //     its largest; a CTA takes every C-th sub-box beyond that), and their
 //     partials meet in rank order through distributed shared memory
@@ -58,11 +65,10 @@
 // ahead), and marching one CTA through several tiles along x.
 //
 // C interface (ctypes): pointers and the stream are void*, coefficients
-// are (diag, xm, xp, ym, yp, zm, zp) as doubles, and every entry returns
-// cudaGetLastError() after its launch.
+// are (diag, xm, xp, ym, yp, zm, zp) as doubles, `mode` is the partials'
+// Norm (common.cuh), and every entry returns cudaGetLastError() after its
+// launch.
 #include <cuda_runtime.h>
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -70,20 +76,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreadsZ = 32;  // lanes along z (contiguous)
-constexpr int kThreadsY = 8;   // rows of the tile per pass
-constexpr int kThreads = kThreadsZ * kThreadsY;
-// RB-GS: a CTA's sub-box of a tile and its shared-memory ring
-constexpr int kRbgsThreads = 256;
-constexpr int kSubRows = 8;      // rows of a sub-box
-constexpr int kSubZ = 100;       // z extent of a sub-box, at most
-constexpr int kMinSubZ = 16;     // z extent below which a split stops
-constexpr int kSlots = 4;        // x-planes of colour-0 results in the ring
+using repro::Coefs;
+using repro::kRbgsThreads;
+using repro::kSlots;
+using repro::kSubRows;
+using repro::kSubZ;
 
-template <typename T>
-struct Coefs {
-  T diag, xm, xp, ym, yp, zm, zp;
-};
+constexpr int kSweepThreads = 256;  // Jacobi: CTAs of a cluster over a tile's columns
+constexpr int kChunk = 2;           // x-steps whose loads are issued together
 
 // Off-diagonal apply at flat index c of a ghosted array with strides
 // (sx, sy, 1), in the reference's operation order.
@@ -94,43 +94,65 @@ __device__ __forceinline__ T offdiag(const T* __restrict__ g, long c, long sx,
          k.yp * g[c + sy] + k.zm * g[c - 1] + k.zp * g[c + 1];
 }
 
-template <typename T>
-__device__ __forceinline__ float contribution(float acc, T r, bool linf) {
-  return linf ? repro::nanmax(acc, static_cast<float>(repro::absv(r)))
-              : acc + static_cast<float>(r * r);
-}
-
 // Jacobi sweep (kSweep) or residual-only pass over g[(bx+2),(by+2),(bz+2)].
-template <typename T, bool kSweep, bool kLinf>
-__global__ void __launch_bounds__(kThreads)
+// Cluster `tile` of csize CTAs covers tile (ti, tj); CTA `rank` takes its
+// share of the tile's flattened (j, z) columns and each thread marches its
+// columns along x.
+template <typename T, bool kSweep, int M>
+__global__ void __launch_bounds__(kSweepThreads)
 sweep_kernel(const T* __restrict__ g, const T* __restrict__ b,
              T* __restrict__ out, float* __restrict__ parts, int bx, int by,
              int bz, int tx, int ty, Coefs<T> k) {
-  const int i0 = blockIdx.x * tx, i1 = min(i0 + tx, bx);
-  const int j0 = blockIdx.y * ty, j1 = min(j0 + ty, by);
-  const long sy = bz + 2, sx = (by + 2) * sy;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ny = (by + ty - 1) / ty;
+  const int tile = blockIdx.x / csize, ti = tile / ny, tj = tile - ti * ny;
+  const int i0 = ti * tx, i1 = min(i0 + tx, bx);
+  const int j0 = tj * ty, j1 = min(j0 + ty, by);
+  const long sy = bz + 2, sx = (by + 2) * sy;  // strides of g
+  const long bsx = (long)by * bz;              // x stride of b and out
+  const int ncol = (j1 - j0) * bz;
+  const int per = (ncol + csize - 1) / csize;
+  const int q1 = min((rank + 1) * per, ncol);
   float acc = 0.f;
-  for (int j = j0 + threadIdx.y; j < j1; j += blockDim.y) {
-    for (int z = threadIdx.x; z < bz; z += blockDim.x) {
-      long gc = (i0 + 1) * sx + (j + 1) * sy + (z + 1);
-      long bc = ((long)i0 * by + j) * bz + z;
-      T xm = g[gc - sx], xc = g[gc];
-      for (int i = i0; i < i1; ++i, gc += sx, bc += (long)by * bz) {
-        const T xp = g[gc + sx];
-        const T off = k.xm * xm + k.xp * xp + k.ym * g[gc - sy] +
-                      k.yp * g[gc + sy] + k.zm * g[gc - 1] + k.zp * g[gc + 1];
-        const T bv = b[bc];
-        const T r = bv - (k.diag * xc + off);
-        if (kSweep) out[bc] = (bv - off) / k.diag;
-        acc = contribution(acc, r, kLinf);
-        xm = xc;
-        xc = xp;
+  for (int q = rank * per + threadIdx.x; q < q1; q += kSweepThreads) {
+    const int jr = q / bz;
+    const int j = j0 + jr, z = q - jr * bz;
+    const T* pc = g + (i0 + 1) * sx + (j + 1) * sy + (z + 1);
+    const long c0 = (long)i0 * bsx + (long)j * bz + z;
+    const T* pb = b + c0;
+    T* po = out + c0;
+    T xm = pc[-sx], xc = pc[0];
+    for (int i = i0; i < i1; i += kChunk) {
+      T xp[kChunk], ym[kChunk], yp[kChunk], zm[kChunk], zp[kChunk], bv[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        if (i + u < i1) {
+          const T* p = pc + (i + u - i0) * sx;
+          xp[u] = p[sx];
+          ym[u] = p[-sy];
+          yp[u] = p[sy];
+          zm[u] = p[-1];
+          zp[u] = p[1];
+          bv[u] = pb[(i + u - i0) * bsx];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        if (i + u < i1) {
+          const T off = k.xm * xm + k.xp * xp[u] + k.ym * ym[u] + k.yp * yp[u] +
+                        k.zm * zm[u] + k.zp * zp[u];
+          const T r = bv[u] - (k.diag * xc + off);
+          if (kSweep) po[(i + u - i0) * bsx] = (bv[u] - off) / k.diag;
+          acc = repro::contribution<M>(acc, r);
+          xm = xc;
+          xc = xp[u];
+        }
       }
     }
   }
-  const float tot = repro::block_reduce<kThreads>(acc, kLinf);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    parts[blockIdx.x * gridDim.y + blockIdx.y] = tot;
+  repro::cluster_partial<kSweepThreads>(acc, M == repro::kLinf, parts + tile);
 }
 
 // One-pass hybrid red-black GS sweep over the twice-padded block
@@ -139,7 +161,7 @@ sweep_kernel(const T* __restrict__ g, const T* __restrict__ b,
 // Cluster `tile` covers tile (ti, tj); its tile is cut into sy_n x sz_n
 // sub-boxes of kSubRows rows and zc z, and CTA `rank` takes sub-boxes
 // rank, rank + csize, ...
-template <typename T, bool kLinf>
+template <typename T, int M>
 __global__ void __launch_bounds__(kRbgsThreads)
 rbgs_kernel(const T* __restrict__ g2, const T* __restrict__ b,
             T* __restrict__ out, float* __restrict__ parts, int bx, int by,
@@ -186,7 +208,7 @@ rbgs_kernel(const T* __restrict__ g2, const T* __restrict__ b,
           const T bv = b[bidx(p, j, z)];
           v = (bv - off0) / k.diag;
           if (!xring && j >= ja && j < jb && z >= za && z < zb) {  // owned
-            acc = contribution(acc, bv - (k.diag * g2[gc] + off0), kLinf);
+            acc = repro::contribution<M>(acc, bv - (k.diag * g2[gc] + off0));
             out[bidx(p, j, z)] = v;
           }
         } else {
@@ -209,7 +231,7 @@ rbgs_kernel(const T* __restrict__ g2, const T* __restrict__ b,
         const long gc = gidx(q, j, z);
         const T off0 = offdiag(g2, gc, sx, sy, k);
         const T bv = b[bidx(q, j, z)];
-        acc = contribution(acc, bv - (k.diag * g2[gc] + off0), kLinf);
+        acc = repro::contribution<M>(acc, bv - (k.diag * g2[gc] + off0));
         const int r = j - (ja - 1), c = z - (za - 1);
         const T off1 = k.xm * ring[sm][r][c] + k.xp * ring[sp][r][c] +
                        k.ym * ring[sq][r - 1][c] + k.yp * ring[sq][r + 1][c] +
@@ -218,63 +240,59 @@ rbgs_kernel(const T* __restrict__ g2, const T* __restrict__ b,
       }
     }
   }
-  repro::cluster_partial<kRbgsThreads>(acc, kLinf, parts + tile);
+  repro::cluster_partial<kRbgsThreads>(acc, M == repro::kLinf, parts + tile);
 }
 
-template <typename T>
-Coefs<T> coefs(double d, double xm, double xp, double ym, double yp, double zm,
-               double zp) {
-  return Coefs<T>{T(d), T(xm), T(xp), T(ym), T(yp), T(zm), T(zp)};
+template <typename T, bool kSweep, int M>
+cudaError_t launch_sweep_as(const T* g, const T* b, T* out, float* parts, int bx,
+                            int by, int bz, int tx, int ty, Coefs<T> k, cudaStream_t s) {
+  auto kern = sweep_kernel<T, kSweep, M>;
+  static repro::DeviceFit known[repro::kMaxDevices];
+  repro::DeviceFit fit;
+  cudaError_t err = repro::device_fit(kern, kSweepThreads, known, &fit);
+  if (err != cudaSuccess) return err;
+  const long tiles = (long)((bx + tx - 1) / tx) * ((by + ty - 1) / ty);
+  const int c = repro::column_split(fit, tiles, (long)ty * bz, kSweepThreads);
+  return repro::launch_clusters(kern, tiles, c, kSweepThreads, s, g, b, out, parts, bx,
+                                by, bz, tx, ty, k);
 }
 
 template <typename T>
 int launch_sweep(const void* g, const void* b, void* out, void* parts, int bx,
-                 int by, int bz, int tx, int ty, int sweep, int linf,
+                 int by, int bz, int tx, int ty, int sweep, int mode,
                  Coefs<T> k, void* stream) {
-  const dim3 grid((bx + tx - 1) / tx, (by + ty - 1) / ty);
-  const dim3 block(kThreadsZ, kThreadsY);
+  if (tx < 1 || ty < 1 || bx < 1 || by < 1 || bz < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto gp = static_cast<const T*>(g);
   auto bp = static_cast<const T*>(b);
   auto op = static_cast<T*>(out);
   auto pp = static_cast<float*>(parts);
-  if (sweep && linf)
-    sweep_kernel<T, true, true><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, k);
-  else if (sweep)
-    sweep_kernel<T, true, false><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, k);
-  else if (linf)
-    sweep_kernel<T, false, true><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, k);
-  else
-    sweep_kernel<T, false, false><<<grid, block, 0, s>>>(gp, bp, op, pp, bx, by, bz, tx, ty, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(repro::by_mode(mode, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return sweep ? launch_sweep_as<T, true, M>(gp, bp, op, pp, bx, by, bz, tx, ty, k, s)
+                 : launch_sweep_as<T, false, M>(gp, bp, op, pp, bx, by, bz, tx, ty, k, s);
+  }));
 }
 
-template <typename T, bool kLinf>
+template <typename T, int M>
 cudaError_t launch_rbgs_as(const T* g2, const T* b, T* out, float* parts, int bx,
                            int by, int bz, int tx, int ty, int oxy, Coefs<T> k,
                            cudaStream_t s) {
-  auto kern = rbgs_kernel<T, kLinf>;
+  auto kern = rbgs_kernel<T, M>;
   static repro::DeviceFit known[repro::kMaxDevices];
   repro::DeviceFit fit;
   cudaError_t err = repro::device_fit(kern, kRbgsThreads, known, &fit);
   if (err != cudaSuccess) return err;
   const long tiles = (long)((bx + tx - 1) / tx) * ((by + ty - 1) / ty);
-  const long sy_n = (ty + kSubRows - 1) / kSubRows;
-  // z sub-boxes: as few as the ring allows, more until the sub-boxes fill
-  // the CTAs the card holds at once, none under kMinSubZ
-  long sz_n = (bz + kSubZ - 1) / kSubZ;
-  const long want = ((long)fit.per_sm * fit.sms + tiles * sy_n - 1) / (tiles * sy_n);
-  sz_n = std::max(sz_n, std::min(want, std::max(1L, (long)bz / kMinSubZ)));
-  const int zc = static_cast<int>((bz + sz_n - 1) / sz_n);
-  sz_n = (bz + zc - 1) / zc;
-  const long c = std::min(sy_n * sz_n, (long)fit.cmax);
-  return repro::launch_clusters(kern, tiles, static_cast<int>(c), kRbgsThreads, s, g2,
-                                b, out, parts, bx, by, bz, tx, ty, zc, oxy, k);
+  const repro::SubBoxes sb = repro::rbgs_split(fit, tiles, ty, bz);
+  return repro::launch_clusters(kern, tiles, sb.csize, kRbgsThreads, s, g2, b, out, parts,
+                                bx, by, bz, tx, ty, sb.zc, oxy, k);
 }
 
 template <typename T>
 int launch_rbgs(const void* g2, const void* b, void* out, void* parts, int bx,
-                int by, int bz, int tx, int ty, int oxy, int linf, Coefs<T> k,
+                int by, int bz, int tx, int ty, int oxy, int mode, Coefs<T> k,
                 void* stream) {
   if (tx < 1 || ty < 1 || bx < 1 || by < 1 || bz < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -283,13 +301,15 @@ int launch_rbgs(const void* g2, const void* b, void* out, void* parts, int bx,
   auto bp = static_cast<const T*>(b);
   auto op = static_cast<T*>(out);
   auto pp = static_cast<float*>(parts);
-  const cudaError_t err =
-      linf ? launch_rbgs_as<T, true>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k, s)
-           : launch_rbgs_as<T, false>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy, k, s);
-  return static_cast<int>(err);
+  return static_cast<int>(repro::by_mode(mode, [&](auto m) {
+    return launch_rbgs_as<T, decltype(m)::value>(gp, bp, op, pp, bx, by, bz, tx, ty, oxy,
+                                                 k, s);
+  }));
 }
 
 }  // namespace
+
+using repro::coefs;
 
 #define COEF_ARGS double d, double xm, double xp, double ym, double yp, double zm, double zp
 #define COEF_VALS d, xm, xp, ym, yp, zm, zp
@@ -298,31 +318,31 @@ extern "C" {
 
 int fused_sweep_residual_f64(const void* g, const void* b, void* out, void* parts,
                              int bx, int by, int bz, int tx, int ty, int sweep,
-                             int linf, COEF_ARGS, void* stream) {
-  return launch_sweep<double>(g, b, out, parts, bx, by, bz, tx, ty, sweep, linf,
+                             int mode, COEF_ARGS, void* stream) {
+  return launch_sweep<double>(g, b, out, parts, bx, by, bz, tx, ty, sweep, mode,
                               coefs<double>(COEF_VALS), stream);
 }
 
 int fused_sweep_residual_f32(const void* g, const void* b, void* out, void* parts,
                              int bx, int by, int bz, int tx, int ty, int sweep,
-                             int linf, COEF_ARGS, void* stream) {
-  return launch_sweep<float>(g, b, out, parts, bx, by, bz, tx, ty, sweep, linf,
+                             int mode, COEF_ARGS, void* stream) {
+  return launch_sweep<float>(g, b, out, parts, bx, by, bz, tx, ty, sweep, mode,
                              coefs<float>(COEF_VALS), stream);
 }
 
 int fused_rbgs_sweep_residual_f64(const void* g2, const void* b, void* out,
                                   void* parts, int bx, int by, int bz, int tx,
-                                  int ty, int oxy, int linf, COEF_ARGS,
+                                  int ty, int oxy, int mode, COEF_ARGS,
                                   void* stream) {
-  return launch_rbgs<double>(g2, b, out, parts, bx, by, bz, tx, ty, oxy, linf,
+  return launch_rbgs<double>(g2, b, out, parts, bx, by, bz, tx, ty, oxy, mode,
                              coefs<double>(COEF_VALS), stream);
 }
 
 int fused_rbgs_sweep_residual_f32(const void* g2, const void* b, void* out,
                                   void* parts, int bx, int by, int bz, int tx,
-                                  int ty, int oxy, int linf, COEF_ARGS,
+                                  int ty, int oxy, int mode, COEF_ARGS,
                                   void* stream) {
-  return launch_rbgs<float>(g2, b, out, parts, bx, by, bz, tx, ty, oxy, linf,
+  return launch_rbgs<float>(g2, b, out, parts, bx, by, bz, tx, ty, oxy, mode,
                             coefs<float>(COEF_VALS), stream);
 }
 

@@ -35,35 +35,45 @@
 //   * no branch in the inner loop: a thread decides once per column whether
 //     its y- and z- neighbours come from the block or from a face plane and
 //     keeps a pointer and an x-stride for each; the x planes are read only
-//     at i0 - 1 and at i = bx - 1 (a warp-uniform test).  Block::at stays
-//     for the RB-GS flavour, whose recompute reads any neighbour;
-//   * the RB-GS flavour keeps the first layout: one CUDA block per tile,
-//     32 lanes along z, 8 rows per pass, x marched; a colour-1 cell
-//     recomputes the colour-0 updates of its <= 6 in-block neighbours from
-//     the input (jacobi3d.cu's RB-GS kernel now shares them through shared
-//     memory instead), its ghost neighbours stay frozen, and the phase is
-//     the global ox + oy + oz.  It takes the unpadded rhs (the Pallas
-//     wrapper padded it to b2);
-//   * partials: NaN-propagating max (common.cuh) or an f32 sum;
+//     at i0 - 1 and at i = bx - 1 (a warp-uniform test);
+//   * the RB-GS flavour takes jacobi3d.cu's RB-GS layout: a CTA covers a
+//     sub-box of one tile, at most 8 rows by 100 z, and marches x plane by
+//     plane; the colour-0 updates of the sub-box and its one-cell y/z ring
+//     go into a shared-memory ring of four x-planes, cells outside the
+//     block keeping their frozen face-plane values, and after one barrier
+//     per plane the colour-1 cells of the plane before read their six new
+//     neighbours from the ring: a colour-1 cell issues its own eight loads,
+//     not the ~49 of recomputing its neighbours.  Cells go to lanes in
+//     (colour-0, colour-1) pairs of adjacent z, so no warp runs both
+//     colours' branches; the phase is the global ox + oy + oz.  A tile's
+//     sub-boxes form a thread-block cluster and are cut finer in z, down to
+//     32 z, until they fill one wave of CTAs (common.cuh: rbgs_split):
+//     75^3 has 190 tiles, cut in two.  Issuing the colour-1 cells' loads
+//     before the barrier timed slower, as it did for jacobi3d.cu's flavour.
+//     Where a cell's neighbour lies (block or face plane) is chosen once
+//     per plane for x (Plane) and per cell for y and z, by pointer
+//     selects, never by a branch around a load.  It takes the unpadded rhs
+//     (the Pallas wrapper padded it to b2);
+//   * partials: NaN-propagating max (common.cuh), or an f32 sum of r^2 or
+//     of |r|;
 //   * every multiply, add, subtract and divide is a round-to-nearest
 //     intrinsic (__dmul_rn, __fadd_rn, ...), which the compiler never
 //     contracts into an FMA.  A cell's result then depends only on its
 //     seven inputs and the coefficients, never on the block's extent, the
 //     grid or how the code around it was scheduled: a thickness-1 face slab
 //     swept by this kernel is bitwise that face of the full block's sweep
-//     (the mesh runtime's comm overlap relies on it), and this layout's
-//     cells are bitwise those of the first one (one CTA per tile, 32 lanes
-//     along z).  The plain PyTorch version on the card differs from them
+//     (the mesh runtime's comm overlap relies on it), and each layout's
+//     cells are bitwise those of the one before it (one CTA per tile, 32
+//     lanes along z, colour-0 neighbours recomputed by each colour-1 cell).
+//     The plain PyTorch version on the card differs from them
 //     in the last bits of the update, within the tolerances chip_smoke.py
 //     holds the kernel to.
 //
 // C interface (ctypes): pointers and the stream are void*, the planes come
 // in the order (x-, x+, y-, y+, z-, z+), coefficients are (diag, xm, xp, ym,
-// yp, zm, zp) as doubles, and every entry returns cudaGetLastError() after
-// its launch.
+// yp, zm, zp) as doubles, `mode` is the partials' Norm (common.cuh), and
+// every entry returns cudaGetLastError() after its launch.
 #include <cuda_runtime.h>
-
-#include <algorithm>
 
 #include "common.cuh"
 
@@ -71,10 +81,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// RB-GS: one CTA per tile
-constexpr int kThreadsZ = 32;  // lanes along z (contiguous)
-constexpr int kThreadsY = 8;   // rows of the tile per pass
-constexpr int kThreads = kThreadsZ * kThreadsY;
+using repro::Coefs;
+using repro::kRbgsThreads;
+using repro::kSlots;
+using repro::kSubRows;
+using repro::kSubZ;
+
 // Jacobi: CTAs of a cluster over a tile's flattened (j, z) columns
 constexpr int kSweepThreads = 256;
 constexpr int kChunk = 2;       // x-steps whose loads are issued together
@@ -89,11 +101,6 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
-template <typename T>
-struct Coefs {
-  T diag, xm, xp, ym, yp, zm, zp;
-};
-
 // Off-diagonal apply from the six neighbour values, in the plain version's
 // operation order: ((((xm*a + xp*b) + ym*c) + yp*d) + zm*e) + zp*f.
 template <typename T>
@@ -106,42 +113,19 @@ __device__ __forceinline__ T offdiag(const Coefs<T>& k, T vxm, T vxp, T vym,
   return add(s, mul(k.zp, vzp));
 }
 
-// The unghosted block [bx, by, bz] and its six face planes.
+// The unghosted block [bx, by, bz] and its six face planes: x-planes
+// [by, bz], y-planes [bx, bz], z-planes [bx, by].
 template <typename T>
 struct Block {
   const T* x;
   const T *hxm, *hxp, *hym, *hyp, *hzm, *hzp;
   int bx, by, bz;
-
-  __device__ __forceinline__ long idx(int i, int j, int z) const {
-    return ((long)i * by + j) * bz + z;
-  }
-  // value at (i, j, z), at most one coordinate one step outside the block
-  __device__ __forceinline__ T at(int i, int j, int z) const {
-    if (i < 0) return hxm[(long)j * bz + z];
-    if (i >= bx) return hxp[(long)j * bz + z];
-    if (j < 0) return hym[(long)i * bz + z];
-    if (j >= by) return hyp[(long)i * bz + z];
-    if (z < 0) return hzm[(long)i * by + j];
-    if (z >= bz) return hzp[(long)i * by + j];
-    return x[idx(i, j, z)];
-  }
-  __device__ __forceinline__ T off(int i, int j, int z, const Coefs<T>& k) const {
-    return offdiag(k, at(i - 1, j, z), at(i + 1, j, z), at(i, j - 1, z),
-                   at(i, j + 1, z), at(i, j, z - 1), at(i, j, z + 1));
-  }
 };
-
-template <typename T>
-__device__ __forceinline__ float contribution(float acc, T r, bool linf) {
-  return linf ? repro::nanmax(acc, static_cast<float>(repro::absv(r)))
-              : acc + static_cast<float>(mul(r, r));
-}
 
 // Jacobi sweep (kSweep) or residual-only pass.  Cluster `tile` of csize
 // CTAs covers tile (ti, tj); CTA `rank` takes its share of the tile's
 // flattened (j, z) columns and each thread marches its columns along x.
-template <typename T, bool kSweep, bool kLinf>
+template <typename T, bool kSweep, int M>
 __global__ void __launch_bounds__(kSweepThreads)
 halo_sweep_kernel(Block<T> blk, const T* __restrict__ b, T* __restrict__ out,
                   float* __restrict__ parts, int tx, int ty, Coefs<T> k) {
@@ -194,57 +178,138 @@ halo_sweep_kernel(Block<T> blk, const T* __restrict__ b, T* __restrict__ out,
           const T off = offdiag(k, vxm, vxp[u], vym[u], vyp[u], vzm[u], vzp[u]);
           const T r = sub(vb[u], add(mul(k.diag, vxc), off));
           if (kSweep) po[(long)(i + u - i0) * sx] = dvd(sub(vb[u], off), k.diag);
-          acc = contribution(acc, r, kLinf);
+          acc = repro::contribution<M>(acc, r);
           vxm = vxc;
           vxc = vxp[u];
         }
       }
     }
   }
-  repro::cluster_partial<kSweepThreads>(acc, kLinf, parts + tile);
+  repro::cluster_partial<kSweepThreads>(acc, M == repro::kLinf, parts + tile);
 }
 
-// One-pass hybrid red-black GS sweep; oxyz = ox + oy + oz.
-template <typename T, bool kLinf>
-__global__ void __launch_bounds__(kThreads)
+// Where plane p's cells find their neighbours: per direction the block's
+// plane or the face plane, as base pointers that a row's or a cell's
+// in-plane offset completes.  x: offset j*bz + z in both; y: the row
+// j -/+ 1 of the block's plane p, or row p of the y face plane (offset z).
+template <typename T>
+struct Plane {
+  const T *xm, *xp;  // x-1 and x+1 neighbours, offset j*bz + z
+  const T* x;        // plane p of the block
+  long p;
+
+  __device__ __forceinline__ Plane(const Block<T>& blk, int pi) : p(pi) {
+    const long sx = (long)blk.by * blk.bz;
+    x = blk.x + p * sx;
+    xm = pi > 0 ? x - sx : blk.hxm;
+    xp = pi < blk.bx - 1 ? x + sx : blk.hxp;
+  }
+
+  // the off-diagonal apply of in-block cell (p, j, z) from the input
+  __device__ __forceinline__ T off(const Block<T>& blk, int j, int z,
+                                   const Coefs<T>& k) const {
+    const long c = (long)j * blk.bz + z;
+    const T* ym = j > 0 ? x + c - blk.bz : blk.hym + p * blk.bz + z;
+    const T* yp = j < blk.by - 1 ? x + c + blk.bz : blk.hyp + p * blk.bz + z;
+    const T* zm = z > 0 ? x + c - 1 : blk.hzm + p * blk.by + j;
+    const T* zp = z < blk.bz - 1 ? x + c + 1 : blk.hzp + p * blk.by + j;
+    return offdiag(k, xm[c], xp[c], *ym, *yp, *zm, *zp);
+  }
+
+  // the frozen value of ring cell (p, j, z) outside the block along one
+  // axis: its face plane's (j, z may each be one step outside)
+  __device__ __forceinline__ T ghost(const Block<T>& blk, int j, int z) const {
+    if (p < 0) return blk.hxm[(long)j * blk.bz + z];
+    if (p >= blk.bx) return blk.hxp[(long)j * blk.bz + z];
+    if (j < 0) return blk.hym[p * blk.bz + z];
+    if (j >= blk.by) return blk.hyp[p * blk.bz + z];
+    if (z < 0) return blk.hzm[p * blk.by + j];
+    return blk.hzp[p * blk.by + j];
+  }
+};
+
+// One-pass hybrid red-black GS sweep; oxyz = ox + oy + oz.  Cluster `tile`
+// covers tile (ti, tj); its tile is cut into sub-boxes of kSubRows rows and
+// zc z, and CTA `rank` takes sub-boxes rank, rank + csize, ...
+template <typename T, int M>
+__global__ void __launch_bounds__(kRbgsThreads)
 halo_rbgs_kernel(Block<T> blk, const T* __restrict__ b, T* __restrict__ out,
-                 float* __restrict__ parts, int tx, int ty, int oxyz, Coefs<T> k) {
-  const int i0 = blockIdx.x * tx, i1 = min(i0 + tx, blk.bx);
-  const int j0 = blockIdx.y * ty, j1 = min(j0 + ty, blk.by);
-  // colour-0 update of the in-block cell (i, j, z), from the input
-  auto upd0 = [&](int i, int j, int z) {
-    return dvd(sub(b[blk.idx(i, j, z)], blk.off(i, j, z, k)), k.diag);
-  };
-  // a colour-1 cell's neighbour: recomputed in the block, frozen outside
-  auto nb = [&](int i, int j, int z) {
-    const bool in = i >= 0 && i < blk.bx && j >= 0 && j < blk.by && z >= 0 &&
-                    z < blk.bz;
-    return in ? upd0(i, j, z) : blk.at(i, j, z);
-  };
+                 float* __restrict__ parts, int tx, int ty, int zc, int oxyz,
+                 Coefs<T> k) {
+  // colour-0 results of the sub-box and its ring, x-planes p mod kSlots
+  __shared__ T ring[kSlots][kSubRows + 2][kSubZ + 2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bx = blk.bx, by = blk.by, bz = blk.bz;
+  const int ny = (by + ty - 1) / ty;
+  const int tile = blockIdx.x / csize, ti = tile / ny, tj = tile - ti * ny;
+  const int i0 = ti * tx, i1 = min(i0 + tx, bx);
+  const int j0 = tj * ty, j1 = min(j0 + ty, by);
+  const long sx = (long)by * bz;
+  const int sz_n = (bz + zc - 1) / zc;
+  const int nsub = ((j1 - j0 + kSubRows - 1) / kSubRows) * sz_n;
   float acc = 0.f;
-  for (int j = j0 + threadIdx.y; j < j1; j += blockDim.y) {
-    for (int z = threadIdx.x; z < blk.bz; z += blockDim.x) {
-      for (int i = i0; i < i1; ++i) {
-        const long c = blk.idx(i, j, z);
-        const T off0 = blk.off(i, j, z, k);
-        const T bv = b[c];
-        const T r = sub(bv, add(mul(k.diag, blk.x[c]), off0));
-        acc = contribution(acc, r, kLinf);
-        T nv;
-        if (((i + j + z + oxyz) & 1) == 0) {
-          nv = dvd(sub(bv, off0), k.diag);
-        } else {
-          const T off1 = offdiag(k, nb(i - 1, j, z), nb(i + 1, j, z), nb(i, j - 1, z),
-                                 nb(i, j + 1, z), nb(i, j, z - 1), nb(i, j, z + 1));
-          nv = dvd(sub(bv, off1), k.diag);
+  for (int box = rank; box < nsub; box += csize) {
+    const int ja = j0 + (box / sz_n) * kSubRows, jb = min(ja + kSubRows, j1);
+    const int za = (box % sz_n) * zc, zb = min(za + zc, bz);
+    __syncthreads();  // the previous sub-box's last reads of the ring are done
+    for (int p = i0 - 1; p <= i1; ++p) {
+      // colour 0 of plane p: the sub-box and its y/z ring (no ring on the
+      // x-ring planes), rows ra..rb-1 and z from zlo on, in z pairs
+      const bool xring = p < i0 || p >= i1;
+      const int ra = xring ? ja : ja - 1, rb = xring ? jb : jb + 1;
+      const int zlo = xring ? za : za - 1, zhi = xring ? zb : zb + 1;  // [zlo, zhi)
+      const int npair = (zhi - zlo + 1) / 2;
+      const int slot = (p - i0 + 1) % kSlots;
+      const bool in_x = p >= 0 && p < bx;
+      const Plane<T> pl(blk, p);
+      for (int e = threadIdx.x; e < (rb - ra) * npair; e += kRbgsThreads) {
+        const int rr = e / npair;
+        const int j = ra + rr, z0 = zlo + 2 * (e - rr * npair);
+        const int z = z0 + ((p + j + z0 + oxyz) & 1);  // the pair's colour-0 cell
+        if (z >= zhi) continue;
+        const int outside = !in_x + (j < 0 || j >= by) + (z < 0 || z >= bz);
+        T v = T(0);  // a ring corner (outside along two axes) is never read
+        if (outside == 0) {
+          const long c = p * sx + (long)j * bz + z;
+          const T off0 = pl.off(blk, j, z, k);
+          const T bv = b[c];
+          v = dvd(sub(bv, off0), k.diag);
+          if (!xring && j >= ja && j < jb && z >= za && z < zb) {  // owned
+            acc = repro::contribution<M>(acc, sub(bv, add(mul(k.diag, blk.x[c]), off0)));
+            out[c] = v;
+          }
+        } else if (outside == 1) {
+          v = pl.ghost(blk, j, z);  // frozen
         }
-        out[c] = nv;
+        ring[slot][j - (ja - 1)][z - (za - 1)] = v;
+      }
+      __syncthreads();
+      // colour 1 of plane q = p - 1, owned cells only
+      const int q = p - 1;
+      if (q < i0) continue;
+      const Plane<T> ql(blk, q);
+      const int sq = (q - i0 + 1) % kSlots;
+      const int sm = (q - i0) % kSlots, sp = (q - i0 + 2) % kSlots;
+      const int npair1 = (zb - za + 1) / 2;
+      for (int e = threadIdx.x; e < (jb - ja) * npair1; e += kRbgsThreads) {
+        const int rr = e / npair1;
+        const int j = ja + rr, z0 = za + 2 * (e - rr * npair1);
+        const int z = z0 + 1 - ((q + j + z0 + oxyz) & 1);  // the pair's colour-1 cell
+        if (z >= zb) continue;
+        const long c = q * sx + (long)j * bz + z;
+        const T off0 = ql.off(blk, j, z, k);
+        const T bv = b[c];
+        acc = repro::contribution<M>(acc, sub(bv, add(mul(k.diag, blk.x[c]), off0)));
+        const int r = j - (ja - 1), cz = z - (za - 1);
+        const T off1 = offdiag(k, ring[sm][r][cz], ring[sp][r][cz], ring[sq][r - 1][cz],
+                               ring[sq][r + 1][cz], ring[sq][r][cz - 1], ring[sq][r][cz + 1]);
+        out[c] = dvd(sub(bv, off1), k.diag);
       }
     }
   }
-  const float tot = repro::block_reduce<kThreads>(acc, kLinf);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    parts[blockIdx.x * gridDim.y + blockIdx.y] = tot;
+  repro::cluster_partial<kRbgsThreads>(acc, M == repro::kLinf, parts + tile);
 }
 
 template <typename T>
@@ -257,72 +322,56 @@ Block<T> block(const void* x, const void* hxm, const void* hxp, const void* hym,
                   static_cast<const T*>(hzp), bx, by, bz};
 }
 
-template <typename T>
-Coefs<T> coefs(double d, double xm, double xp, double ym, double yp, double zm,
-               double zp) {
-  return Coefs<T>{T(d), T(xm), T(xp), T(ym), T(yp), T(zm), T(zp)};
-}
-
-template <typename T, bool kSweep, bool kLinf>
+template <typename T, bool kSweep, int M>
 cudaError_t launch_sweep_as(Block<T> blk, const T* b, T* out, float* parts, int tx,
                             int ty, Coefs<T> k, cudaStream_t s) {
-  auto kern = halo_sweep_kernel<T, kSweep, kLinf>;
+  auto kern = halo_sweep_kernel<T, kSweep, M>;
   static repro::DeviceFit known[repro::kMaxDevices];
   repro::DeviceFit fit;
   cudaError_t err = repro::device_fit(kern, kSweepThreads, known, &fit);
   if (err != cudaSuccess) return err;
   const long tiles = (long)((blk.bx + tx - 1) / tx) * ((blk.by + ty - 1) / ty);
-  // split each tile over a cluster while the card holds more CTAs at once
-  // than there are tiles: as many CTAs as still fit in that one wave, at
-  // most one per kSweepThreads columns and the largest cluster
-  const long wave = (long)fit.per_sm * fit.sms;
-  long c = 1;
-  if (tiles < wave) {
-    const long ncol = (long)ty * blk.bz;
-    c = std::min({wave / tiles, (ncol + kSweepThreads - 1) / kSweepThreads, (long)fit.cmax});
-  }
-  return repro::launch_clusters(kern, tiles, static_cast<int>(c), kSweepThreads, s,
-                                blk, b, out, parts, tx, ty, k);
+  const int c = repro::column_split(fit, tiles, (long)ty * blk.bz, kSweepThreads);
+  return repro::launch_clusters(kern, tiles, c, kSweepThreads, s, blk, b, out, parts,
+                                tx, ty, k);
 }
 
+template <typename T, int M>
+cudaError_t launch_rbgs_as(Block<T> blk, const T* b, T* out, float* parts, int tx,
+                           int ty, int oxyz, Coefs<T> k, cudaStream_t s) {
+  auto kern = halo_rbgs_kernel<T, M>;
+  static repro::DeviceFit known[repro::kMaxDevices];
+  repro::DeviceFit fit;
+  cudaError_t err = repro::device_fit(kern, kRbgsThreads, known, &fit);
+  if (err != cudaSuccess) return err;
+  const long tiles = (long)((blk.bx + tx - 1) / tx) * ((blk.by + ty - 1) / ty);
+  const repro::SubBoxes sb = repro::rbgs_split(fit, tiles, ty, blk.bz);
+  return repro::launch_clusters(kern, tiles, sb.csize, kRbgsThreads, s, blk, b, out,
+                                parts, tx, ty, sb.zc, oxyz, k);
+}
+
+// flag: sweep (1) or residual-only pass (0) for the Jacobi sweep, the
+// phase ox + oy + oz for the RB-GS sweep
 template <typename T>
-int launch_sweep(Block<T> blk, const void* b, void* out, void* parts, int tx,
-                 int ty, int sweep, int linf, Coefs<T> k, void* stream) {
+int launch(bool rbgs, Block<T> blk, const void* b, void* out, void* parts, int tx,
+           int ty, int flag, int mode, Coefs<T> k, void* stream) {
   if (tx < 1 || ty < 1 || blk.bx < 1 || blk.by < 1 || blk.bz < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto bp = static_cast<const T*>(b);
   auto op = static_cast<T*>(out);
   auto pp = static_cast<float*>(parts);
-  cudaError_t err;
-  if (sweep && linf)
-    err = launch_sweep_as<T, true, true>(blk, bp, op, pp, tx, ty, k, s);
-  else if (sweep)
-    err = launch_sweep_as<T, true, false>(blk, bp, op, pp, tx, ty, k, s);
-  else if (linf)
-    err = launch_sweep_as<T, false, true>(blk, bp, op, pp, tx, ty, k, s);
-  else
-    err = launch_sweep_as<T, false, false>(blk, bp, op, pp, tx, ty, k, s);
-  return static_cast<int>(err);
-}
-
-template <typename T>
-int launch_rbgs(Block<T> blk, const void* b, void* out, void* parts, int tx, int ty,
-                int oxyz, int linf, Coefs<T> k, void* stream) {
-  const dim3 grid((blk.bx + tx - 1) / tx, (blk.by + ty - 1) / ty);
-  const dim3 threads(kThreadsZ, kThreadsY);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto bp = static_cast<const T*>(b);
-  auto op = static_cast<T*>(out);
-  auto pp = static_cast<float*>(parts);
-  if (linf)
-    halo_rbgs_kernel<T, true><<<grid, threads, 0, s>>>(blk, bp, op, pp, tx, ty, oxyz, k);
-  else
-    halo_rbgs_kernel<T, false><<<grid, threads, 0, s>>>(blk, bp, op, pp, tx, ty, oxyz, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(repro::by_mode(mode, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (rbgs) return launch_rbgs_as<T, M>(blk, bp, op, pp, tx, ty, flag, k, s);
+    return flag ? launch_sweep_as<T, true, M>(blk, bp, op, pp, tx, ty, k, s)
+                : launch_sweep_as<T, false, M>(blk, bp, op, pp, tx, ty, k, s);
+  }));
 }
 
 }  // namespace
+
+using repro::coefs;
 
 #define HALO_ARGS                                                              \
   const void *x, const void *hxm, const void *hxp, const void *hym,            \
@@ -334,28 +383,28 @@ int launch_rbgs(Block<T> blk, const void* b, void* out, void* parts, int tx, int
 
 extern "C" {
 
-int fused_sweep_residual_halo_f64(HALO_ARGS, int sweep, int linf, COEF_ARGS,
+int fused_sweep_residual_halo_f64(HALO_ARGS, int sweep, int mode, COEF_ARGS,
                                   void* stream) {
-  return launch_sweep<double>(block<double>(BLOCK_VALS), b, out, parts, tx, ty,
-                              sweep, linf, coefs<double>(COEF_VALS), stream);
+  return launch<double>(false, block<double>(BLOCK_VALS), b, out, parts, tx, ty, sweep,
+                        mode, coefs<double>(COEF_VALS), stream);
 }
 
-int fused_sweep_residual_halo_f32(HALO_ARGS, int sweep, int linf, COEF_ARGS,
+int fused_sweep_residual_halo_f32(HALO_ARGS, int sweep, int mode, COEF_ARGS,
                                   void* stream) {
-  return launch_sweep<float>(block<float>(BLOCK_VALS), b, out, parts, tx, ty,
-                             sweep, linf, coefs<float>(COEF_VALS), stream);
+  return launch<float>(false, block<float>(BLOCK_VALS), b, out, parts, tx, ty, sweep,
+                       mode, coefs<float>(COEF_VALS), stream);
 }
 
-int fused_rbgs_sweep_residual_halo_f64(HALO_ARGS, int oxyz, int linf, COEF_ARGS,
+int fused_rbgs_sweep_residual_halo_f64(HALO_ARGS, int oxyz, int mode, COEF_ARGS,
                                        void* stream) {
-  return launch_rbgs<double>(block<double>(BLOCK_VALS), b, out, parts, tx, ty,
-                             oxyz, linf, coefs<double>(COEF_VALS), stream);
+  return launch<double>(true, block<double>(BLOCK_VALS), b, out, parts, tx, ty, oxyz,
+                        mode, coefs<double>(COEF_VALS), stream);
 }
 
-int fused_rbgs_sweep_residual_halo_f32(HALO_ARGS, int oxyz, int linf, COEF_ARGS,
+int fused_rbgs_sweep_residual_halo_f32(HALO_ARGS, int oxyz, int mode, COEF_ARGS,
                                        void* stream) {
-  return launch_rbgs<float>(block<float>(BLOCK_VALS), b, out, parts, tx, ty,
-                            oxyz, linf, coefs<float>(COEF_VALS), stream);
+  return launch<float>(true, block<float>(BLOCK_VALS), b, out, parts, tx, ty, oxyz,
+                       mode, coefs<float>(COEF_VALS), stream);
 }
 
 }  // extern "C"

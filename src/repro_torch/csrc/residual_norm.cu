@@ -1,5 +1,5 @@
 // Blockwise diff-norm partials: per `block` elements of the flattened
-// inputs, max|a - b| or sum (a - b)^2 as one f32.
+// inputs, max|a - b|, sum (a - b)^2 or sum |a - b| as one f32.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/residual_norm/residual_norm.py  diff_norm_partials (:34, body _kernel :18-30)
@@ -23,10 +23,11 @@
 //     type), so two calls on the same inputs are bitwise equal.
 // As on the TPU, the difference is taken in the wider of (input type, f32)
 // and only then cast: f64 update differences near 1e-13 must not quantise
-// to 0.  NaN propagates through both reductions.
+// to 0.  NaN propagates through every reduction.
 //
-// C interface (ctypes): pointers and the stream are void*; every entry
-// returns cudaGetLastError() after its launch.
+// C interface (ctypes): pointers and the stream are void*, `mode` is the
+// partials' Norm (common.cuh); every entry returns cudaGetLastError() after
+// its launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,16 +56,18 @@ __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, bool kLinf>
+template <typename T, int M>
 __device__ __forceinline__ float accumulate(float acc, T x, T y) {
   const float d = static_cast<float>(widen(x) - widen(y));
-  return kLinf ? repro::nanmax(acc, repro::absv(d)) : acc + d * d;
+  if (M == repro::kLinf) return repro::nanmax(acc, repro::absv(d));
+  if (M == repro::kL1) return acc + repro::absv(d);
+  return acc + d * d;
 }
 
 // kVec elements per 16-byte load (1 when the operands are not 16-byte
 // aligned).  CTA `rank` of cluster `part` reduces elements [s0, s1) of
 // partial `part`.
-template <typename T, bool kLinf, int kVec>
+template <typename T, int M, int kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  float* __restrict__ parts, long n, long block) {
@@ -80,14 +83,14 @@ diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
   float acc = 0.f;
   if constexpr (kVec == 1) {
-    for (long i = s0 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
+    for (long i = s0 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, M>(acc, a[i], b[i]);
   } else {
     static_assert(kVec * sizeof(T) == 16, "one vector is 16 bytes");
     // a scalar head up to the first whole vector, the vectors, a scalar tail
     const long v0 = min((s0 + kVec - 1) / kVec * kVec, s1);
     const long v1 = v0 + (s1 - v0) / kVec * kVec;
-    for (long i = s0 + threadIdx.x; i < v0; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
-    for (long i = v1 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, kLinf>(acc, a[i], b[i]);
+    for (long i = s0 + threadIdx.x; i < v0; i += kThreads) acc = accumulate<T, M>(acc, a[i], b[i]);
+    for (long i = v1 + threadIdx.x; i < s1; i += kThreads) acc = accumulate<T, M>(acc, a[i], b[i]);
     const uint4* av = reinterpret_cast<const uint4*>(a);
     const uint4* bv = reinterpret_cast<const uint4*>(b);
     const long w1 = v1 / kVec;
@@ -104,7 +107,7 @@ diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const T* xs = reinterpret_cast<const T*>(&x[u]);
         const T* ys = reinterpret_cast<const T*>(&y[u]);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc = accumulate<T, kLinf>(acc, xs[e], ys[e]);
+        for (int e = 0; e < kVec; ++e) acc = accumulate<T, M>(acc, xs[e], ys[e]);
       }
     }
     for (; w < w1; w += kThreads) {
@@ -112,17 +115,17 @@ diff_norm_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const T* xs = reinterpret_cast<const T*>(&x);
       const T* ys = reinterpret_cast<const T*>(&y);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc = accumulate<T, kLinf>(acc, xs[e], ys[e]);
+      for (int e = 0; e < kVec; ++e) acc = accumulate<T, M>(acc, xs[e], ys[e]);
     }
   }
 
-  repro::cluster_partial<kThreads>(acc, kLinf, parts + part);
+  repro::cluster_partial<kThreads>(acc, M == repro::kLinf, parts + part);
 }
 
-template <typename T, bool kLinf, int kVec>
+template <typename T, int M, int kVec>
 cudaError_t launch_vec(const T* a, const T* b, float* parts, long n, long block,
                        cudaStream_t s) {
-  auto kern = diff_norm_kernel<T, kLinf, kVec>;
+  auto kern = diff_norm_kernel<T, M, kVec>;
   static repro::DeviceFit known[repro::kMaxDevices];
   repro::DeviceFit fit;
   cudaError_t err = repro::device_fit(kern, kThreads, known, &fit);
@@ -142,7 +145,7 @@ cudaError_t launch_vec(const T* a, const T* b, float* parts, long n, long block,
 
 template <typename T>
 int launch(const void* a, const void* b, void* parts, long n, long block,
-           int linf, void* stream) {
+           int mode, void* stream) {
   if (n <= 0 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto ap = static_cast<const T*>(a);
@@ -151,14 +154,11 @@ int launch(const void* a, const void* b, void* parts, long n, long block,
   constexpr int V = 16 / sizeof(T);
   const bool aligned = (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(b) % 16 == 0);
-  cudaError_t err;
-  if (aligned)
-    err = linf ? launch_vec<T, true, V>(ap, bp, pp, n, block, s)
-               : launch_vec<T, false, V>(ap, bp, pp, n, block, s);
-  else
-    err = linf ? launch_vec<T, true, 1>(ap, bp, pp, n, block, s)
-               : launch_vec<T, false, 1>(ap, bp, pp, n, block, s);
-  return static_cast<int>(err);
+  return static_cast<int>(repro::by_mode(mode, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return aligned ? launch_vec<T, M, V>(ap, bp, pp, n, block, s)
+                   : launch_vec<T, M, 1>(ap, bp, pp, n, block, s);
+  }));
 }
 
 }  // namespace
@@ -166,18 +166,18 @@ int launch(const void* a, const void* b, void* parts, long n, long block,
 extern "C" {
 
 int diff_norm_partials_f64(const void* a, const void* b, void* parts, long n,
-                           long block, int linf, void* stream) {
-  return launch<double>(a, b, parts, n, block, linf, stream);
+                           long block, int mode, void* stream) {
+  return launch<double>(a, b, parts, n, block, mode, stream);
 }
 
 int diff_norm_partials_f32(const void* a, const void* b, void* parts, long n,
-                           long block, int linf, void* stream) {
-  return launch<float>(a, b, parts, n, block, linf, stream);
+                           long block, int mode, void* stream) {
+  return launch<float>(a, b, parts, n, block, mode, stream);
 }
 
 int diff_norm_partials_bf16(const void* a, const void* b, void* parts, long n,
-                            long block, int linf, void* stream) {
-  return launch<__nv_bfloat16>(a, b, parts, n, block, linf, stream);
+                            long block, int mode, void* stream) {
+  return launch<__nv_bfloat16>(a, b, parts, n, block, mode, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 sweeps (``csrc/jacobi3d.cu``) and their halo-consuming twins, which take an
 unghosted block and six face planes (``csrc/jacobi3d_halo.cu``).
 
-A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches (only
+Every wrapper's ``ord`` picks what its residual partials reduce: max|r|
+(∞), Σr² (2) or Σ|r| (1); any other order raises.  A tensor on the CPU
+goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
+or raises.  ``LAUNCHES`` counts kernel launches (only
 launches — the CPU path does not count), so a run can show that its main
 path went through the kernels; ``LAUNCH_SHAPES`` counts the same launches
 by (kernel, block shape), so a run can price them at each shape's time.
@@ -15,10 +17,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.residual import partial_mode
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DBL, INT, PTR
 from repro_torch.kernels.jacobi3d.ref import (
     DEFAULT_TILE,
+    INF,
     fused_rbgs_sweep_residual_halo_ref,
     fused_rbgs_sweep_residual_ref,
     fused_sweep_residual_halo_ref,
@@ -35,7 +39,7 @@ LAUNCH_SHAPES: Counter = Counter()   # (kernel, (bx, by, bz)) -> launches
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _PLANES = ("gxm", "gxp", "gym", "gyp", "gzm", "gzp")
 # per source: its kernels and their C signature, (the block's inputs: g, or
-# x and the six planes; b, out, parts, bx, by, bz, tx, ty, flag, linf,
+# x and the six planes; b, out, parts, bx, by, bz, tx, ty, flag, mode,
 # 7 coefs, stream)
 _SOURCES = {
     "jacobi3d": (("fused_sweep_residual", "fused_rbgs_sweep_residual"),
@@ -88,9 +92,11 @@ def _planes(halos, b: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Tensor],
-            tile, flag: int, linf: bool, coefs: Sequence[float]) -> torch.Tensor:
+            tile, flag: int, ord: float, coefs: Sequence[float]) -> torch.Tensor:
     """Launch ``kernel`` on the block's inputs ``ins`` (``g``, or ``x`` and
-    the six planes) and the rhs ``b``; returns the partials ``[nx, ny]``."""
+    the six planes) and the rhs ``b``; returns the partials ``[nx, ny]`` of
+    the norm order ``ord``."""
+    mode = partial_mode(ord)
     bx, by, bz = b.shape
     tx, ty, nx, ny = tile_grid(bx, by, tile)
     parts = torch.empty((nx, ny), dtype=torch.float32, device=b.device)
@@ -99,7 +105,7 @@ def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Ten
     with torch.cuda.device(b.device):
         err = fn(*(t.data_ptr() for t in ins), b.data_ptr(),
                  None if out is None else out.data_ptr(), parts.data_ptr(),
-                 bx, by, bz, tx, ty, flag, int(linf), *map(float, coefs),
+                 bx, by, bz, tx, ty, flag, mode, *map(float, coefs),
                  torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(err, kernel)
     LAUNCHES[kernel] += 1
@@ -110,7 +116,7 @@ def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Ten
 def fused_sweep_residual(g: torch.Tensor, b: torch.Tensor,
                          coefs: Sequence[float],
                          tile: Tuple[int, int] = DEFAULT_TILE,
-                         op: str = "sweep", linf: bool = True):
+                         op: str = "sweep", ord: float = INF):
     """Jacobi sweep of a ±1 ghosted block ``g[(bx+2),(by+2),(bz+2)]`` with
     the input state's residual partials ``[nx, ny]`` (f32).
 
@@ -121,36 +127,36 @@ def fused_sweep_residual(g: torch.Tensor, b: torch.Tensor,
     if op not in ("sweep", "residual"):
         raise ValueError(f"op {op!r} not in ('sweep', 'residual')")
     if not _build.on_cuda(g, b):
-        return fused_sweep_residual_ref(g, b, coefs, tile=tile, op=op, linf=linf)
+        return fused_sweep_residual_ref(g, b, coefs, tile=tile, op=op, ord=ord)
     _validate(g, b, (2, 2, 2))
     out = torch.empty_like(b) if op == "sweep" else None
     parts = _launch("fused_sweep_residual", (g,), b, out, tile, int(op == "sweep"),
-                    linf, coefs)
+                    ord, coefs)
     return (g[1:-1, 1:-1, 1:-1] if out is None else out), parts
 
 
 def fused_rbgs_sweep_residual(g2: torch.Tensor, b: torch.Tensor,
                               coefs: Sequence[float], oxy: int,
                               tile: Tuple[int, int] = DEFAULT_TILE,
-                              linf: bool = True):
+                              ord: float = INF):
     """One-pass hybrid red-black GS sweep of a twice-padded block
     ``g2[(bx+4),(by+4),(bz+2)]`` (``ops.ghost_pad2``) with the unpadded rhs
     ``b``, plus the input state's residual partials ``[nx, ny]`` (f32).
     ``oxy = ox + oy`` is the block's global checkerboard phase."""
     if not _build.on_cuda(g2, b):
         return fused_rbgs_sweep_residual_ref(g2, b, coefs, int(oxy), tile=tile,
-                                             linf=linf)
+                                             ord=ord)
     _validate(g2, b, (4, 4, 2))
     out = torch.empty_like(b)
     parts = _launch("fused_rbgs_sweep_residual", (g2,), b, out, tile, int(oxy),
-                    linf, coefs)
+                    ord, coefs)
     return out, parts
 
 
 def fused_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
                               coefs: Sequence[float],
                               tile: Tuple[int, int] = DEFAULT_TILE,
-                              op: str = "sweep", linf: bool = True):
+                              op: str = "sweep", ord: float = INF):
     """Jacobi sweep of an unghosted block ``x[bx, by, bz]`` whose ghost
     values are the six face planes ``halos = (gxm, gxp, gym, gyp, gzm,
     gzp)``, with the input state's residual partials ``[nx, ny]`` (f32).
@@ -163,18 +169,18 @@ def fused_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
     halos = _planes(halos, b)
     if not _build.on_cuda(x, b, *halos):
         return fused_sweep_residual_halo_ref(x, halos, b, coefs, tile=tile, op=op,
-                                             linf=linf)
+                                             ord=ord)
     _validate(x, b, (0, 0, 0))
     out = torch.empty_like(b) if op == "sweep" else None
     parts = _launch("fused_sweep_residual_halo", (x, *halos), b, out, tile,
-                    int(op == "sweep"), linf, coefs)
+                    int(op == "sweep"), ord, coefs)
     return (x if out is None else out), parts
 
 
 def fused_rbgs_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
                                    coefs: Sequence[float], oxyz: int,
                                    tile: Tuple[int, int] = DEFAULT_TILE,
-                                   linf: bool = True):
+                                   ord: float = INF):
     """One-pass hybrid red-black GS sweep of an unghosted block and its six
     face planes, plus the input state's residual partials ``[nx, ny]``
     (f32).  ``oxyz = ox + oy + oz`` is the block's global checkerboard
@@ -182,9 +188,9 @@ def fused_rbgs_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
     halos = _planes(halos, b)
     if not _build.on_cuda(x, b, *halos):
         return fused_rbgs_sweep_residual_halo_ref(x, halos, b, coefs, int(oxyz),
-                                                  tile=tile, linf=linf)
+                                                  tile=tile, ord=ord)
     _validate(x, b, (0, 0, 0))
     out = torch.empty_like(b)
     parts = _launch("fused_rbgs_sweep_residual_halo", (x, *halos), b, out, tile,
-                    int(oxyz), linf, coefs)
+                    int(oxyz), ord, coefs)
     return out, parts

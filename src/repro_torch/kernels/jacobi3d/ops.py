@@ -42,13 +42,11 @@ def reset_pass_counts() -> None:
         PASS_COUNTS[k] = 0
 
 
-def _linf(ord: float) -> bool:
-    """The kernels reduce max|r| (l∞) or Σr² (l2) only."""
-    if np.isinf(ord):
-        return True
-    if float(ord) == 2.0:
-        return False
-    raise ValueError(f"the jacobi3d kernels support ord 2 or inf, got {ord}")
+def _reduce(parts: torch.Tensor, ord: float) -> torch.Tensor:
+    """A block's pre-σ contribution from its partials: their max for l∞,
+    their sum for l2 (Σr²) and l1 (Σ|r|).  (The kernel wrappers raise for
+    any other order.)"""
+    return parts.amax() if np.isinf(ord) else parts.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -89,15 +87,15 @@ def ghost_pad2(x: torch.Tensor, ghosts) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sweep_impl(st: Stencil, x, ghosts, b, sweep, ox, oy, tile, linf):
+def _sweep_impl(st: Stencil, x, ghosts, b, sweep, ox, oy, tile, ord):
     """One relaxation sweep fused with the input-state residual partials."""
     if sweep == "jacobi":
         return fused_sweep_residual(ghost_pad1(x, ghosts), b, st.coefs,
-                                    tile=tile, op="sweep", linf=linf)
+                                    tile=tile, op="sweep", ord=ord)
     if sweep != "hybrid":
         raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
     return fused_rbgs_sweep_residual(ghost_pad2(x, ghosts), b, st.coefs,
-                                     int(ox) + int(oy), tile=tile, linf=linf)
+                                     int(ox) + int(oy), tile=tile, ord=ord)
 
 
 def sweep(st: Stencil, x: torch.Tensor, ghosts, b: torch.Tensor,
@@ -106,7 +104,7 @@ def sweep(st: Stencil, x: torch.Tensor, ghosts, b: torch.Tensor,
     """Sweep-only entry (inner sweeps that don't feed detection; the
     kernel's partials are discarded)."""
     PASS_COUNTS["sweep"] += 1
-    new, _ = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, True)
+    new, _ = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, float("inf"))
     return new
 
 
@@ -117,13 +115,13 @@ def sweep_with_contribution(st: Stencil, x: torch.Tensor, ghosts,
                             tile: Tuple[int, int] = DEFAULT_TILE):
     """Fused hot path: ``(new_block, contrib)`` in one assembly + one pass.
 
-    ``contrib`` is the pre-σ local contribution (max|r| for l∞, Σr² for l2)
-    of the *input* state's residual — one sweep staler than a dedicated
-    post-sweep pass, which the detection layer tolerates by design."""
+    ``contrib`` is the pre-σ local contribution (max|r| for l∞, Σr² for
+    l2, Σ|r| for l1) of the *input* state's residual — one sweep staler
+    than a dedicated post-sweep pass, which the detection layer tolerates
+    by design."""
     PASS_COUNTS["fused"] += 1
-    linf = _linf(ord)
-    new, parts = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, linf)
-    return new, (parts.amax() if linf else parts.sum())
+    new, parts = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, ord)
+    return new, _reduce(parts, ord)
 
 
 def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
@@ -132,10 +130,9 @@ def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
     """Residual-only pass over a ±1 ghosted block (unfused baseline path,
     NFAIS2's exact verification and blocking mode's barrier pass)."""
     PASS_COUNTS["residual"] += 1
-    linf = _linf(ord)
     _, parts = fused_sweep_residual(g, b, st.coefs, tile=tile, op="residual",
-                                    linf=linf)
-    return parts.amax() if linf else parts.sum()
+                                    ord=ord)
+    return _reduce(parts, ord)
 
 
 # ---------------------------------------------------------------------------
@@ -143,17 +140,17 @@ def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _sweep_halo_impl(st: Stencil, x, halos, b, sweep, ox, oy, oz, tile, linf):
+def _sweep_halo_impl(st: Stencil, x, halos, b, sweep, ox, oy, oz, tile, ord):
     """Twin of ``_sweep_impl`` for the mesh runtime, where any of x/y/z may
     be partitioned: ``halos = (gxm, gxp, gym, gyp, gzm, gzp)``."""
     if sweep == "jacobi":
         return fused_sweep_residual_halo(x, halos, b, st.coefs, tile=tile,
-                                         op="sweep", linf=linf)
+                                         op="sweep", ord=ord)
     if sweep != "hybrid":
         raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
     return fused_rbgs_sweep_residual_halo(x, halos, b, st.coefs,
                                           int(ox) + int(oy) + int(oz),
-                                          tile=tile, linf=linf)
+                                          tile=tile, ord=ord)
 
 
 def sweep_halo(st: Stencil, x: torch.Tensor, halos, b: torch.Tensor,
@@ -161,7 +158,7 @@ def sweep_halo(st: Stencil, x: torch.Tensor, halos, b: torch.Tensor,
                tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
     """Halo-plane sweep-only entry (the kernel's partials are discarded)."""
     PASS_COUNTS["sweep"] += 1
-    new, _ = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, True)
+    new, _ = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, float("inf"))
     return new
 
 
@@ -171,11 +168,11 @@ def sweep_with_contribution_halo(st: Stencil, x: torch.Tensor, halos,
                                  ord: float = float("inf"),
                                  tile: Tuple[int, int] = DEFAULT_TILE):
     """Fused halo-plane hot path: ``(new_block, contrib)`` in one pass;
-    ``contrib`` is the pre-σ contribution of the *input* state's residual."""
+    ``contrib`` is the pre-σ contribution of the *input* state's residual:
+    Σ|r| at l1 (where the JAX halo ops return Σr²)."""
     PASS_COUNTS["fused"] += 1
-    linf = _linf(ord)
-    new, parts = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, linf)
-    return new, (parts.amax() if linf else parts.sum())
+    new, parts = _sweep_halo_impl(st, x, halos, b, sweep, ox, oy, oz, tile, ord)
+    return new, _reduce(parts, ord)
 
 
 def residual_contribution_halo(st: Stencil, x: torch.Tensor, halos,
@@ -184,7 +181,6 @@ def residual_contribution_halo(st: Stencil, x: torch.Tensor, halos,
     """Residual-only pass from an unghosted block and six face planes
     (blocking mode's barrier pass and NFAIS2's exact verification)."""
     PASS_COUNTS["residual"] += 1
-    linf = _linf(ord)
     _, parts = fused_sweep_residual_halo(x, halos, b, st.coefs, tile=tile,
-                                         op="residual", linf=linf)
-    return parts.amax() if linf else parts.sum()
+                                         op="residual", ord=ord)
+    return _reduce(parts, ord)

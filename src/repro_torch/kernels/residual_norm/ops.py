@@ -11,12 +11,11 @@ from repro_torch.kernels.residual_norm.residual_norm import diff_norm_partials
 
 def diff_norm(a: torch.Tensor, b: torch.Tensor,
               ord: float = float("inf")) -> torch.Tensor:
-    """‖a − b‖_ord for ord ∈ {2, ∞}, computed blockwise."""
-    linf = np.isinf(ord)
-    if not linf and float(ord) != 2.0:
-        raise ValueError(f"diff_norm supports ord 2 or inf, got {ord}")
-    parts = diff_norm_partials(a, b, linf=linf)
-    return parts.amax() if linf else torch.sqrt(parts.sum())
+    """‖a − b‖_ord for ord ∈ {1, 2, ∞}, computed blockwise."""
+    parts = diff_norm_partials(a, b, ord=ord)
+    if np.isinf(ord):
+        return parts.amax()
+    return torch.sqrt(parts.sum()) if float(ord) == 2.0 else parts.sum()
 
 
 def update_contribution(new: torch.Tensor, old: torch.Tensor,
@@ -26,14 +25,17 @@ def update_contribution(new: torch.Tensor, old: torch.Tensor,
     For relaxations whose residual is the update difference (Jacobi:
     ``r = diag·(x⁺ − x)``), the contribution is a fused diff-norm of the two
     states with the constant factor hoisted out of the reduction:
-    ``f32(s²) · Σ|Δ|²`` for l2, ``s · max|Δ|`` for l∞ (s = |scale|).  Other
-    l have no kernel: CPU tensors take ``core.residual``, CUDA ones raise.
+    ``f32(s²) · Σ|Δ|²`` for l2, ``s · Σ|Δ|`` for l1, ``s · max|Δ|`` for l∞
+    (s = |scale|).  Other l have no kernel: CPU tensors take
+    ``core.residual``, CUDA ones raise.
     """
     s = abs(float(scale))
     if np.isinf(ord):
-        return s * diff_norm_partials(new, old, linf=True).amax()
+        return s * diff_norm_partials(new, old, ord=ord).amax()
     if float(ord) == 2.0:
-        return float(np.float32(s * s)) * diff_norm_partials(new, old, linf=False).sum()
+        return float(np.float32(s * s)) * diff_norm_partials(new, old, ord=ord).sum()
+    if float(ord) == 1.0:
+        return s * diff_norm_partials(new, old, ord=ord).sum()
     if _build.on_cuda(new, old):
-        raise ValueError(f"the diff-norm kernel supports ord 2 or inf, got {ord}")
+        res.partial_mode(ord)  # raises: the kernel has no such mode
     return res.local_contribution(scale * (new - old), ord)

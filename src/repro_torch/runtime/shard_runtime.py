@@ -304,12 +304,6 @@ def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device,
 # ---------------------------------------------------------------------------
 
 
-def _check_ord(cfg: ShardRuntimeConfig) -> None:
-    ord_ = cfg.monitor.ord
-    if not (np.isinf(ord_) or float(ord_) == 2.0):
-        raise ValueError(f"the convdiff runtime supports ord 2 or inf, got {ord_}")
-
-
 def _as_global(x0, b, n: int, dev: torch.device):
     b = torch.as_tensor(b, device=dev)
     x0 = torch.as_tensor(x0, device=dev, dtype=b.dtype)
@@ -340,7 +334,7 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
     p = mesh[0]
     if n % p:
         raise ValueError(f"n={n} not divisible by shard count p={p}")
-    _check_ord(cfg)
+    res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
     ord_ = cfg.monitor.ord
     dev = resolve_device(device)
     loop = _make_loop(cfg, p, dev)
@@ -426,7 +420,7 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
                     "overlap=True needs block extent >= 2 on every "
                     f"partitioned axis: mesh {shape} at n={n} gives "
                     f"block {block}")
-    _check_ord(cfg)
+    res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
     ord_ = cfg.monitor.ord
     dev = resolve_device(device)
     loop = _make_loop(cfg, p, dev, mesh_shape=shape)

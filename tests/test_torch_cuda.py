@@ -21,7 +21,10 @@ also element by element under ``flash_attention.ref.bf16_output_bar``,
 |Δ| ≤ 2^-7·(|want| + rms(want)) + 2^-8·ref(q, k, |v|) (one bf16 step of
 the output plus the rounding of p to bf16 for the P·V product); an f32
 model served on the card gives the CPU's tokens.  Diff-norm partials: l∞
-1e-6 and l2 2e-5 relative (summation order), bitwise equal across calls.
+1e-6 and l2 / l1 2e-5 relative (summation order), bitwise equal across
+calls.  The stencil and diff-norm kernels are checked in all three partial
+modes (l∞ max|r|, l2 Σr², l1 Σ|r|); an l1 run on the card takes the CPU's
+iterations.
 """
 import numpy as np
 import pytest
@@ -46,6 +49,7 @@ from repro_torch.solvers import fixed_point as tfp
 from repro_torch.solvers.convdiff import Stencil, make_rhs
 
 INF = float("inf")
+ORDS = (INF, 2.0, 1.0)   # the partial modes: max|r|, Σr², Σ|r|
 
 
 @pytest.fixture
@@ -63,20 +67,20 @@ def test_kernels_match_plain_on_card(card):
         b = torch.rand((13, 37, 19), generator=gen, device=card, dtype=dtype)
         g = torch.rand((15, 39, 21), generator=gen, device=card, dtype=dtype)
         g2 = torch.rand((17, 41, 21), generator=gen, device=card, dtype=dtype)
-        for linf in (True, False):
+        for ord in ORDS:
             for op in ("sweep", "residual"):
-                got = tk.fused_sweep_residual(g, b, st.coefs, op=op, linf=linf)
-                want = tref.fused_sweep_residual_ref(g, b, st.coefs, op=op, linf=linf)
+                got = tk.fused_sweep_residual(g, b, st.coefs, op=op, ord=ord)
+                want = tref.fused_sweep_residual_ref(g, b, st.coefs, op=op, ord=ord)
                 torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
                 torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
             for oxy in (0, 1):
-                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, linf=linf)
-                want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy, linf=linf)
+                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, ord=ord)
+                want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy, ord=ord)
                 torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
                 torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
             torch.testing.assert_close(
-                trk.diff_norm_partials(g, g.flip(0), block=4096, linf=linf),
-                trn_ref.diff_norm_partials_ref(g, g.flip(0), block=4096, linf=linf),
+                trk.diff_norm_partials(g, g.flip(0), block=4096, ord=ord),
+                trn_ref.diff_norm_partials_ref(g, g.flip(0), block=4096, ord=ord),
                 rtol=2e-5, atol=0)
 
 
@@ -140,18 +144,18 @@ def test_halo_kernels_match_plain_on_card(card):
             x = torch.rand(shape, generator=gen, device=card, dtype=dtype)
             b = torch.rand(shape, generator=gen, device=card, dtype=dtype)
             h = _halo_planes(shape, gen, card, dtype)
-            for linf in (True, False):
+            for ord in ORDS:
                 for op in ("sweep", "residual"):
-                    got = tk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, linf=linf)
+                    got = tk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op, ord=ord)
                     want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, op=op,
-                                                              linf=linf)
+                                                              ord=ord)
                     torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
                     torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
                 for oxyz in (0, 1, 5):
                     got = tk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz,
-                                                            linf=linf)
+                                                            ord=ord)
                     want = tref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz,
-                                                                   linf=linf)
+                                                                   ord=ord)
                     torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
                     torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
 
@@ -192,10 +196,14 @@ def _rel_close(got, want, tol):
 
 
 # chip_smoke.py's tolerances: blocks (f64 FMA contraction, f32 rounding), and
-# partials (l∞ max of f32-cast values, l2 f32 summation order)
+# partials (l∞ max of f32-cast values, l2 and l1 f32 summation order)
 _BLOCK_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-_PART_TOL = {(torch.float64, True): 1e-6, (torch.float32, True): 1e-5,
-             (torch.float64, False): 2e-5, (torch.float32, False): 2e-5}
+
+
+def _part_tol(dtype, ord):
+    if ord != INF:
+        return 2e-5
+    return 1e-6 if dtype == torch.float64 else 1e-5
 
 
 @pytest.mark.cuda
@@ -216,17 +224,17 @@ def test_halo_sweep_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
     b = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
     h = _halo_planes(shape, gen, card, dtype)
     for tile in tiles:
-        for linf in (True, False):
+        for ord in ORDS:
             for op in ("sweep", "residual"):
                 got = tk.fused_sweep_residual_halo(x, h, b, st.coefs, tile=tile, op=op,
-                                                   linf=linf)
+                                                   ord=ord)
                 again = tk.fused_sweep_residual_halo(x, h, b, st.coefs, tile=tile, op=op,
-                                                     linf=linf)
+                                                     ord=ord)
                 want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs, tile=tile,
-                                                          op=op, linf=linf)
-                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, linf, op)
+                                                          op=op, ord=ord)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, ord, op)
                 assert got[1].shape == want[1].shape
-                assert _rel_close(got[1], want[1], _PART_TOL[dtype, linf]), (tile, linf, op)
+                assert _rel_close(got[1], want[1], _part_tol(dtype, ord)), (tile, ord, op)
                 assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
 
 
@@ -249,23 +257,85 @@ def test_rbgs_sweep_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
     b = torch.rand(shape, generator=gen, device=card, dtype=dtype)
     for tile in tiles:
         for oxy in (0, 1):
-            for linf in (True, False):
-                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, tile=tile, linf=linf)
+            for ord in ORDS:
+                got = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, tile=tile, ord=ord)
                 again = tk.fused_rbgs_sweep_residual(g2, b, st.coefs, oxy, tile=tile,
-                                                     linf=linf)
+                                                     ord=ord)
                 want = tref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, oxy, tile=tile,
-                                                          linf=linf)
-                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, oxy, linf)
+                                                          ord=ord)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, oxy, ord)
                 assert got[1].shape == want[1].shape
-                assert _rel_close(got[1], want[1], _PART_TOL[dtype, linf]), (tile, oxy, linf)
+                assert _rel_close(got[1], want[1], _part_tol(dtype, ord)), (tile, oxy, ord)
                 assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(50, 75, 150), (25, 150, 150), (185, 185, 185), (13, 37, 19)])
+@pytest.mark.parametrize("shape,tiles", [
+    ((75, 75, 75), [(4, 8)]), ((185, 185, 185), [(4, 8)]), ((50, 75, 150), [(4, 8)]),
+    ((13, 37, 19), [(4, 8), (3, 5), (8, 128)]),
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_halo_rbgs_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
+    """#4 over sub-boxes split to fill the card (75³, the (3, 2) mesh
+    block), split only for its shared-memory ring (185³) and unsplit (the
+    ragged block; a tall tile that takes more sub-boxes than a cluster
+    holds CTAs): three phases against the plain version, and its partials
+    bitwise equal across two calls."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(8)
+    x = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
+    h = _halo_planes(shape, gen, card, dtype)
+    for tile in tiles:
+        for oxyz in (0, 1, 5):
+            for ord in ORDS:
+                got = tk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz, tile=tile,
+                                                        ord=ord)
+                again = tk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz,
+                                                          tile=tile, ord=ord)
+                want = tref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz,
+                                                               tile=tile, ord=ord)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, oxyz, ord)
+                assert got[1].shape == want[1].shape
+                assert _rel_close(got[1], want[1], _part_tol(dtype, ord)), (tile, oxyz, ord)
+                assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", [
+    ((25, 150, 150), [(4, 8)]), ((75, 150, 150), [(4, 8)]), ((185, 185, 185), [(4, 8)]),
+    ((13, 37, 19), [(4, 8), (3, 5), (8, 128)]),
+])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_jacobi_sweep_split_and_unsplit_grids_on_card(card, shape, tiles, dtype):
+    """#1 with each tile split over a cluster (the 1-D shard blocks at p = 6
+    and p = 2) and with one CTA per tile (185³, the ragged block, tiles
+    that do not divide it): sweep and residual-only pass against the plain
+    version, and its partials bitwise equal across two calls."""
+    st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(9)
+    bx, by, bz = shape
+    g = torch.rand((bx + 2, by + 2, bz + 2), generator=gen, device=card, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, device=card, dtype=dtype) * 2 - 1
+    for tile in tiles:
+        for ord in ORDS:
+            for op in ("sweep", "residual"):
+                got = tk.fused_sweep_residual(g, b, st.coefs, tile=tile, op=op, ord=ord)
+                again = tk.fused_sweep_residual(g, b, st.coefs, tile=tile, op=op, ord=ord)
+                want = tref.fused_sweep_residual_ref(g, b, st.coefs, tile=tile, op=op,
+                                                     ord=ord)
+                assert _rel_close(got[0], want[0], _BLOCK_TOL[dtype]), (tile, ord, op)
+                assert got[1].shape == want[1].shape
+                assert _rel_close(got[1], want[1], _part_tol(dtype, ord)), (tile, ord, op)
+                assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(50, 75, 150), (25, 150, 150), (185, 185, 185), (13, 37, 19),
+                                   (75, 75, 75)])
 def test_stencil_nan_reaches_linf_partials_on_card(card, shape):
-    """A NaN in the block reaches the l∞ partials of #2 and #3 exactly where
-    it reaches the plain version's, split grid or not."""
+    """A NaN in the block reaches the l∞ partials of #1–#4 exactly where it
+    reaches the plain version's, split grid or not."""
     st = Stencil.for_contraction(185, 1.0, (1.0, 1.0, 1.0), 0.95)
     gen = torch.Generator(device=card).manual_seed(7)
     bx, by, bz = shape
@@ -276,6 +346,15 @@ def test_stencil_nan_reaches_linf_partials_on_card(card, shape):
     x[i, j, z] = float("nan")
     got = tk.fused_sweep_residual_halo(x, h, b, st.coefs)[1].isnan()
     want = tref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)[1].isnan()
+    assert bool(want.any()) and torch.equal(got, want)
+    for oxyz in (0, 1):
+        got = tk.fused_rbgs_sweep_residual_halo(x, h, b, st.coefs, oxyz)[1].isnan()
+        want = tref.fused_rbgs_sweep_residual_halo_ref(x, h, b, st.coefs, oxyz)[1].isnan()
+        assert bool(want.any()) and torch.equal(got, want)
+    g = torch.rand((bx + 2, by + 2, bz + 2), generator=gen, device=card, dtype=torch.float64)
+    g[i + 1, j + 1, z + 1] = float("nan")
+    got = tk.fused_sweep_residual(g, b, st.coefs)[1].isnan()
+    want = tref.fused_sweep_residual_ref(g, b, st.coefs)[1].isnan()
     assert bool(want.any()) and torch.equal(got, want)
     g2 = torch.rand((bx + 4, by + 4, bz + 2), generator=gen, device=card, dtype=torch.float64)
     g2[i + 2, j + 2, z + 1] = float("nan")
@@ -314,6 +393,38 @@ def test_mesh_runtime_on_card_matches_cpu(card, shape, reduction, sweep, overlap
     assert gpu.converged and gpu.outer_iters == cpu.outer_iters
     np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
     np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["solve_single", "1-D p=4 nonblocking", "mesh (2,2) blocking",
+                                  "mesh (2,1,2) hybrid"])
+def test_l1_paths_on_card_match_cpu(card, path):
+    """ord 1 on the card: every path launches its kernels in their l1 mode
+    (nothing falls back to plain torch) and takes the CPU's iterations,
+    x within 1e-10 and the trace within rtol 5e-5."""
+    n = 12
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode("pfait", eps_tilde=1e-4, margin=10.0, ord=1.0)
+    b = make_rhs(n, seed=0)
+    x0 = np.zeros_like(b)
+    if path == "solve_single":
+        cfg = tfp.SolverConfig(stencil=st, monitor=mon, inner_sweeps=2, max_outer=2000)
+        run = lambda dev: tfp.solve_single(cfg, b, device=dev)  # noqa: E731
+    else:
+        p, kw = {"1-D p=4 nonblocking": (4, MESH_KNOBS),
+                 "mesh (2,2) blocking": ((2, 2), dict(reduction="blocking")),
+                 "mesh (2,1,2) hybrid": ((2, 1, 2), dict(sweep="hybrid"))}[path]
+        cfg = tsr.ShardRuntimeConfig(monitor=mon, max_outer=2000, trace_len=64, **kw)
+        run = lambda dev: tsr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b)  # noqa: E731
+    tk.reset_launches()
+    trk.reset_launches()
+    gpu = run(card)
+    assert sum(tk.LAUNCHES.values()) >= gpu.outer_iters
+    cpu = run("cpu")
+    assert gpu.converged and gpu.outer_iters == cpu.outer_iters
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
+    if path != "solve_single":
+        np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
 
 
 @pytest.mark.cuda
@@ -442,10 +553,10 @@ def test_diff_norm_split_partials_on_card(card, shape, block, dtype):
     gen = torch.Generator(device=card).manual_seed(3)
     a, b = (torch.rand(shape, generator=gen, device=card, dtype=torch.float64).to(dtype)
             for _ in range(2))
-    for linf, rtol in ((True, 1e-6), (False, 2e-5)):
-        got = trk.diff_norm_partials(a, b, block=block, linf=linf)
-        assert torch.equal(got, trk.diff_norm_partials(a, b, block=block, linf=linf))
-        want = trn_ref.diff_norm_partials_ref(a, b, block=block, linf=linf)
+    for ord, rtol in ((INF, 1e-6), (2.0, 2e-5), (1.0, 2e-5)):
+        got = trk.diff_norm_partials(a, b, block=block, ord=ord)
+        assert torch.equal(got, trk.diff_norm_partials(a, b, block=block, ord=ord))
+        want = trn_ref.diff_norm_partials_ref(a, b, block=block, ord=ord)
         torch.testing.assert_close(got, want, rtol=rtol, atol=0)
 
 
@@ -454,6 +565,6 @@ def test_diff_norm_nan_propagates_on_card(card):
     a = torch.rand((25, 150, 150), device=card, dtype=torch.float64)
     b = a.clone()
     b.view(-1)[70000] = float("nan")            # in partial 1 of 9
-    for linf in (True, False):
-        got = trk.diff_norm_partials(a, b, linf=linf)
+    for ord in ORDS:
+        got = trk.diff_norm_partials(a, b, ord=ord)
         assert got.isnan().tolist() == [i == 1 for i in range(9)]

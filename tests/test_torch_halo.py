@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import residual as jres
 from repro.kernels.jacobi3d import ops as jops
 from repro.kernels.jacobi3d import ref as jref
 from repro.solvers import gauss_seidel as jgs
@@ -35,6 +36,7 @@ from repro_torch.solvers import gauss_seidel as tgs
 from repro_torch.solvers.fixed_point import ghosted6
 
 INF = float("inf")
+_ORD = {True: INF, False: 2.0}   # the port's order for a JAX ``linf`` flag
 PHASES = [(0, 0, 0), (3, 1, 2)]
 DTYPES = [np.float64, np.float32]
 
@@ -86,9 +88,9 @@ def test_halo_sweep_plain_matches_jax(op, linf, dtype):
     st_j, st = _stencil()
     x, halos, b = _halo_block((8, 8, 6), seed=1, dtype=dtype)
     new, parts = tk.fused_sweep_residual_halo(_t(x), _t(halos), _t(b), st.coefs,
-                                              tile=(4, 4), op=op, linf=linf)
+                                              tile=(4, 4), op=op, ord=_ORD[linf])
     want = tref.fused_sweep_residual_halo_ref(_t(x), _t(halos), _t(b), st.coefs,
-                                              tile=(4, 4), op=op, linf=linf)
+                                              tile=(4, 4), op=op, ord=_ORD[linf])
     assert torch.equal(new, want[0]) and torch.equal(parts, want[1])
     coefs = jnp.asarray(st.coefs, jnp.asarray(b).dtype)
     jnew, jparts = jref.fused_sweep_residual_halo_ref(_j(x), _j(halos), _j(b), coefs,
@@ -107,10 +109,10 @@ def test_halo_rbgs_plain_matches_jax(linf, phase, dtype):
     st_j, st = _stencil()
     x, halos, b = _halo_block((8, 8, 6), seed=2, dtype=dtype)
     new, parts = tk.fused_rbgs_sweep_residual_halo(_t(x), _t(halos), _t(b), st.coefs,
-                                                   sum(phase), tile=(4, 4), linf=linf)
+                                                   sum(phase), tile=(4, 4), ord=_ORD[linf])
     own, r = tgs.redblack_gs_sweep_residual(st, ghosted6(_t(x), _t(halos)), _t(b), *phase)
     assert torch.equal(new, own)
-    assert torch.equal(parts, tref.residual_partials(r, tile=(4, 4), linf=linf))
+    assert torch.equal(parts, tref.residual_partials(r, tile=(4, 4), ord=_ORD[linf]))
     jnew, jr = jgs.redblack_gs_sweep_residual(st_j, jghosted6(_j(x), _j(halos)), _j(b),
                                               *phase)
     btol, ptol = _tols(dtype)
@@ -169,6 +171,43 @@ def test_halo_ops_contribution_on_ragged_block(sweep, ord, dtype):
     jr = jjac.residual_block(st_j, jghosted6(_j(x), _j(halos)), _j(b))
     jrc = jnp.max(jnp.abs(jr)) if np.isinf(ord) else jnp.sum(jr * jr)
     np.testing.assert_allclose(float(rc), float(jrc), rtol=ctol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sweep", ["jacobi", "hybrid", "residual"])
+def test_halo_l1_matches_jax_local_contribution(sweep, dtype):
+    """ord 1: the plain halo versions' partials, and the ops' reduced
+    contribution, are JAX ``local_contribution(r, 1)`` of the input
+    residual (Σ f32|r|) — not what the JAX halo ops return at ord 1, which
+    is Σr² (they pick Σr² for every finite order)."""
+    st_j, st = _stencil()
+    shape = (9, 10, 6)
+    x, halos, b = _halo_block(shape, seed=5, dtype=dtype)
+    ph = dict(ox=3, oy=1, oz=2)
+    g = jghosted6(_j(x), _j(halos))
+    if sweep == "hybrid":
+        _, parts = tk.fused_rbgs_sweep_residual_halo(_t(x), _t(halos), _t(b), st.coefs, 6,
+                                                     tile=(4, 4), ord=1.0)
+        _, c = tops.sweep_with_contribution_halo(st, _t(x), _t(halos), _t(b), sweep=sweep,
+                                                 ord=1.0, **ph)
+        _, r = jgs.redblack_gs_sweep_residual(st_j, g, _j(b), 3, 1, 2)
+    else:
+        op = "sweep" if sweep == "jacobi" else "residual"
+        _, parts = tk.fused_sweep_residual_halo(_t(x), _t(halos), _t(b), st.coefs,
+                                                tile=(4, 4), op=op, ord=1.0)
+        c = tops.residual_contribution_halo(st, _t(x), _t(halos), _t(b), ord=1.0) \
+            if op == "residual" else tops.sweep_with_contribution_halo(
+                st, _t(x), _t(halos), _t(b), sweep=sweep, ord=1.0, **ph)[1]
+        r = jjac.residual_block(st_j, g, _j(b))
+    _, ctol = _tols(dtype)
+    r = np.asarray(r)
+    assert parts.shape == (3, 3)
+    for i in range(3):
+        for j in range(3):
+            want = jres.local_contribution(jnp.asarray(r[4 * i:4 * i + 4, 4 * j:4 * j + 4]), 1)
+            np.testing.assert_allclose(parts[i, j].item(), float(want), rtol=ctol)
+    np.testing.assert_allclose(float(c), float(jres.local_contribution(jnp.asarray(r), 1)),
+                               rtol=ctol)
 
 
 def test_halo_planes_are_validated_and_cast():

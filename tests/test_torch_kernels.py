@@ -9,7 +9,9 @@ reaches the plain version.  The tests that need the card are in
 ``test_torch_cuda.py``, which imports nothing of JAX.
 
 Tolerances: f64 atol 1e-12 on blocks; partials relative 1e-6 (f32 sums in
-another order); max-partials exact.
+another order); max-partials exact.  At ord 1 (Σ|r| partials) the JAX
+kernel ops are no reference (they pick Σr² for every finite order): the
+port is held to JAX ``local_contribution(r, 1)`` instead.
 """
 import contextlib
 import types
@@ -41,6 +43,7 @@ from repro_torch.solvers import gauss_seidel as tgs
 from repro_torch.solvers import jacobi as tjac
 
 INF = float("inf")
+_ORD = {True: INF, False: 2.0}   # the port's order for a JAX ``linf`` flag
 
 
 def _stencil(n=8):
@@ -90,7 +93,7 @@ def test_ghost_pads_match_jax(pad):
 def test_residual_partials_layout_matches_jax(linf):
     rng = np.random.default_rng(1)
     r = rng.standard_normal((8, 12, 5))
-    got = tref.residual_partials(torch.as_tensor(r), tile=(4, 4), linf=linf)
+    got = tref.residual_partials(torch.as_tensor(r), tile=(4, 4), ord=_ORD[linf])
     want = np.asarray(jref.residual_partials(jnp.asarray(r), tile=(4, 4), linf=linf))
     assert got.shape == (2, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0 if linf else 1e-6)
@@ -102,7 +105,7 @@ def test_residual_partials_ragged_tiles(linf):
     to divide the block): each partial covers what is left of its tile."""
     rng = np.random.default_rng(2)
     r = rng.standard_normal((13, 7, 5))
-    got = tref.residual_partials(torch.as_tensor(r), tile=(4, 3), linf=linf).numpy()
+    got = tref.residual_partials(torch.as_tensor(r), tile=(4, 3), ord=_ORD[linf]).numpy()
     assert got.shape == (4, 3)
     for i in range(4):
         for j in range(3):
@@ -125,7 +128,8 @@ def test_fused_sweep_residual_ref_matches_jax(op, linf, dtype):
     st_j, st = _stencil()
     x, ghosts, b = _block((8, 8, 6), dtype=dtype)
     g = tops.ghost_pad1(_t(x), _t(ghosts))
-    new, parts = tk.fused_sweep_residual(g, _t(b), st.coefs, tile=(4, 4), op=op, linf=linf)
+    new, parts = tk.fused_sweep_residual(g, _t(b), st.coefs, tile=(4, 4), op=op,
+                                         ord=_ORD[linf])
     coefs = jnp.asarray(st.coefs, jnp.asarray(b).dtype)
     jnew, jparts = jref.fused_sweep_residual_ref(jnp.asarray(g.numpy()), jnp.asarray(b),
                                                  coefs, tile=(4, 4), op=op, linf=linf)
@@ -146,13 +150,60 @@ def test_fused_rbgs_ref_matches_jax_composition(linf, phase, dtype):
     x, ghosts, b = _block((8, 8, 6), seed=3, dtype=dtype)
     g2 = tops.ghost_pad2(_t(x), _t(ghosts))
     new, parts = tk.fused_rbgs_sweep_residual(g2, _t(b), st.coefs, ox + oy,
-                                              tile=(4, 4), linf=linf)
+                                              tile=(4, 4), ord=_ORD[linf])
     jnew, r = jgs.redblack_gs_sweep_residual(st_j, jops.ghost_pad1(_j(x), _j(ghosts)),
                                              jnp.asarray(b), ox, oy)
     jparts = jref.residual_partials(r, tile=(4, 4), linf=linf)
     tol = 1e-12 if dtype == np.float64 else 1e-5
     _close_rel(new.numpy(), jnew, tol)
     _close_rel(parts.numpy(), jparts, 1e-6 if dtype == np.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kernel", ["sweep", "residual", "rbgs"])
+def test_l1_partials_match_jax_local_contribution(kernel, dtype):
+    """ord 1: each tile's partial is JAX ``local_contribution(r, 1)`` of the
+    tile's input residual (f32(|r|) summed), on a block the tile does not
+    divide."""
+    st_j, st = _stencil()
+    x, ghosts, b = _block((9, 10, 6), seed=10, dtype=dtype)
+    tile = (4, 4)
+    if kernel == "rbgs":
+        _, parts = tk.fused_rbgs_sweep_residual(tops.ghost_pad2(_t(x), _t(ghosts)), _t(b),
+                                                st.coefs, 3, tile=tile, ord=1.0)
+        _, r = jgs.redblack_gs_sweep_residual(st_j, jops.ghost_pad1(_j(x), _j(ghosts)),
+                                              jnp.asarray(b), 3, 0)
+    else:
+        g = tops.ghost_pad1(_t(x), _t(ghosts))
+        _, parts = tk.fused_sweep_residual(g, _t(b), st.coefs, tile=tile, op=kernel, ord=1.0)
+        from repro.solvers import jacobi as jjac
+
+        r = jjac.residual_block(st_j, jnp.asarray(g.numpy()), jnp.asarray(b))
+    assert parts.shape == (3, 3) and parts.dtype == torch.float32
+    r = np.asarray(r)
+    for i in range(3):
+        for j in range(3):
+            want = jres.local_contribution(jnp.asarray(r[4 * i:4 * i + 4, 4 * j:4 * j + 4]), 1)
+            np.testing.assert_allclose(parts[i, j].item(), float(want),
+                                       rtol=1e-6 if dtype == np.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_l1_diff_norm_partials_match_jax(dtype):
+    """ord 1: each block's partial is JAX ``local_contribution(a − b, 1)``
+    with the difference taken in the wider of (dtype, f32)."""
+    rng = np.random.default_rng(11)
+    a, b = rng.standard_normal((7, 9, 11)), rng.standard_normal((7, 9, 11))
+    tdt = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    jdt = {"f64": jnp.float64, "f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    got = trn_ref.diff_norm_partials_ref(torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt),
+                                         block=128, ord=1.0)
+    ja, jb = (jnp.asarray(v).astype(jdt).reshape(-1) for v in (a, b))
+    wide = jnp.promote_types(jdt, jnp.float32)
+    d = ja.astype(wide) - jb.astype(wide)
+    want = [float(jres.local_contribution(d[k:k + 128], 1)) for k in range(0, d.size, 128)]
+    assert got.shape == (6,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +235,7 @@ def test_ops_match_jax_ops(sweep, ord):
     assert tops.PASS_COUNTS == {"sweep": 1, "fused": 1, "residual": 1}
 
 
-@pytest.mark.parametrize("ord", [INF, 2.0])
+@pytest.mark.parametrize("ord", [INF, 2.0, 1.0])
 @pytest.mark.parametrize("sweep", ["jacobi", "hybrid"])
 def test_ops_contribution_on_ragged_block(sweep, ord):
     """Default tile on a block it does not divide: the reduced contribution
@@ -230,7 +281,8 @@ def test_diff_norm_partials_ref_matches_jax(dtype, linf):
     tdt = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     jdt = {"f64": jnp.float64, "f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
     got = trn_ref.diff_norm_partials_ref(torch.as_tensor(a).to(tdt),
-                                         torch.as_tensor(b).to(tdt), block=128, linf=linf)
+                                         torch.as_tensor(b).to(tdt), block=128,
+                                         ord=_ORD[linf])
     ja, jb = jnp.asarray(a).astype(jdt), jnp.asarray(b).astype(jdt)
     want = np.asarray(jrn_ref.diff_norm_partials_ref(ja, jb, block=128, linf=linf))
     assert got.shape == want.shape == (6,)
@@ -260,10 +312,13 @@ def test_update_contribution_and_diff_norm_match_jax(ord):
                                        scale=-3.5)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(float(got), float(want), rtol=0 if np.isinf(ord) else 1e-6)
-    if ord != 1.0:
-        np.testing.assert_allclose(
-            float(trn_ops.diff_norm(torch.as_tensor(new), torch.as_tensor(old), ord)),
-            float(jrn_ops.diff_norm(jnp.asarray(new), jnp.asarray(old), ord)), rtol=1e-6)
+    # JAX's diff_norm treats every finite order as 2; at ord 1 the port's is
+    # held to the exact l1 norm instead
+    want = jres.global_residual(jnp.asarray(new), jnp.asarray(old), ord) if ord == 1.0 \
+        else jrn_ops.diff_norm(jnp.asarray(new), jnp.asarray(old), ord)
+    np.testing.assert_allclose(
+        float(trn_ops.diff_norm(torch.as_tensor(new), torch.as_tensor(old), ord)),
+        float(want), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +384,7 @@ def test_cuda_tensors_launch_kernels_never_plain(fake_card):
     assert names == ["fused_sweep_residual_f64", "fused_rbgs_sweep_residual_f64",
                      "fused_sweep_residual_f64", "diff_norm_partials_f64",
                      "diff_norm_partials_f32"]
-    # (…, bx, by, bz, tx, ty, flag, linf, coefs…): ragged default tile, phase 3
+    # (…, bx, by, bz, tx, ty, flag, mode, coefs…): ragged default tile, phase 3
     args = fake_card.calls[1][1]
     assert args[4:11] == (13, 37, 5) + tref.DEFAULT_TILE + (3, 1)
     assert fake_card.calls[2][1][9:11] == (0, 0)   # residual-only, l2
@@ -337,6 +392,38 @@ def test_cuda_tensors_launch_kernels_never_plain(fake_card):
                            "fused_sweep_residual_halo": 0,
                            "fused_rbgs_sweep_residual_halo": 0}
     assert trk.LAUNCHES == {"diff_norm_partials": 2}
+
+
+def test_cuda_tensors_at_l1_launch_kernels_in_l1_mode(fake_card):
+    """ord 1 on the card: every entry launches its kernel with mode 2 (Σ|r|),
+    and nothing reaches a plain version; ord 3 raises before any launch."""
+    _, st = _stencil()
+    x, ghosts, b = _block((13, 37, 5))
+    xt, gt, bt = _t(x), _t(ghosts), _t(b)
+    halos = gt + (torch.zeros((13, 37)).double(),) * 2
+    tops.sweep_with_contribution(st, xt, gt, bt, sweep="jacobi", ord=1.0)
+    tops.sweep_with_contribution(st, xt, gt, bt, sweep="hybrid", ord=1.0)
+    tops.residual_contribution(st, tops.ghost_pad1(xt, gt), bt, ord=1.0)
+    tops.sweep_with_contribution_halo(st, xt, halos, bt, sweep="jacobi", ord=1.0)
+    tops.sweep_with_contribution_halo(st, xt, halos, bt, sweep="hybrid", ord=1.0)
+    tops.residual_contribution_halo(st, xt, halos, bt, ord=1.0)
+    trn_ops.update_contribution(bt, xt, ord=1.0, scale=2.0)
+    trn_ops.diff_norm(bt, xt, ord=1.0)
+    names = [c[0] for c in fake_card.calls]
+    assert names == ["fused_sweep_residual_f64", "fused_rbgs_sweep_residual_f64",
+                     "fused_sweep_residual_f64", "fused_sweep_residual_halo_f64",
+                     "fused_rbgs_sweep_residual_halo_f64", "fused_sweep_residual_halo_f64",
+                     "diff_norm_partials_f64", "diff_norm_partials_f64"]
+    modes = [args[10] for _, args in fake_card.calls[:3]] + \
+        [args[16] for _, args in fake_card.calls[3:6]] + \
+        [args[5] for _, args in fake_card.calls[6:]]
+    assert modes == [2] * 8
+    for fn in (lambda: tops.sweep_with_contribution(st, xt, gt, bt, ord=3.0),
+               lambda: tops.residual_contribution_halo(st, xt, halos, bt, ord=3.0),
+               lambda: trn_ops.diff_norm(bt, xt, ord=3.0)):
+        with pytest.raises(ValueError, match="ord 1, 2 or inf"):
+            fn()
+    assert len(fake_card.calls) == 8
 
 
 def test_kernel_launch_errors_and_bad_inputs_raise(fake_card):
@@ -349,7 +436,7 @@ def test_kernel_launch_errors_and_bad_inputs_raise(fake_card):
         tk.fused_sweep_residual(g[:-1], _t(b), st.coefs)
     with pytest.raises(ValueError, match="contiguous"):
         trk.diff_norm_partials(_t(b).transpose(0, 1), _t(b).transpose(0, 1))
-    with pytest.raises(ValueError, match="ord 2 or inf"):
+    with pytest.raises(ValueError, match="ord 1, 2 or inf"):
         trn_ops.update_contribution(_t(b), _t(x), ord=3.0)
     fake_card.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):
@@ -371,7 +458,7 @@ def test_cuda_halo_tensors_launch_kernels_never_plain(fake_card):
     names = [c[0] for c in fake_card.calls]
     assert names == ["fused_sweep_residual_halo_f64", "fused_rbgs_sweep_residual_halo_f64",
                      "fused_sweep_residual_halo_f64", "fused_sweep_residual_halo_f32"]
-    # (x, 6 planes, b, out, parts, bx, by, bz, tx, ty, flag, linf, coefs…)
+    # (x, 6 planes, b, out, parts, bx, by, bz, tx, ty, flag, mode, coefs…)
     args = fake_card.calls[1][1]
     assert args[10:17] == (bx, by, bz) + tref.DEFAULT_TILE + (7, 1)
     assert fake_card.calls[2][1][8] is None and same is x   # residual: no block
@@ -434,7 +521,7 @@ def test_default_solver_config_on_card_launches_kernels(fake_card, sweep, fuse,
     assert tk.LAUNCHES == {**dict.fromkeys(tk.LAUNCHES, 0),
                            **{k: v * out.outer_iters for k, v in per_iter.items()}}
     bad = tfp.SolverConfig(stencil=st, monitor=tdet.for_mode("pfait", 1e-6, ord=3.0))
-    with pytest.raises(ValueError, match="ord 2 or inf"):
+    with pytest.raises(ValueError, match="ord 1, 2 or inf"):
         tfp.solve_single(bad, np.zeros((6, 5, 4)), device="cpu")
 
 

@@ -7,11 +7,17 @@
 * Overlap against no overlap on a (2, 2) mesh with heterogeneous per-shard
   knobs: ``torch.equal`` on x and on the trace.
 * p > 1: one JAX program in a subprocess with 8 forced host devices runs
-  the mesh runtime on (2, 2), (2, 1, 2) and (2, 2, 2) meshes and the 1-D
-  runtime at p = 4 with heterogeneous knobs; the port on the stacked CPU
-  transport must take the same outer iterations, with finite trace entries
-  within rtol 5e-5 and x within atol 1e-10.  Heterogeneous knobs index
-  shards by rank, so a rank order other than JAX's row-major one fails here.
+  the mesh runtime on (2, 2), (2, 1, 2), (2, 2, 2), (4, 2) and (1, 2, 4)
+  meshes and the 1-D runtime at p = 4 and p = 8, across the reductions,
+  sweeps and detection modes, with heterogeneous knobs, and the 1-D
+  runtime at ord 1 (l1); the port on the stacked CPU transport must take
+  the same outer iterations, with finite trace entries within rtol 5e-5 and
+  x within atol 1e-10.  Heterogeneous knobs index shards by rank, so a rank
+  order other than JAX's row-major one fails here.
+* ord 1 on a mesh: the JAX mesh runtime reduces Σr² partials as l1 there
+  (its halo ops pick Σr² for every finite order), so the port's mesh runs
+  at ord 1 are held instead to JAX ``convdiff_reference_trace(ord=1)``, to
+  the JAX 1-D runtime and to the exact l1 residual of their result.
 
 The bars are those of ``test_torch_shard_runtime.py``: the port sums
 per-tile f32 partials where the JAX runtime sums whole blocks.
@@ -31,8 +37,10 @@ import torch
 from repro.core import detection as jdet
 from repro.launch.mesh import make_shard_mesh
 from repro.runtime import shard_runtime as jsr
+from repro.solvers import jacobi as jjac
 from repro.solvers.convdiff import Stencil as JStencil
 from repro.solvers.convdiff import make_rhs
+from repro.solvers.fixed_point import _zero_ghosts, ghosted
 from repro_torch import interop
 from repro_torch.core import detection as tdet
 from repro_torch.runtime import shard_runtime as tsr
@@ -45,11 +53,11 @@ HET8 = dict(inner_sweeps=(1, 2, 1, 3, 2, 1, 1, 2), halo_delay=(0, 1, 2, 1, 0, 2,
             contrib_lag=(0, 1, 0, 1, 1, 0, 0, 1))
 
 
-def _jmon(mode):
+def _jmon(mode, ord=INF):
     if mode == "sync":
-        return jdet.MonitorConfig(mode="sync", eps=1e-7, staleness=0)
+        return jdet.MonitorConfig(mode="sync", eps=1e-7, staleness=0, ord=ord)
     return jdet.for_mode(mode, eps_tilde=EPS_TILDE, margin=10.0, staleness=2,
-                         persistence=4, ord=INF)
+                         persistence=4, ord=ord)
 
 
 def _mon():
@@ -134,7 +142,7 @@ def test_runtime_refuses_what_its_mesh_cannot_run():
                                   device="cpu")
     with pytest.raises(ValueError, match="ord"):
         tsr.make_convdiff_runtime(
-            tsr.ShardRuntimeConfig(monitor=tdet.MonitorConfig(ord=1.0)), (2, 2), st, 8,
+            tsr.ShardRuntimeConfig(monitor=tdet.MonitorConfig(ord=3.0)), (2, 2), st, 8,
             device="cpu")
 
 
@@ -164,6 +172,62 @@ def test_one_shard_mesh_matches_jax(shape, reduction, sweep, mode, overlap):
         np.zeros((n, n, n)), b)
     _assert_same_run(got, {k: np.asarray(v) for k, v in want._asdict().items()})
     assert float(got.residual) == pytest.approx(float(want.residual), rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# ord 1 (l1) on a mesh: the exact l1 residual, never JAX's mesh runtime
+# ---------------------------------------------------------------------------
+
+
+def _exact_l1(st_j, x, b) -> float:
+    """Σ|b − A x| of a returned global state, by the JAX reference."""
+    xj = jnp.asarray(x.numpy())
+    r = jjac.residual_block(st_j, ghosted(xj, _zero_ghosts(xj)), jnp.asarray(b))
+    return float(jnp.sum(jnp.abs(r)))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_l1_blocking_mesh_matches_reference_trace(shape):
+    """ROADMAP Queue 3's l1 case (n = 8, ρ = 0.9, blocking, sync, ε 1e-7,
+    ord 1): the JAX 1-D runtime converges in 127 iterations, and so must the
+    port's mesh, following JAX ``convdiff_reference_trace(ord=1)`` and the
+    JAX 1-D runtime's trace and state; its detected residual is the exact l1
+    residual of its result."""
+    n = 8
+    st_j = JStencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), rho=0.9)
+    b = make_rhs(n, seed=0)
+    jcfg = jsr.ShardRuntimeConfig(monitor=_jmon("sync", 1.0), reduction="blocking",
+                                  max_outer=600, trace_len=256)
+    want = jax.jit(jsr.make_convdiff_runtime(jcfg, make_shard_mesh(1), st_j, n))(
+        jnp.zeros((n, n, n)), jnp.asarray(b))
+    got = tsr.make_convdiff_runtime(interop.shard_config_from(jcfg), shape,
+                                    interop.stencil_from(st_j), n, device="cpu")(
+        np.zeros((n, n, n)), b)
+    assert int(want.outer_iters) == 127
+    assert got.converged and got.outer_iters == 127
+    T = got.outer_iters
+    ref = np.asarray(jsr.convdiff_reference_trace(st_j, jnp.asarray(b), T, ord=1.0))
+    np.testing.assert_allclose(got.trace.numpy()[:T], ref, rtol=5e-5)
+    np.testing.assert_allclose(got.trace.numpy()[:T], np.asarray(want.trace)[:T], rtol=5e-5)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-10, rtol=0)
+    assert float(got.residual) == pytest.approx(_exact_l1(st_j, got.x, b), rel=5e-5)
+
+
+@pytest.mark.parametrize("shape,sweep,mode", [((2, 2), "jacobi", "nfais2"),
+                                              ((2, 1, 2), "hybrid", "pfait")])
+def test_l1_async_mesh_detects_truthfully(shape, sweep, mode):
+    """Non-blocking meshes at ord 1 with heterogeneous knobs: the exact l1
+    residual of the result is under ε̃ (no false detection)."""
+    n, eps_tilde = 12, 1e-4
+    st_j = JStencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), rho=0.9)
+    b = make_rhs(n, seed=0)
+    mon = tdet.for_mode(mode, eps_tilde=eps_tilde, margin=10.0, staleness=2,
+                        persistence=4, ord=1.0)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, sweep=sweep, max_outer=2000, **HET4)
+    r = tsr.make_convdiff_runtime(cfg, shape, interop.stencil_from(st_j), n,
+                                  device="cpu")(np.zeros_like(b), b)
+    assert r.converged
+    assert _exact_l1(st_j, r.x, b) < eps_tilde
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +274,36 @@ RUNS = {
                       knobs=HET4),
     "p4-hybrid": dict(shape=4, reduction="nonblocking", sweep="hybrid", mode="pfait",
                       knobs=HET4),
+    # twelve more configurations across reductions, sweeps, modes and meshes
+    "p4-rdoubling": dict(shape=4, reduction="rdoubling", sweep="jacobi", mode="pfait",
+                         knobs=HET4),
+    "p4-blocking": dict(shape=4, reduction="blocking", sweep="jacobi", mode="sync",
+                        knobs={}),
+    "p4-blocking-hybrid": dict(shape=4, reduction="blocking", sweep="hybrid", mode="sync",
+                               knobs={}),
+    "p4-nfais5": dict(shape=4, reduction="nonblocking", sweep="jacobi", mode="nfais5",
+                      knobs=HET4),
+    "p4-hybrid-nfais2": dict(shape=4, reduction="nonblocking", sweep="hybrid",
+                             mode="nfais2", knobs=HET4),
+    "p4-rdoubling-hybrid-nfais2": dict(shape=4, reduction="rdoubling", sweep="hybrid",
+                                       mode="nfais2", knobs=HET4),
+    "p8-jacobi": dict(shape=8, reduction="nonblocking", sweep="jacobi", mode="pfait",
+                      knobs=HET8),
+    "2x2-nfais5": dict(shape=(2, 2), reduction="nonblocking", sweep="jacobi",
+                       mode="nfais5", knobs=HET4),
+    "2x2-rdoubling-hybrid": dict(shape=(2, 2), reduction="rdoubling", sweep="hybrid",
+                                 mode="pfait", knobs=HET4),
+    "2x2-blocking-hybrid": dict(shape=(2, 2), reduction="blocking", sweep="hybrid",
+                                mode="sync", knobs={}),
+    "4x2-overlap-nfais2": dict(shape=(4, 2), reduction="nonblocking", sweep="jacobi",
+                               overlap=True, mode="nfais2", knobs=HET8),
+    "1x2x4-hybrid": dict(shape=(1, 2, 4), reduction="nonblocking", sweep="hybrid",
+                         mode="pfait", knobs=HET8),
+    # l1: the JAX 1-D runtime (its contributions are local_contribution(·, 1))
+    "p4-jacobi-l1": dict(shape=4, reduction="nonblocking", sweep="jacobi", mode="pfait",
+                         knobs=HET4, ord=1.0),
+    "p4-blocking-l1": dict(shape=4, reduction="blocking", sweep="jacobi", mode="sync",
+                           knobs={}, ord=1.0),
 }
 
 
@@ -217,7 +311,8 @@ def _jax_config(run):
     """The JAX config of a run (the subprocess builds the same one)."""
     shape = run["shape"]
     return jsr.ShardRuntimeConfig(
-        monitor=_jmon(run["mode"]), reduction=run["reduction"], sweep=run["sweep"],
+        monitor=_jmon(run["mode"], run.get("ord", INF)), reduction=run["reduction"],
+        sweep=run["sweep"],
         max_outer=2000, trace_len=64, overlap=run.get("overlap", False),
         mesh_shape=tuple(shape) if isinstance(shape, tuple) else None, **run["knobs"])
 

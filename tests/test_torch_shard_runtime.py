@@ -72,6 +72,36 @@ def test_single_shard_matches_jax(reduction, sweep, mode):
     np.testing.assert_array_equal(got.local_sweeps, np.asarray(want.local_sweeps))
 
 
+@pytest.mark.parametrize("reduction,sweep,mode", [
+    ("blocking", "jacobi", "sync"),
+    ("nonblocking", "jacobi", "pfait"),
+    ("nonblocking", "hybrid", "nfais2"),
+    ("rdoubling", "jacobi", "pfait"),
+])
+def test_single_shard_l1_matches_jax(reduction, sweep, mode):
+    """ord 1 at p = 1 against the JAX 1-D runtime, whose contributions are
+    ``local_contribution(·, 1)``: the same bars as at l∞.  Blocking is the
+    l1 case of ROADMAP Queue 3 (n = 8, ρ = 0.9, sync, ε 1e-7): 127 iterations."""
+    n = 8
+    st_j, st, b = _setup(n)
+    mon = jdet.MonitorConfig(mode="sync", eps=1e-7, ord=1.0) if mode == "sync" else \
+        jdet.for_mode(mode, eps_tilde=1e-4, margin=10.0, staleness=2, persistence=3, ord=1.0)
+    jcfg = jsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, sweep=sweep,
+                                  max_outer=600, trace_len=64)
+    want = jax.jit(jsr.make_convdiff_runtime(jcfg, make_shard_mesh(1), st_j, n))(
+        jnp.zeros((n, n, n)), jnp.asarray(b))
+    got = tsr.make_convdiff_runtime(interop.shard_config_from(jcfg), 1, st, n,
+                                    device="cpu")(np.zeros((n, n, n)), b)
+    assert got.converged == bool(want.converged) is True
+    assert got.outer_iters == int(want.outer_iters)
+    if mode == "sync":
+        assert got.outer_iters == 127
+    assert got.verifications == int(want.verifications)
+    assert float(got.residual) == pytest.approx(float(want.residual), rel=1e-5)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-10, rtol=0)
+    np.testing.assert_allclose(got.trace.numpy(), np.asarray(want.trace), rtol=5e-5)
+
+
 def test_stacked_blocking_matches_reference_trace():
     n, p = 12, 4
     st_j, st, b = _setup(n)
@@ -173,7 +203,7 @@ def test_config_validation():
                                   device="cpu")
     with pytest.raises(ValueError, match="ord"):
         tsr.make_convdiff_runtime(
-            tsr.ShardRuntimeConfig(monitor=tdet.MonitorConfig(ord=1.0)), 2, st, 8,
+            tsr.ShardRuntimeConfig(monitor=tdet.MonitorConfig(ord=3.0)), 2, st, 8,
             device="cpu")
 
 

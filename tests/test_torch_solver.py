@@ -57,6 +57,24 @@ def test_solve_single_l2_and_plain_path_match_jax(use_kernel):
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-10, rtol=0)
 
 
+@pytest.mark.parametrize("sweep,fuse", [("hybrid", True), ("jacobi", True), ("hybrid", False)])
+@pytest.mark.parametrize("mode", ["sync", "pfait", "nfais2", "nfais5"])
+def test_solve_single_l1_matches_jax_plain(mode, sweep, fuse):
+    """ord 1: the port's kernel path (per-tile Σ|r| partials) against JAX
+    ``solve_single`` on its plain path (``local_contribution(r, 1)``); the
+    JAX kernel ops are no reference here, as they pick Σr² for every finite
+    order."""
+    jcfg, _ = _cfgs(mode, sweep, fuse, ord=1.0, use_kernel=False)
+    _, tcfg = _cfgs(mode, sweep, fuse, ord=1.0, use_kernel=True)
+    b = make_rhs(N, seed=0)
+    want = jsolve_single(jcfg, jnp.asarray(b))
+    got = tfp.solve_single(tcfg, b, device="cpu")
+    assert got.converged == bool(want.converged) is True
+    assert got.outer_iters == int(want.outer_iters)
+    assert float(got.residual) == pytest.approx(float(want.residual), rel=1e-5)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-10, rtol=0)
+
+
 @pytest.mark.parametrize("inner", [1, 3])
 def test_fused_path_pass_counts(inner):
     """pfait, fused: per outer iteration one fused call, inner−1 plain
