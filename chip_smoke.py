@@ -13,14 +13,16 @@ Phases, each of which must pass or the script exits non-zero:
    l1 Σ|r|), with the tolerance stated beside each check (bf16 attention
    element by element as well, under the bar its tensor-core arithmetic
    allows); the stencil kernels' outputs and partials must be bitwise equal
-   across two calls and carry a NaN, and a face slab swept by the halo
+   across two calls and carry a NaN (#5 too, in l1, at the PageRank path's
+   vectors), and a face slab swept by the halo
    kernel must be bitwise the block's face; count the tensor-core
    instructions in the flash library's SASS;
 3. time each kernel, its plain version, the nearest single PyTorch call and
    the least time the card could take (CUDA events over 20 CUDA-graph replays,
    so host launch overhead is left out; the eager per-call time is kept
    beside it), and the two shard-block sweeps also over six shards' worth
-   of rotating inputs, more than the 50 MB L2, as the runtime finds them;
+   of rotating inputs, more than the 50 MB L2, as the runtime finds them,
+   and #5 at the PageRank shard block (4096 f64, l1, one partial);
 4. ``solve_single`` at n = 185, f64 (the paper's larger grid), for the four
    detection modes with the hybrid sweep, Jacobi, and the unfused baseline,
    in l∞, and PFAIT with the hybrid sweep in l1: each run must converge
@@ -28,7 +30,8 @@ Phases, each of which must pass or the script exits non-zero:
 5. the stacked 1-D shard runtime at n = 150, f64, p = 6: blocking must
    follow the synchronous reference trajectory, and non-blocking
    (heterogeneous Jacobi shards, in l∞ and in l1, and hybrid) and
-   recursive doubling (p = 2) must detect with no false detection;
+   recursive doubling (p = 2) must detect with no false detection; each
+   blocking run's detection must be consistent with its exact trace;
 6. the mesh shard runtime at n = 150, f64, on the paper's (3, 2) process
    grid and a (2, 2, 2) mesh: blocking must follow the synchronous
    reference trajectory (in l∞ and in l1), comm overlap must be bitwise
@@ -42,12 +45,22 @@ Phases, each of which must pass or the script exits non-zero:
    prefill over S − 1 tokens plus one decode step must match the prefill
    over S tokens, in f32 and in bf16 (where the bar is read against two
    plain evaluations and a faulty one in the same run);
-8. rank the stencil kernels by launches x (device ms - bound ms) over the
+8. PageRank at n = 16384 (a 2 GiB f64 operator placed on the card once),
+   p = 4 row blocks, ε̃ = 1e-9 in l1, through ``runtime.api.run_shard``:
+   blocking, non-blocking PFAIT with heterogeneous knobs, recursive doubling
+   and NFAIS2 must converge with the exact residual (f64 on the card, and
+   the host's ``PageRankProblem.exact_residual``) under ε̃, blocking must
+   follow the synchronous reference trajectory and its detection must be
+   consistent with that exact trace (``core.termination``); the 1-D p = 6
+   hetero Jacobi case of phase 5, run again through ``run_shard`` with a
+   recorded trace, must be bitwise phase 5's run; every recorded trace
+   must validate;
+9. rank the stencil kernels by launches x (device ms - bound ms) over the
    (kernel, block shape) pairs the main paths launched, each timed at its
    shape; print one JSON line of per-kernel numbers, the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
-Phases 4, 5, 6 and 7 are the main paths.  The kernels' launch counters are
+Phases 4 to 8 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there.  Needs CUDA: without a card, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -84,6 +97,18 @@ FLASH_CASES = [(48, 8, 2048, 128, True, 0, "bf16"), (48, 8, 2048, 128, True, 0, 
                (48, 8, 2048, 128, True, 256, "bf16"), (48, 8, 1000, 128, False, 0, "bf16"),
                (48, 8, 1000, 128, False, 0, "f32"), (48, 8, 2048, 64, True, 0, "bf16"),
                (48, 8, 1000, 64, True, 256, "f32")]
+
+# the PageRank path: n = 16384 nodes (a 2 GiB f64 operator), p = 4 row
+# blocks of 4096, ε̃ = 1e-9 in l1, and the heterogeneous knobs of run (b)
+PAGERANK_N, PAGERANK_P, PAGERANK_EPS = 16384, 4, 1e-9
+PAGERANK_KNOBS = dict(inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 0, 2),
+                      contrib_lag=(0, 1, 0, 1))
+# #5's 1-D shapes on that path: a shard's block (one partial, split over a
+# cluster), a ragged block and the whole state
+PAGERANK_VECTORS = (4096, 4095, 16384)
+# f64 unit roundoff: two f64 evaluations of Σ|d·P x + v − x| in different
+# summation orders may part by a few units of it times Σ(d·P|x| + v + |x|)
+F64_UNIT = 2.0 ** -53
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
 # 25×150×150 block of one of 6 shards and the 75×150×150 block of one of 2
@@ -323,12 +348,30 @@ def check_kernels(st, dev, check: Checker) -> None:
         check("diff_norm_partials", f"tiny-f64 {_ord_tag(ord_)}", red, "f64", got,
               rref.diff_norm_partials_ref(a, c, ord=ord_))
         n_cases += 1
+    # the PageRank path's vectors: state-sized differences of ≈ 1e-13
+    for n in PAGERANK_VECTORS:
+        for dt, dtype in (*dtypes.items(), ("bf16", torch.bfloat16)):
+            a = (rand((n,), torch.float64) / n).to(dtype)
+            c = a + (rand((n,), torch.float64) * 1e-13 if dt == "f64" else rand((n,), dtype))
+            for ord_, red in ORDS.items():
+                tag = f"{n} {dt} {_ord_tag(ord_)}"
+                got = same_twice("diff_norm_partials", tag,
+                                 lambda: (rk.diff_norm_partials(a, c, ord=ord_),))[0]
+                check("diff_norm_partials", tag, red, dt, got,
+                      rref.diff_norm_partials_ref(a, c, ord=ord_))
+                n_cases += 1
+        a = rand((n,), torch.float64)
+        c = a.clone()
+        c[n // 3] = float("nan")
+        _require(bool(rk.diff_norm_partials(a, c, ord=1.0).isnan().all()),
+                 f"diff_norm_partials {n} f64: a NaN does not reach the l1 partial")
     torch.cuda.synchronize()
     print(f"kernels vs plain: {n_cases} cases within tolerance, each in the three partial "
           f"modes (l∞ max|r|, l2 Σr², l1 Σ|r|); every stencil kernel's output and partials "
           f"and diff_norm_partials' partials bitwise equal across two calls at every shape, "
           f"variant, phase and mode; a NaN in the block reaches the l∞ partial of #1-#4 at "
-          f"{', '.join(NAN_SHAPES)}; the halo sweep's six face slabs bitwise the block's "
+          f"{', '.join(NAN_SHAPES)} and #5's l1 partial at the PageRank vectors "
+          f"{', '.join(map(str, PAGERANK_VECTORS))}; the halo sweep's six face slabs bitwise the block's "
           f"faces at {'x'.join(map(str, HALO_SHAPES['mesh32']))}")
     for k, v in check.rel_err.items():
         print(f"  {k}: max relative error {v:.2e}; worst case at {check.of_tol[k]:.3f} "
@@ -575,12 +618,13 @@ def time_kernels(st, dev) -> dict:
     w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = st.zm, st.zp
     out = {}
 
-    def record(k, shape, fns, bound):
+    def record(k, shape, fns, bound, mode=""):
         kern, plain, lib = fns
         (ms, call_ms), (plain_ms, _), (library_ms, _) = map(_time_ms, (kern, plain, lib))
-        print(f"time {k} at {_shape_str(shape)} f64: kernel {ms:.4f} ms (eager "
+        print(f"time {k} at {_shape_str(shape)} f64{mode}: kernel {ms:.4f} ms (eager "
               f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+              f"{library_ms:.4f} ms, bound {bound[0]:.{'4f' if bound[0] >= 1e-4 else '3e'}} ms "
+              f"({bound[1]})")
         out[k, shape] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1])
 
@@ -620,6 +664,14 @@ def time_kernels(st, dev) -> dict:
             lambda: torch.dist(x, b, INF)),
             _bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells))
         del x, b
+    # the PageRank path's block: one shard's 4096 f64 in l1, one partial
+    n = PAGERANK_N // PAGERANK_P
+    x, b = rand((n,)), rand((n,))
+    record("diff_norm_partials", (n,), (
+        lambda: rk.diff_norm_partials(x, b, ord=1.0),
+        lambda: rref.diff_norm_partials_ref(x, b, ord=1.0), lambda: torch.dist(x, b, 1)),
+        _bound(8 * 2 * n + 4, 3 * n), mode=" l1 (one partial)")
+    del x, b
     # the runtime sweeps its six shards in turn, so each finds its block
     # gone from the L2: six shards' worth of inputs (> 50 MB), taken in turn
     for k, shape in (("fused_sweep_residual_halo", HALO_SHAPES["mesh32"]),
@@ -744,6 +796,10 @@ def run_solver(dev) -> list:
     return results
 
 
+# the trace length of the 1-D p = 6 hetero Jacobi run, which the PageRank
+# path runs again through ``runtime.api.run_shard`` with ``record_trace``
+# (whose default length this is)
+API_TRACE_LEN = 512
 # heterogeneous per-shard knobs of the 6-shard runs, 1-D and mesh
 MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1),
                   contrib_lag=(0, 1, 0, 1, 0, 0))
@@ -767,7 +823,8 @@ def run_shards(dev) -> list:
         ("blocking/jacobi p=6", 6, sr.ShardRuntimeConfig(
             monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
         ("nonblocking/jacobi p=6 hetero", 6, sr.ShardRuntimeConfig(
-            monitor=mon, reduction="nonblocking", max_outer=5000, **MESH_KNOBS)),
+            monitor=mon, reduction="nonblocking", max_outer=5000, trace_len=API_TRACE_LEN,
+            **MESH_KNOBS)),
         ("nonblocking/hybrid p=6", 6, sr.ShardRuntimeConfig(
             monitor=mon, reduction="nonblocking", sweep="hybrid", max_outer=5000)),
         ("rdoubling/jacobi p=2", 2, sr.ShardRuntimeConfig(
@@ -821,6 +878,159 @@ def run_serve(dev) -> dict:
 
     return serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                  max_new=SERVE_NEW, use_reduced=False, seed=0, device=dev)
+
+
+class PageRankRun(NamedTuple):
+    """One PageRank run through ``runtime.api.run_shard``: its report and
+    the kernel launches of its two runs (build and timed)."""
+
+    name: str
+    rep: object
+    cfg: object
+    used: dict
+
+
+def run_pagerank(dev) -> dict:
+    """Phase 8: PageRank at n = 16384, p = 4, f64, l1, through
+    ``runtime.api.run_shard`` (the operator placed on the card once), and
+    the 1-D p = 6 hetero Jacobi case of phase 5 through the same API."""
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.runtime import api
+    from repro_torch.solvers.convdiff import Stencil, make_rhs
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    n, p, eps = PAGERANK_N, PAGERANK_P, PAGERANK_EPS
+    t0 = time.perf_counter()
+    prob = PageRankProblem(n=n, p=p, seed=0)
+    t1 = time.perf_counter()
+    P_host = prob.to_dense()
+    t2 = time.perf_counter()
+    P = torch.as_tensor(P_host, device=dev)
+    torch.cuda.synchronize()
+    print(f"pagerank n = {n}, p = {p}, seed 0: graph draw {t1 - t0:.2f} s, to_dense "
+          f"{t2 - t1:.2f} s, placed on the card in {time.perf_counter() - t2:.2f} s "
+          f"({P_host.nbytes / 2**30:.1f} GiB f64)")
+    x0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    sync = detection.MonitorConfig(mode="sync", eps=eps, staleness=0, ord=1.0)
+
+    def mon(mode):
+        return detection.for_mode(mode, eps_tilde=eps, margin=10.0, staleness=4,
+                                  persistence=4, ord=1.0)
+
+    cells = [
+        ("(a) blocking/sync", api.RuntimeConfig(
+            monitor=sync, reduction="blocking", max_outer=1000, record_trace=True)),
+        ("(b) nonblocking/pfait K=4 hetero", api.RuntimeConfig(
+            monitor=mon("pfait"), reduction="nonblocking", max_outer=1000,
+            record_trace=True, **PAGERANK_KNOBS)),
+        ("(c) rdoubling/pfait", api.RuntimeConfig(
+            monitor=mon("pfait"), reduction="rdoubling", max_outer=1000, record_trace=True)),
+        ("(d) nonblocking/nfais2", api.RuntimeConfig(
+            monitor=mon("nfais2"), reduction="nonblocking", max_outer=1000,
+            record_trace=True)),
+    ]
+    runs = []
+    for name, cfg in cells:
+        before = _launches()
+        rep = api.run_shard("pagerank", cfg, p, n, x0, P, damping=prob.d, device=dev)
+        runs.append(PageRankRun(name, rep, cfg,
+                                {k: v - before[k] for k, v in _launches().items()}))
+    # phase 5's 1-D p = 6 hetero Jacobi case, through the API
+    cn = SHARD_N
+    st = Stencil.for_contraction(cn, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+    b = torch.as_tensor(make_rhs(cn, seed=0), device=dev)
+    cmon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    ccfg = api.RuntimeConfig(monitor=cmon, reduction="nonblocking", max_outer=5000,
+                             record_trace=True, **MESH_KNOBS)
+    convdiff = api.run_shard("convdiff", ccfg, 6, cn, torch.zeros_like(b), b, stencil=st,
+                             device=dev)
+    return dict(prob=prob, P_host=P_host, P=P, runs=runs, convdiff=convdiff)
+
+
+def verify_pagerank(out, shard_runs) -> None:
+    """Every PageRank run converged with r* < ε̃ (l1, f64 on the card, equal
+    to the host's ``PageRankProblem.exact_residual`` up to the f64 rounding
+    of the residual), run (a) follows the synchronous reference trajectory
+    and its detection is consistent with its exact trace; the convdiff API
+    run is bitwise phase 5's run; every recorded trace validates.  Prints
+    ms per step beside the step's matvec bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import termination
+    from repro_torch.core.trace import validate_trace
+    from repro_torch.runtime import shard_runtime as sr
+
+    prob, P, eps = out["prob"], out["P"], PAGERANK_EPS
+    n, p, d, v = prob.n, prob.p, prob.d, prob.v
+    nb = n // p
+    for run in out["runs"]:
+        rep = run.rep
+        x = rep.x
+        r_card = float((d * (P @ x) + v - x).abs().sum())
+        scale = float((d * (P @ x.abs()) + v + x.abs()).sum())
+        r_host = prob.exact_residual([x.cpu().numpy()])
+        bar = 4 * F64_UNIT * scale
+        scfg = run.cfg.to_shard_config()
+        inner = float(np.broadcast_to(scfg.inner_sweeps, (p,)).sum())
+        # rows of P swept a step: every shard's inner sweeps, the blocking
+        # exact pass, and NFAIS2's exact verifications spread over the run
+        passes = inner / p + (scfg.reduction == "blocking") + \
+            rep.raw.verifications / max(rep.outer_iters, 1)
+        bound_ms = 1e3 * passes * 8 * n * n / HBM_BYTES_PER_S
+        step_ms = 1e3 * dict(rep.wall_segments)["run"] / rep.outer_iters
+        print(f"pagerank {run.name}: converged={rep.converged} outer={rep.outer_iters} "
+              f"verifications={rep.raw.verifications} detected={rep.detected_residual:.3e} "
+              f"exact r* card {r_card:.6e} host {r_host:.6e} (|Δ| {abs(r_card - r_host):.2e}, "
+              f"rel {abs(r_card - r_host) / r_host:.2e}; bar 4u·Σ(d·P|x| + v + |x|) = "
+              f"{bar:.2e}; l1, ε̃ {eps:g}); {step_ms:.4f} ms/step against a matvec bound "
+              f"of {bound_ms:.4f} ms ({passes:g} passes over {8 * n * n / 2**30:.0f} GiB a "
+              f"step; {bound_ms / step_ms:.1%}); wall build {dict(rep.wall_segments)['build']:.3f}"
+              f" s, run {dict(rep.wall_segments)['run']:.3f} s; launches {json.dumps(run.used)}")
+        _require(rep.converged, f"pagerank {run.name}: did not converge")
+        _require(r_host < eps and r_card < eps,
+                 f"pagerank {run.name}: false detection, r* {r_host:.3e} >= ε̃")
+        _require(abs(r_card - r_host) <= bar, f"pagerank {run.name}: r* on the card "
+                 f"{r_card:.6e} departs from the host's {r_host:.6e}")
+        _require(validate_trace(rep.trace), f"pagerank {run.name}: trace fails validate()")
+    # where a step's time goes: one shard's sweep matvec alone, and the
+    # device's busy share over a blocking and a heterogeneous run
+    x = torch.full((n,), 1.0 / n, dtype=P.dtype, device=P.device)
+    mv_ms, mv_call_ms = _time_ms(lambda: P[:nb] @ x)
+    print(f"time torch.mv (cuBLAS) at {nb}x{n} f64, one shard's sweep matvec: {mv_ms:.4f} ms "
+          f"(eager call {mv_call_ms:.4f} ms), bound {1e3 * 8 * nb * n / HBM_BYTES_PER_S:.4f} ms "
+          f"(bytes)")
+    for run in out["runs"][:2]:
+        rerun = sr.make_runtime("pagerank", run.cfg.to_shard_config(), p, n, damping=d,
+                                device=P.device)
+        profile_window(f"pagerank {run.name}, one run of {run.rep.outer_iters} steps",
+                       lambda: rerun(x, P))
+    a = out["runs"][0].rep
+    T = a.outer_iters
+    ref = sr.pagerank_reference_trace(P, n, T, damping=d, ord=1.0).double()
+    got = a.raw.trace[:T].double()
+    err = float(((got - ref).abs() / ref.abs()).max())
+    trace = a.raw.trace[:T].tolist()
+    consistent = termination.detection_consistent(a.detect_step, trace, eps)
+    print(f"pagerank (a): trace vs synchronous reference over {T} steps, max rel {err:.3e} "
+          f"(tolerance 5e-5); oracle step {termination.oracle_detect_step(trace, eps)}, "
+          f"detected at {a.detect_step}, consistent: {consistent}")
+    _require(err <= 5e-5, f"pagerank (a): trace departs from the reference ({err:.3e})")
+    _require(consistent, "pagerank (a): detection inconsistent with its exact trace")
+    del ref, got
+    c, c0 = out["convdiff"], shard_runs[1].r
+    same = (c.outer_iters == c0.outer_iters and torch.equal(c.x, c0.x)
+            and torch.equal(c.raw.trace, c0.trace))
+    print(f"convdiff through run_shard, 1-D p = 6 hetero Jacobi: outer {c.outer_iters} / "
+          f"{c0.outer_iters}, x and trace bitwise phase 5's: {same}; wall build "
+          f"{dict(c.wall_segments)['build']:.3f} s, run {dict(c.wall_segments)['run']:.3f} s "
+          f"({1e3 * dict(c.wall_segments)['run'] / c.outer_iters:.3f} ms/step)")
+    _require(same, "convdiff run_shard is not bitwise phase 5's make_convdiff_runtime run")
+    _require(validate_trace(c.trace), "convdiff run_shard: trace fails validate()")
+    del out["P"], P
+    torch.cuda.empty_cache()
 
 
 def warm_serve(dev) -> None:
@@ -962,36 +1172,40 @@ def verify_serve(out, used, dev) -> None:
              "from prefill past the bar")
 
 
-def profile_serve(m, params, prompts) -> None:
-    """Device time by kernel and the device's busy share over one warm
-    prefill and 4 decode steps, from ``torch.profiler`` (diagnostic only:
-    a profiler that cannot trace the card prints so and the run goes on)."""
+def profile_window(name, fn) -> None:
+    """Device time by kernel and the device's busy share over one call of
+    ``fn``, from ``torch.profiler`` (diagnostic only: a profiler that
+    cannot trace the card prints so and the run goes on)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # kernels only: an aten op's device time repeats its kernels'
+    rows = sorted(((getattr(e, "device_time_total", 0.0), e.count, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
+    if not rows:
+        print(f"profile {name}: wall {wall_us / 1e3:.3f} ms; the profiler saw no kernels")
+        return
+    busy = sum(r[0] for r in rows)   # one stream: the kernels do not overlap
+    print(f"profile {name}: wall {wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms "
+          f"(device busy {100 * busy / wall_us:.1f}%); top kernels by device time:")
+    for dev_us, count, key in rows[:10]:
+        print(f"  {dev_us / 1e3:9.3f} ms  {count:6d}×  {key[:90]}")
+
+
+def profile_serve(m, params, prompts) -> None:
+    """``profile_window`` over one warm prefill and 4 decode steps."""
+    import torch
+
     S = prompts.shape[1]
     prefill, decode = m.make_prefill(), m.make_decode_step()
-
-    def window(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        # kernels only: an aten op's device time repeats its kernels'
-        rows = sorted(((getattr(e, "device_time_total", 0.0), e.count, e.key)
-                       for e in prof.key_averages()
-                       if getattr(e, "device_type", None) == DeviceType.CUDA), reverse=True)
-        if not rows:
-            print(f"profile {name}: wall {wall_us / 1e3:.3f} ms; the profiler saw no kernels")
-            return
-        busy = sum(r[0] for r in rows)   # one stream: the kernels do not overlap
-        print(f"profile {name}: wall {wall_us / 1e3:.3f} ms, kernels {busy / 1e3:.3f} ms "
-              f"(device busy {100 * busy / wall_us:.1f}%); top kernels by device time:")
-        for dev_us, count, key in rows[:10]:
-            print(f"  {dev_us / 1e3:9.3f} ms  {count:6d}×  {key[:90]}")
 
     state = {}
 
@@ -1005,8 +1219,8 @@ def profile_serve(m, params, prompts) -> None:
             tok = logits[:, -1].argmax(dim=-1)
 
     with torch.inference_mode():
-        window("prefill (warm)", run_prefill)
-        window("4 decode steps", run_decode)
+        profile_window("prefill (warm)", run_prefill)
+        profile_window("4 decode steps", run_decode)
     state.clear()
 
 
@@ -1021,15 +1235,22 @@ def exact_residual(st, x, b, ord=INF):
 
 def _check_trace(run: Run) -> None:
     """A blocking run follows the synchronous reference trajectory in its
-    norm."""
+    norm, and its detection is consistent with that exact trace
+    (``core.termination``)."""
+    from repro_torch.core import termination
     from repro_torch.runtime import shard_runtime as sr
 
     T = run.r.outer_iters
     ref = sr.convdiff_reference_trace(run.st, run.b, T, ord=run.ord)
     err = float(((run.r.trace[:T].double() - ref.double()).abs() / ref.double().abs()).max())
+    trace, target = run.r.trace[:T].tolist(), eps_tilde(run.ord, run.b.shape[0])
+    consistent = termination.detection_consistent(T - 1, trace, target)
     print(f"{run.name}: trace vs synchronous reference ({_ord_tag(run.ord)}) over {T} steps, "
-          f"max rel {err:.3e} (tolerance 5e-5)")
+          f"max rel {err:.3e} (tolerance 5e-5); oracle step "
+          f"{termination.oracle_detect_step(trace, target)}, detected at {T - 1}, "
+          f"consistent: {consistent}")
     _require(err <= 5e-5, f"{run.name}: trace departs from the reference ({err:.3e})")
+    _require(consistent, f"{run.name}: detection inconsistent with its exact trace")
 
 
 def verify_runs(solver_runs, shard_runs, mesh_runs) -> None:
@@ -1095,7 +1316,7 @@ KERNELS = {
     "flash_attention_flat": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention/flash_attention.py:90"),
 }
-# the main paths (phases 4–6) and the kernels each must launch
+# the main paths (phases 4–8) and the kernels each must launch
 PATHS = (
     ("solve_single", run_solver, ("fused_sweep_residual", "fused_rbgs_sweep_residual")),
     ("1-D shard runtime", run_shards,
@@ -1103,6 +1324,7 @@ PATHS = (
     ("mesh shard runtime", run_mesh,
      ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")),
     ("serve", run_serve, ("flash_attention_flat",)),
+    ("pagerank shard runtime", run_pagerank, ("diff_norm_partials", "fused_sweep_residual")),
 )
 
 
@@ -1167,6 +1389,7 @@ def main() -> int:
         shape_launches.update(jk.LAUNCH_SHAPES)
     verify_runs(*(runs[path] for path, _, _ in PATHS[:3]))
     verify_serve(runs["serve"], used_by["serve"], dev)
+    verify_pagerank(runs["pagerank shard runtime"], runs["1-D shard runtime"])
     rank_launches(st, dev, shape_launches, times)
 
     rows = []

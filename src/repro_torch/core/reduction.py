@@ -27,6 +27,21 @@ class ReductionMode:
     topology: str                  # "flat" (sum/max) | "butterfly"
     extra_residual_pass: bool      # detection work on the critical path
 
+    def rounds_per_value(self, p: int) -> int:
+        """Outer steps between completed global values at shard count p
+        (the mode's built-in pipeline staleness; 1 = every step)."""
+        if self.topology == "butterfly":
+            if p & (p - 1):
+                raise ValueError(
+                    f"{self.name} requires a power-of-two shard count, "
+                    f"got {p}")
+            return max(p.bit_length() - 1, 1)
+        return 1
+
+    def usable_shard_count(self, p: int) -> bool:
+        """Can the mode run on p shards at all?"""
+        return not (self.requires_power_of_two and p & (p - 1))
+
 
 REDUCTION_MODES: Dict[str, ReductionMode] = {
     m.name: m

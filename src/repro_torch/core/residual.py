@@ -78,6 +78,18 @@ def psum_sigma(contributions: torch.Tensor, ord: Ord = 2, dim: int = 0) -> torch
     return s ** (1.0 / lp)
 
 
+def global_residual(x: torch.Tensor, fx: torch.Tensor, ord: Ord = 2) -> torch.Tensor:
+    """Reference (non-distributed) residual ``‖x − f(x)‖_l``; the
+    difference is cast to f32 before the norm, as in the JAX package."""
+    lp = _as_ord(ord)
+    d = (x - fx).to(torch.float32).abs()
+    if np.isinf(lp):
+        return d.amax()
+    if lp == 2.0:
+        return torch.sqrt((d * d).sum())
+    return (d**lp).sum() ** (1.0 / lp)
+
+
 def combine_contributions(parts: Sequence[float], ord: Ord = 2) -> float:
     """Host-side σ over plain numbers."""
     lp = _as_ord(ord)

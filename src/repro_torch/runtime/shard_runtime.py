@@ -35,6 +35,11 @@ With ``overlap`` the last sweep of a step first recomputes the new face
 planes from thickness-1 slabs and ships them, then sweeps the whole block
 — bitwise the same result as without overlap.
 
+PageRank (``make_pagerank_runtime``) splits the state into ``p`` row
+blocks of the dense operator; its exchange is the whole state view, one
+concatenation of the blocks, and its sweep a row-block matvec.
+``make_runtime`` picks the runtime by problem family.
+
 Every sweep and contribution goes through the kernel ops (``jacobi3d``
 sweeps and residual passes, ``residual_norm.update_contribution``), so on
 the card the main path runs the CUDA kernels.
@@ -519,7 +524,108 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
 
 
 # ---------------------------------------------------------------------------
-# Synchronous reference (parity oracle)
+# PageRank shards (row blocks, stale concatenated state views)
+# ---------------------------------------------------------------------------
+
+
+def make_pagerank_runtime(cfg: ShardRuntimeConfig, p: Union[int, Tuple[int, ...]],
+                          n: int, damping: float = 0.85, device: DeviceLike = None):
+    """Build ``run(x0, P_dense) -> ShardRunResult`` over ``p`` stacked row
+    blocks.
+
+    ``x0`` is the global (n,) state and ``P_dense`` the (n, n)
+    column-stochastic operator, tensors or numpy arrays (moved to
+    ``device``, default ``cuda``); shard i owns rows ``i·n/p`` onward.  The
+    "halo" is the full state view, one concatenation of the shards' blocks
+    that every shard's ring slot holds by reference; staleness delays the
+    *consumed* view, while a shard's own block is always current (the
+    asynchronous-iterations convention).  The sweep is ``d · (P_rows @ view)
+    + v``; its contribution is the update difference (scale 1) through
+    ``residual_norm.update_contribution``, so on the card it is the
+    diff-norm kernel.
+    """
+    mesh = tuple(int(s) for s in p) if isinstance(p, (tuple, list)) else (int(p),)
+    for shape in (mesh, cfg.mesh_shape or mesh):
+        if len(shape) != 1:
+            raise ValueError(
+                f"pagerank shards are 1-D row blocks; got mesh shape {shape} — "
+                "multi-axis meshes are convdiff-only")
+    if cfg.overlap:
+        raise ValueError("overlap=True is convdiff-only (pagerank has no "
+                         "halo ring: its exchange is an all-gather)")
+    p = mesh[0]
+    if n % p:
+        raise ValueError(f"n={n} not divisible by shard count p={p}")
+    res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
+    ord_ = cfg.monitor.ord
+    dev = resolve_device(device)
+    loop = _make_loop(cfg, p, dev)
+    inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps")
+    nb = n // p
+    d = float(damping)
+    v = (1.0 - d) / n
+
+    def run(x0, P_dense) -> ShardRunResult:
+        P = torch.as_tensor(P_dense, device=dev)
+        x0 = torch.as_tensor(x0, device=dev, dtype=P.dtype)
+        if tuple(P.shape) != (n, n) or tuple(x0.shape) != (n,):
+            raise ValueError(f"x0 must be ({n},) and P_dense ({n}, {n})")
+        rows = P.split(nb)
+
+        def exchange(xs):
+            return [torch.cat(xs)] * p   # the all-gather: one view, p references
+
+        def own_current(i, x, view):
+            """The view with shard i's block replaced by its current state,
+            in a fresh tensor (the ring's view is shared and not written)."""
+            return torch.cat((view[:i * nb], x, view[(i + 1) * nb:]))
+
+        def sweep(i, x, view):
+            return d * (rows[i] @ own_current(i, x, view)) + v
+
+        def sweep_contrib(i, x, view):
+            new = sweep(i, x, view)
+            # D-iteration residual = the update difference (scale 1)
+            return new, rn_ops.update_contribution(new, x, ord=ord_)
+
+        def exact_contrib(i, x, view):
+            return res.local_contribution(sweep(i, x, view) - x, ord_)
+
+        xs = list(x0.split(nb))  # sweeps return new blocks: x0 is not written
+        k, mon, trace = loop(
+            _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
+        return ShardRunResult(
+            x=torch.cat(xs), residual=mon.detected_residual, outer_iters=k,
+            converged=bool(mon.converged), local_sweeps=k * inner,
+            verifications=int(mon.verifications), trace=trace)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Family dispatch
+# ---------------------------------------------------------------------------
+
+
+FAMILIES = ("convdiff", "pagerank")
+
+
+def make_runtime(family: str, cfg: ShardRuntimeConfig,
+                 p: Union[int, Tuple[int, ...]], n: int, *,
+                 stencil: Optional[Stencil] = None, damping: float = 0.85,
+                 device: DeviceLike = None):
+    """``run(x0, problem_arg) -> ShardRunResult`` for a problem family."""
+    if family == "convdiff":
+        if stencil is None:
+            raise ValueError("convdiff runtime requires stencil=")
+        return make_convdiff_runtime(cfg, p, stencil, n, device)
+    if family == "pagerank":
+        return make_pagerank_runtime(cfg, p, n, damping, device)
+    raise KeyError(f"family {family!r} not in {FAMILIES}")
+
+
+# ---------------------------------------------------------------------------
+# Synchronous references (parity oracles)
 # ---------------------------------------------------------------------------
 
 
@@ -535,5 +641,21 @@ def convdiff_reference_trace(stencil: Stencil, b: torch.Tensor, steps: int,
         x = jacobi.jacobi_sweep(stencil, ghosted(x, zg), b)
         r = res.local_contribution(
             jacobi.residual_block(stencil, ghosted(x, zg), b), ord)
+        out.append(res.sigma(r, ord).to(torch.float32))
+    return torch.stack(out)
+
+
+def pagerank_reference_trace(P_dense: torch.Tensor, n: int, steps: int,
+                             damping: float = 0.85,
+                             ord: float = 1.0) -> torch.Tensor:
+    """Global synchronous D-iteration trajectory in plain PyTorch (post-step
+    residuals) — what the blocking PageRank runtime must reproduce."""
+    d = float(damping)
+    v = (1.0 - d) / n
+    x = torch.full((n,), 1.0 / n, dtype=P_dense.dtype, device=P_dense.device)
+    out = []
+    for _ in range(steps):
+        x = d * (P_dense @ x) + v
+        r = res.local_contribution(d * (P_dense @ x) + v - x, ord)
         out.append(res.sigma(r, ord).to(torch.float32))
     return torch.stack(out)

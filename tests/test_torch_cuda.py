@@ -24,7 +24,9 @@ model served on the card gives the CPU's tokens.  Diff-norm partials: l∞
 1e-6 and l2 / l1 2e-5 relative (summation order), bitwise equal across
 calls.  The stencil and diff-norm kernels are checked in all three partial
 modes (l∞ max|r|, l2 Σr², l1 Σ|r|); an l1 run on the card takes the CPU's
-iterations.
+iterations.  PageRank through ``runtime.api.run_shard`` on the card takes the
+CPU's iterations, with x within 1e-12 and the residual history within rtol
+5e-5; #5 in l1 at its PageRank blocks is held at 2e-5.
 """
 import numpy as np
 import pytest
@@ -102,6 +104,56 @@ def test_solve_single_on_card_matches_cpu(card, mode, sweep, fuse):
     cpu = tfp.solve_single(cfg, b, device="cpu")
     assert gpu.converged and gpu.outer_iters == cpu.outer_iters
     np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-10, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4095, 16384])
+def test_diff_norm_l1_at_pagerank_blocks_on_card(card, n):
+    """The PageRank shard block (4096 f64: one partial, split over a
+    cluster), a ragged n and a whole n = 16384 state, in l1: against the
+    plain version, bitwise equal across calls, a NaN reaching its partial."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    a = torch.rand((n,), generator=gen, device=card, dtype=torch.float64) / n
+    b = a + 1e-13 * torch.rand((n,), generator=gen, device=card, dtype=torch.float64)
+    got = trk.diff_norm_partials(a, b, ord=1.0)
+    assert got.shape == (1,)
+    for _ in range(3):
+        assert torch.equal(got, trk.diff_norm_partials(a, b, ord=1.0))
+    torch.testing.assert_close(got, trn_ref.diff_norm_partials_ref(a, b, ord=1.0),
+                               rtol=2e-5, atol=0)
+    b[n // 3] = float("nan")
+    assert bool(trk.diff_norm_partials(a, b, ord=1.0).isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduction,mode", [("blocking", "sync"), ("nonblocking", "pfait"),
+                                            ("rdoubling", "pfait"), ("nonblocking", "nfais2")])
+def test_run_shard_pagerank_on_card_matches_cpu(card, reduction, mode):
+    from repro_torch.runtime import api as tapi
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    n, p = 1024, 4
+    prob = PageRankProblem(n=n, p=p, seed=0)
+    mon = (detection.MonitorConfig(mode="sync", eps=1e-9, staleness=0, ord=1.0)
+           if mode == "sync" else
+           detection.for_mode(mode, eps_tilde=1e-9, margin=10.0, staleness=2, ord=1.0))
+    knobs = {} if reduction == "blocking" else dict(
+        inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 0, 2), contrib_lag=(0, 1, 0, 1))
+    cfg = tapi.RuntimeConfig(monitor=mon, reduction=reduction, max_outer=500,
+                             record_trace=True, **knobs)
+    args = ("pagerank", cfg, p, n, np.full(n, 1.0 / n), prob.to_dense())
+    trk.reset_launches()
+    gpu = tapi.run_shard(*args, damping=prob.d, device=card)
+    launches = trk.LAUNCHES["diff_norm_partials"]
+    cpu = tapi.run_shard(*args, damping=prob.d, device="cpu")
+    assert gpu.converged and gpu.outer_iters == cpu.outer_iters
+    assert gpu.detect_step == cpu.detect_step
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(gpu.residual_history, cpu.residual_history, rtol=5e-5)
+    assert prob.exact_residual([gpu.x.cpu().numpy()]) < 1e-9
+    gpu.trace.validate()
+    # a build run and a timed run, each launching #5 once per shard and step
+    assert launches == (0 if reduction == "blocking" else 2 * p * gpu.outer_iters)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import detection
 from repro_torch.launch import serve
 from repro_torch.models.model import Model
-from repro_torch.runtime import shard_runtime
+from repro_torch.runtime import api, shard_runtime
 from repro_torch.solvers import fixed_point
 from repro_torch.solvers.convdiff import Stencil
 
@@ -34,9 +34,11 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 48, names
+    assert len(names) >= 52, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
+    assert "repro_torch.runtime.api" in names, names
+    assert "repro_torch.solvers.pagerank" in names, names
     print("ISOLATED", len(names))
 """)
 
@@ -62,6 +64,11 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     rcfg = shard_runtime.ShardRuntimeConfig(monitor=detection.MonitorConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         shard_runtime.make_convdiff_runtime(rcfg, 2, st, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        shard_runtime.make_pagerank_runtime(rcfg, 2, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.run_shard("pagerank", api.RuntimeConfig(monitor=detection.MonitorConfig()), 2, 4,
+                      np.full(4, 0.25), np.eye(4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.serve("qwen2-1.5b", batch=1, prompt_len=4, max_new=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
