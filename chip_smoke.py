@@ -55,14 +55,27 @@ Phases, each of which must pass or the script exits non-zero:
    hetero Jacobi case of phase 5, run again through ``run_shard`` with a
    recorded trace, must be bitwise phase 5's run; every recorded trace
    must validate;
-9. rank the stencil kernels by launches x (device ms - bound ms) over the
+9. one shard per process over ``torch.distributed``, in spawned local
+   worlds on the one card: a gloo world of 6 ranks sharing ``cuda:0``
+   (phase 5's 1-D p = 6 runs but the p = 2 one, phase 6's (3, 2) blocking,
+   hetero, hetero overlap and NFAIS2 runs, a (3, 2) hetero hybrid run and
+   ``make_sharded_solver`` on a (3, 2) group at n = 150), a gloo world of 4
+   (phase 8's four PageRank runs, each rank holding only its row block of
+   P, and 1-D rdoubling at p = 4, n = 152) and an NCCL world of 1 (the 1-D
+   p = 1 runtime, and ``make_sharded_solver`` on (1, 1) at n = 185 as phase
+   4's PFAIT hybrid run): every run must equal its stacked twin (same
+   iterations, detection and verifications, x bitwise, the trace bitwise
+   at l∞ and within p·2^-24 relative at l1), every rank must report the
+   same outcome, and #1-#5 must launch inside the worlds; ms per step and
+   the host-staged bytes per step are printed beside the stacked twin's;
+10. rank the stencil kernels by launches x (device ms - bound ms) over the
    (kernel, block shape) pairs the main paths launched, each timed at its
    shape; print one JSON line of per-kernel numbers, the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
-Phases 4 to 8 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
-path must show launches there.  Needs CUDA: without a card, or without the
+path must show launches there (phase 9's in the counters its ranks report).  Needs CUDA: without a card, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
 """
@@ -770,21 +783,16 @@ def eps_tilde(ord, n) -> float:
     return EPS_TILDE if ord == INF else EPS_TILDE * n ** 3
 
 
-def run_solver(dev) -> list:
-    """Phase 4: ``solve_single`` at n = 185, f64, quickstart settings."""
-    import torch
-
+def solver_cells(st) -> list:
+    """Phase 4's runs: ``(label, SolverConfig, ord)``."""
     from repro_torch.core import detection
-    from repro_torch.solvers.convdiff import Stencil, make_rhs
-    from repro_torch.solvers.fixed_point import SolverConfig, solve_single
+    from repro_torch.solvers.fixed_point import SolverConfig
 
     n = SOLVER_N
-    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
-    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
     runs = [(m, "hybrid", True, INF) for m in ("sync", "pfait", "nfais2", "nfais5")]
     runs += [("pfait", "jacobi", True, INF), ("pfait", "hybrid", False, INF),
              ("pfait", "hybrid", True, 1.0)]
-    results = []
+    cells = []
     for mode, sweep, fuse, ord in runs:
         mon = detection.for_mode(mode, eps_tilde=eps_tilde(ord, n), margin=10.0,
                                  staleness=0 if mode == "sync" else 4,
@@ -792,8 +800,31 @@ def run_solver(dev) -> list:
         cfg = SolverConfig(stencil=st, monitor=mon, inner_sweeps=2, max_outer=50_000,
                            sweep=sweep, use_kernel=True, fuse_residual=fuse)
         label = f"{mode}/{sweep}/{'fused' if fuse else 'unfused'}" + (" l1" if ord == 1 else "")
-        results.append(_run(label, lambda: solve_single(cfg, b, device=dev), st, b, ord))
-    return results
+        cells.append((label, cfg, ord))
+    return cells
+
+
+def _stencil(n):
+    from repro_torch.solvers.convdiff import Stencil
+
+    return Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
+
+
+def _rhs(n, dev):
+    import torch
+
+    from repro_torch.solvers.convdiff import make_rhs
+
+    return torch.as_tensor(make_rhs(n, seed=0), device=dev)
+
+
+def run_solver(dev) -> list:
+    """Phase 4: ``solve_single`` at n = 185, f64, quickstart settings."""
+    from repro_torch.solvers.fixed_point import solve_single
+
+    st, b = _stencil(SOLVER_N), _rhs(SOLVER_N, dev)
+    return [_run(label, lambda: solve_single(cfg, b, device=dev), st, b, ord)
+            for label, cfg, ord in solver_cells(st)]
 
 
 # the trace length of the 1-D p = 6 hetero Jacobi run, which the PageRank
@@ -805,21 +836,15 @@ MESH_KNOBS = dict(inner_sweeps=(1, 2, 1, 3, 1, 2), halo_delay=(0, 1, 0, 2, 0, 1)
                   contrib_lag=(0, 1, 0, 1, 0, 0))
 
 
-def run_shards(dev) -> list:
-    """Phase 5: the stacked shard runtime at n = 150, f64, p = 6 (and p = 2)."""
-    import torch
-
+def shard_cells() -> list:
+    """Phase 5's runs: ``(name, p, ShardRuntimeConfig)``."""
     from repro_torch.core import detection
     from repro_torch.runtime import shard_runtime as sr
-    from repro_torch.solvers.convdiff import Stencil, make_rhs
 
-    n = SHARD_N
-    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
-    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
-    x0 = torch.zeros_like(b)
     mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
-    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, n), margin=10.0, ord=1.0)
-    cells = [
+    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, SHARD_N), margin=10.0,
+                              ord=1.0)
+    return [
         ("blocking/jacobi p=6", 6, sr.ShardRuntimeConfig(
             monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
         ("nonblocking/jacobi p=6 hetero", 6, sr.ShardRuntimeConfig(
@@ -832,26 +857,36 @@ def run_shards(dev) -> list:
         ("nonblocking/jacobi p=6 hetero l1", 6, sr.ShardRuntimeConfig(
             monitor=mon1, reduction="nonblocking", max_outer=5000, **MESH_KNOBS)),
     ]
+
+
+def _run_cells(cells, dev) -> list:
+    """Stacked runs of ``(name, p, ShardRuntimeConfig)`` cells at n = 150."""
+    import torch
+
+    from repro_torch.runtime import shard_runtime as sr
+
+    n = SHARD_N
+    st, b = _stencil(n), _rhs(n, dev)
+    x0 = torch.zeros_like(b)
     return [_run(name, lambda: sr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b),
                  st, b, cfg.monitor.ord) for name, p, cfg in cells]
 
 
-def run_mesh(dev) -> list:
-    """Phase 6: the mesh shard runtime at n = 150, f64."""
-    import torch
+def run_shards(dev) -> list:
+    """Phase 5: the stacked shard runtime at n = 150, f64, p = 6 (and p = 2)."""
+    return _run_cells(shard_cells(), dev)
 
+
+def mesh_cells() -> list:
+    """Phase 6's runs: ``(name, mesh, ShardRuntimeConfig)``."""
     from repro_torch.core import detection
     from repro_torch.runtime import shard_runtime as sr
-    from repro_torch.solvers.convdiff import Stencil, make_rhs
 
-    n = SHARD_N
-    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=0.95)
-    b = torch.as_tensor(make_rhs(n, seed=0), device=dev)
-    x0 = torch.zeros_like(b)
     mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
-    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, n), margin=10.0, ord=1.0)
+    mon1 = detection.for_mode("pfait", eps_tilde=eps_tilde(1.0, SHARD_N), margin=10.0,
+                              ord=1.0)
     nfais2 = detection.for_mode("nfais2", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
-    cells = [
+    return [
         ("(a) mesh (3,2) blocking/jacobi", (3, 2), sr.ShardRuntimeConfig(
             monitor=mon, reduction="blocking", max_outer=5000, trace_len=5000)),
         ("(b) mesh (3,2) nonblocking/jacobi hetero", (3, 2), sr.ShardRuntimeConfig(
@@ -868,8 +903,11 @@ def run_mesh(dev) -> list:
         ("(f) mesh (3,2) blocking/jacobi l1", (3, 2), sr.ShardRuntimeConfig(
             monitor=mon1, reduction="blocking", max_outer=5000, trace_len=5000)),
     ]
-    return [_run(name, lambda: sr.make_convdiff_runtime(cfg, mesh, st, n, device=dev)(x0, b),
-                 st, b, cfg.monitor.ord) for name, mesh, cfg in cells]
+
+
+def run_mesh(dev) -> list:
+    """Phase 6: the mesh shard runtime at n = 150, f64."""
+    return _run_cells(mesh_cells(), dev)
 
 
 def run_serve(dev) -> dict:
@@ -878,6 +916,32 @@ def run_serve(dev) -> dict:
 
     return serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                  max_new=SERVE_NEW, use_reduced=False, seed=0, device=dev)
+
+
+def pagerank_cells() -> list:
+    """Phase 8's runs: ``(name, RuntimeConfig)``."""
+    from repro_torch.core import detection
+    from repro_torch.runtime import api
+
+    eps = PAGERANK_EPS
+    sync = detection.MonitorConfig(mode="sync", eps=eps, staleness=0, ord=1.0)
+
+    def mon(mode):
+        return detection.for_mode(mode, eps_tilde=eps, margin=10.0, staleness=4,
+                                  persistence=4, ord=1.0)
+
+    return [
+        ("(a) blocking/sync", api.RuntimeConfig(
+            monitor=sync, reduction="blocking", max_outer=1000, record_trace=True)),
+        ("(b) nonblocking/pfait K=4 hetero", api.RuntimeConfig(
+            monitor=mon("pfait"), reduction="nonblocking", max_outer=1000,
+            record_trace=True, **PAGERANK_KNOBS)),
+        ("(c) rdoubling/pfait", api.RuntimeConfig(
+            monitor=mon("pfait"), reduction="rdoubling", max_outer=1000, record_trace=True)),
+        ("(d) nonblocking/nfais2", api.RuntimeConfig(
+            monitor=mon("nfais2"), reduction="nonblocking", max_outer=1000,
+            record_trace=True)),
+    ]
 
 
 class PageRankRun(NamedTuple):
@@ -913,24 +977,7 @@ def run_pagerank(dev) -> dict:
           f"{t2 - t1:.2f} s, placed on the card in {time.perf_counter() - t2:.2f} s "
           f"({P_host.nbytes / 2**30:.1f} GiB f64)")
     x0 = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
-    sync = detection.MonitorConfig(mode="sync", eps=eps, staleness=0, ord=1.0)
-
-    def mon(mode):
-        return detection.for_mode(mode, eps_tilde=eps, margin=10.0, staleness=4,
-                                  persistence=4, ord=1.0)
-
-    cells = [
-        ("(a) blocking/sync", api.RuntimeConfig(
-            monitor=sync, reduction="blocking", max_outer=1000, record_trace=True)),
-        ("(b) nonblocking/pfait K=4 hetero", api.RuntimeConfig(
-            monitor=mon("pfait"), reduction="nonblocking", max_outer=1000,
-            record_trace=True, **PAGERANK_KNOBS)),
-        ("(c) rdoubling/pfait", api.RuntimeConfig(
-            monitor=mon("pfait"), reduction="rdoubling", max_outer=1000, record_trace=True)),
-        ("(d) nonblocking/nfais2", api.RuntimeConfig(
-            monitor=mon("nfais2"), reduction="nonblocking", max_outer=1000,
-            record_trace=True)),
-    ]
+    cells = pagerank_cells()
     runs = []
     for name, cfg in cells:
         before = _launches()
@@ -1031,6 +1078,177 @@ def verify_pagerank(out, shard_runs) -> None:
     _require(validate_trace(c.trace), "convdiff run_shard: trace fails validate()")
     del out["P"], P
     torch.cuda.empty_cache()
+
+
+# the distributed path: the stacked runs that each world repeats one shard
+# per rank, by name (phases 5, 6 and 8), and the runs this phase adds
+DIST_SHARD_RUNS = ("blocking/jacobi p=6", "nonblocking/jacobi p=6 hetero",
+                   "nonblocking/hybrid p=6", "nonblocking/jacobi p=6 hetero l1")
+DIST_MESH_RUNS = ("(a) mesh (3,2) blocking/jacobi", "(b) mesh (3,2) nonblocking/jacobi hetero",
+                  "(b) mesh (3,2) nonblocking/jacobi hetero overlap",
+                  "(e) mesh (3,2) nfais2/jacobi")
+DIST_SOLVER_RUN = "pfait/hybrid/fused"     # phase 4's, again on a (1, 1) NCCL group
+DIST_N4 = 152                              # 1-D p = 4 needs 4 | n
+DIST_KERNELS = ("fused_sweep_residual", "fused_rbgs_sweep_residual",
+                "fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo",
+                "diff_norm_partials")
+
+
+class DistRun(NamedTuple):
+    """The distributed path: per world its ranks' reports and wall, the
+    stacked twins this phase ran itself, and the launches made inside the
+    worlds (every rank, every case)."""
+
+    worlds: dict
+    twins: list
+    world_launches: dict
+
+
+def dist_cells():
+    """``(stacked twins to run here, worlds)``: a twin is ``(name, p,
+    ShardRuntimeConfig or SolverConfig, n)``; a world is ``(label, k,
+    backend, [Case])``, each case named after its stacked twin."""
+    import dataclasses as dc
+
+    from repro_torch.core import detection
+    from repro_torch.launch.worlds import Case, Inputs
+    from repro_torch.runtime import shard_runtime as sr
+
+    cd, cd4 = Inputs("convdiff", SHARD_N, rho=0.95), Inputs("convdiff", DIST_N4, rho=0.95)
+    mon = detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, ord=INF)
+    st = _stencil(SHARD_N)
+    solver = dict((label, cfg) for label, cfg, _ in solver_cells(_stencil(SOLVER_N)))
+    hybrid = dc.replace(solver[DIST_SOLVER_RUN], stencil=st)
+    twins = [
+        ("(g) mesh (3,2) nonblocking/hybrid hetero", (3, 2), sr.ShardRuntimeConfig(
+            monitor=mon, sweep="hybrid", max_outer=5000, trace_len=5000, **MESH_KNOBS),
+         SHARD_N),
+        ("make_sharded_solver (3,2) hybrid fused", (3, 2), hybrid, SHARD_N),
+        ("rdoubling/jacobi p=4 n=152", 4, sr.ShardRuntimeConfig(
+            monitor=mon, reduction="rdoubling", max_outer=5000, trace_len=5000), DIST_N4),
+        ("nonblocking/jacobi p=1", 1, sr.ShardRuntimeConfig(
+            monitor=mon, max_outer=5000, trace_len=5000), SHARD_N),
+    ]
+    own = {name: (p, cfg) for name, p, cfg, _ in twins}
+    shard = {name: (p, cfg) for name, p, cfg in shard_cells() + mesh_cells()}
+    six = [Case(name, "runtime", shard[name][1], _shape(shard[name][0]), cd)
+           for name in DIST_SHARD_RUNS + DIST_MESH_RUNS]
+    six += [Case(twins[0][0], "runtime", twins[0][2], (3, 2), cd),
+            Case(twins[1][0], "solver", hybrid, (3, 2), cd)]
+    four = [Case(name, "api", cfg, (PAGERANK_P,),
+                 Inputs("pagerank", PAGERANK_N, p=PAGERANK_P))
+            for name, cfg in pagerank_cells()]
+    four.append(Case(twins[2][0], "runtime", own[twins[2][0]][1], (4,), cd4))
+    one = [Case(twins[3][0], "runtime", own[twins[3][0]][1], (1,), cd),
+           Case(DIST_SOLVER_RUN, "solver", solver[DIST_SOLVER_RUN], (1, 1),
+                Inputs("convdiff", SOLVER_N, rho=0.95))]
+    worlds = [("gloo x6", 6, "gloo", six), ("gloo x4", 4, "gloo", four),
+              ("nccl x1", 1, "nccl", one)]
+    return twins, worlds
+
+
+def _shape(p):
+    return tuple(p) if isinstance(p, tuple) else (p,)
+
+
+def run_distributed(dev) -> DistRun:
+    """Phase 9: one shard per process over ``torch.distributed``, in spawned
+    worlds on the one card (gloo ranks share ``cuda:0`` and stage through
+    host memory; NCCL at world size 1), each run held later to its stacked
+    twin.  The twins this phase adds run here first, stacked."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.worlds import run_cases
+    from repro_torch.runtime import shard_runtime as sr
+    from repro_torch.solvers.fixed_point import SolverConfig, make_sharded_solver
+
+    twin_cells, worlds = dist_cells()
+    twins = []
+    for name, p, cfg, n in twin_cells:
+        st, b = _stencil(n), _rhs(n, dev)
+        x0 = torch.zeros_like(b)
+        if isinstance(cfg, SolverConfig):
+            fn = lambda: make_sharded_solver(cfg, p, device=dev)(x0, b)  # noqa: E731
+        else:
+            fn = lambda: sr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b)  # noqa: E731
+        twins.append(_run(name, fn, st, b, cfg.monitor.ord))
+    out, inside = {}, Counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        for label, k, backend, cases in worlds:
+            t0 = time.perf_counter()
+            ranks = spawn_world(run_cases, k, store, args=(backend, cases, None),
+                                timeout=600)
+            out[label] = dict(ranks=ranks, cases=cases, wall=time.perf_counter() - t0,
+                              k=k, backend=backend)
+            for r in ranks:
+                for c in r["cases"]:
+                    inside.update(c["launches"])
+    return DistRun(out, twins, dict(inside))
+
+
+def verify_distributed(dist_run: DistRun, runs: dict, card: str) -> None:
+    """Every distributed run equals its stacked twin (same iterations,
+    detection and verifications, ``x`` bitwise, the trace bitwise at l∞
+    and within p·2^-24 relative at l1/l2, since the group sums the lanes in
+    another order), every rank reports the same outcome, and the ms per
+    step and host-staged bytes per step are printed beside the twin's."""
+    import numpy as np
+
+    twin = {run.name: (run.r, run.wall, run.ord) for run in
+            runs["solve_single"] + runs["1-D shard runtime"] + runs["mesh shard runtime"]
+            + dist_run.twins}
+    for run in runs["pagerank shard runtime"]["runs"]:
+        twin[run.name] = (run.rep.raw, dict(run.rep.wall_segments)["run"], 1.0)
+    print(f"distributed path on {card}: ranks that share one card time the transport's "
+          "host cost (gloo stages every face and lane through host memory), not a "
+          "multi-GPU run")
+    for label, w in dist_run.worlds.items():
+        print(f"world {label} ({w['backend']}, {w['k']} ranks): {w['wall']:.1f} s, spawn "
+              "and every rank's inputs included")
+        for i, case in enumerate(w["cases"]):
+            got = [r["cases"][i] for r in w["ranks"]]
+            g = got[0]
+            want, wall, ord_ = twin[case.name]
+            tag = f"{label} {case.name}"
+            _require(g["name"] == case.name and g["converged"], f"{tag}: did not converge")
+            for c in got[1:]:
+                _require(all(c[key] == g[key] for key in (
+                    "outer_iters", "converged", "residual", "verifications", "x_digest"))
+                    and (g["trace"] is None or np.array_equal(c["trace"], g["trace"])),
+                    f"{tag}: rank {c['rank']} disagrees with rank 0")
+            same = (g["outer_iters"] == want.outer_iters
+                    and g["converged"] == bool(want.converged)
+                    and g["verifications"] == int(getattr(want, "verifications", 0))
+                    and np.array_equal(g["x"], want.x.cpu().numpy()))
+            gap, bar = 0.0, w["k"] * 2.0 ** -24
+            if g["trace"] is not None:
+                t, ref = g["trace"], want.trace.cpu().numpy()
+                fin = np.isfinite(ref)
+                same = same and np.array_equal(np.isfinite(t), fin)
+                gap = float(np.max(np.abs(t[fin] - ref[fin]) / np.abs(ref[fin]), initial=0.0))
+            rgap = abs(g["residual"] - float(want.residual)) / abs(float(want.residual))
+            gap = max(gap, rgap)
+            ok = same and (gap == 0.0 if ord_ == INF else gap <= bar)
+            steps = max(g["outer_iters"], 1)
+            per_step = steps * g["runs"] * len(got)   # per rank and step
+            staged = sum(c["staged_bytes"] for c in got) / (steps * g["runs"])
+            staged_ms = 1e3 * sum(c["staged_s"] for c in got) / per_step
+            wait_ms = 1e3 * sum(c["wait_s"] for c in got) / per_step
+            print(f"  {case.name}: outer {g['outer_iters']} / stacked {want.outer_iters}, "
+                  f"verifications {g['verifications']}, x bitwise and iterations equal: "
+                  f"{same}; trace and residual {_ord_tag(ord_)}: largest relative gap "
+                  f"{gap:.3e} (bar {'0' if ord_ == INF else f'{bar:.3e}'}); "
+                  f"{1e3 * g['wall_s'] / steps:.4f} ms/step against stacked "
+                  f"{1e3 * wall / max(want.outer_iters, 1):.4f}; host-staged "
+                  f"{staged:.0f} B/step (all ranks); a rank's step: staging "
+                  f"{staged_ms:.4f} ms (its stream synchronisations included), blocked "
+                  f"in transfers {wait_ms:.4f} ms (mean over ranks); ranks agree")
+            _require(ok, f"{tag}: departs from its stacked twin")
+    print(f"main-path launches inside the worlds: {json.dumps(dist_run.world_launches)}")
 
 
 def warm_serve(dev) -> None:
@@ -1253,10 +1471,10 @@ def _check_trace(run: Run) -> None:
     _require(consistent, f"{run.name}: detection inconsistent with its exact trace")
 
 
-def verify_runs(solver_runs, shard_runs, mesh_runs) -> None:
-    """r* < ε̃ for every run, in its norm (no false detection); blocking
-    follows the synchronous reference trajectory; comm overlap is bitwise
-    no overlap."""
+def verify_runs(solver_runs, shard_runs, mesh_runs, dist_twins=()) -> None:
+    """r* < ε̃ for every run, in its norm (no false detection), the
+    distributed path's stacked twins included; blocking follows the
+    synchronous reference trajectory; comm overlap is bitwise no overlap."""
     import torch
 
     from repro_torch.solvers import jacobi
@@ -1270,7 +1488,7 @@ def verify_runs(solver_runs, shard_runs, mesh_runs) -> None:
         kern = exact_residual(run.st, run.r.x, run.b, run.ord)
         _require(abs(kern - plain) <= tol * plain,
                  f"exact {_ord_tag(run.ord)} residual: kernel {kern:.6e} vs plain {plain:.6e}")
-    for run in solver_runs + shard_runs + mesh_runs:
+    for run in solver_runs + shard_runs + mesh_runs + list(dist_twins):
         r = run.r
         r_star = exact_residual(run.st, r.x, run.b, run.ord)
         target = eps_tilde(run.ord, run.b.shape[0])
@@ -1325,6 +1543,9 @@ PATHS = (
      ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")),
     ("serve", run_serve, ("flash_attention_flat",)),
     ("pagerank shard runtime", run_pagerank, ("diff_norm_partials", "fused_sweep_residual")),
+    # the stacked twins run in this process; the kernels are required of
+    # the launches inside the worlds
+    ("distributed shard runtime", run_distributed, DIST_KERNELS),
 )
 
 
@@ -1382,13 +1603,15 @@ def main() -> int:
         torch.cuda.synchronize()
         used_by[path] = used = _launches()
         print(f"main-path launches, {path}:", json.dumps(used))
+        inside = getattr(runs[path], "world_launches", {})
         for k in kernels:
-            _require(used[k] > 0, f"{k}: not launched on the {path} path")
+            _require((inside or used)[k] > 0, f"{k}: not launched on the {path} path")
         for k in launches:
-            launches[k] += used[k]
+            launches[k] += used[k] + inside.get(k, 0)
         shape_launches.update(jk.LAUNCH_SHAPES)
-    verify_runs(*(runs[path] for path, _, _ in PATHS[:3]))
+    verify_runs(*(runs[path] for path, _, _ in PATHS[:3]), runs["distributed shard runtime"].twins)
     verify_serve(runs["serve"], used_by["serve"], dev)
+    verify_distributed(runs["distributed shard runtime"], runs, nvidia_smi())
     verify_pagerank(runs["pagerank shard runtime"], runs["1-D shard runtime"])
     rank_launches(st, dev, shape_launches, times)
 

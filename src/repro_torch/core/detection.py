@@ -21,6 +21,12 @@ counters), and ``step`` is sync-free except for NFAIS2 with a verifier: the
 JAX package's lazy ``lax.cond`` becomes a host branch on ``fire``, which
 reads one flag per check and pays the exact verification only on a check
 where a candidate fires.
+
+``step`` is ``push`` (the ring: the new value in, the one launched K checks
+ago out) then ``decide`` (the verdict on that visible value).  The shard
+runtimes keep their reductions in flight themselves
+(``runtime/transport.py``) and call ``decide`` on the value they waited
+for, so both of their transports share the decision code.
 """
 from __future__ import annotations
 
@@ -118,6 +124,17 @@ def _push_ring(ring: torch.Tensor, value: torch.Tensor,
     return ring.index_copy(0, idx, value.reshape(1)), visible
 
 
+def push(cfg: MonitorConfig, state: MonitorState,
+         contribution: torch.Tensor) -> Tuple[MonitorState, torch.Tensor]:
+    """Launch the check's reduction into the monitor's ring: σ of the
+    already globally reduced, pre-σ ``contribution`` enters the ring, and
+    the value launched K checks ago becomes visible.  Returns the state with
+    the new ring and that visible value."""
+    g = res.sigma(contribution, cfg.ord).to(torch.float32)
+    ring, visible = _push_ring(state.ring, g, state.step)
+    return state._replace(ring=ring), visible
+
+
 def step(
     cfg: MonitorConfig,
     state: MonitorState,
@@ -125,20 +142,32 @@ def step(
     exact_residual_fn: Optional[Callable[[], torch.Tensor]] = None,
 ) -> MonitorState:
     """One detection check on an already globally reduced, pre-σ
-    ``contribution``.
+    ``contribution``: ``push`` then ``decide``.
 
     ``exact_residual_fn`` — NFAIS2 only: a thunk evaluating the *exact*
     current global residual (blocking), called only on a check where a
     candidate fires.
     """
-    g = res.sigma(contribution, cfg.ord).to(torch.float32)
-    ring, visible = _push_ring(state.ring, g, state.step)
+    state, visible = push(cfg, state, contribution)
+    return decide(cfg, state, visible, exact_residual_fn)
+
+
+def decide(
+    cfg: MonitorConfig,
+    state: MonitorState,
+    visible: torch.Tensor,
+    exact_residual_fn: Optional[Callable[[], torch.Tensor]] = None,
+) -> MonitorState:
+    """The check's decision on the ``visible`` global residual (f32, σ
+    applied): the value launched K checks ago, from the monitor's own ring
+    (``push``) or from a reduction that was in flight until this check
+    (the distributed transport).  Advances ``step``; the ring is left as
+    it is."""
     below = visible < cfg.eps
     inf = torch.full_like(visible, float("inf"))
 
     if cfg.mode in ("sync", "pfait"):
         return state._replace(
-            ring=ring,
             step=state.step + 1,
             converged=state.converged | below,
             detected_residual=torch.where(
@@ -161,7 +190,6 @@ def step(
             exact = inf
         verified = exact < cfg.eps_tilde
         return state._replace(
-            ring=ring,
             step=state.step + 1,
             persist=torch.where(fire & ~verified, zero, persist),
             converged=state.converged | (fire & verified),
@@ -180,7 +208,6 @@ def step(
     confirmed = confirming & below & (persist >= 2 * cfg.persistence)
     done = confirming  # failed | confirmed
     return state._replace(
-        ring=ring,
         step=state.step + 1,
         persist=persist,
         phase=torch.where(done, zero, phase),

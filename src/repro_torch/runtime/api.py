@@ -7,8 +7,9 @@
 * ``RunReport`` — the result: residual history, detection step, wall
   segments, schema trace (``core.trace``), solution, and the raw
   ``ShardRunResult``.
-* ``run_shard`` — places the inputs on the device once, builds the shard
-  runtime of a problem family (``shard_runtime.make_runtime``) and runs it.
+* ``run_shard`` — places the inputs on the device once (over a
+  ``ShardGroup``, each rank its own block), builds the shard runtime of a
+  problem family (``shard_runtime.make_runtime``) and runs it.
   Trace recording attaches here (``record_trace=True``).
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import detection
 from repro_torch.core.reduction import get_reduction
 from repro_torch.core.trace import Trace, _series_prefix, trace_from_shard_run
+from repro_torch.launch.mesh import ShardGroup, local_slices, shard_axis_names
 from repro_torch.runtime.shard_runtime import ShardRuntimeConfig, make_runtime
 
 #: trace_len used when ``record_trace=True`` and the user left trace_len=0
@@ -36,9 +38,11 @@ class RuntimeConfig:
 
     Per-shard fields (``inner_sweeps``/``halo_delay``/``contrib_lag``)
     accept a scalar or a length-p sequence exactly like the shard config.
-    Fields the shard runtime does not use are ignored by its converter:
-    ``num_batches``/``gamma`` are training-only, and ``axis`` names the JAX
-    mesh axis, which the stacked transport has no use for.
+    ``axis`` names the shard axes of a ``launch.mesh.ShardGroup``
+    (``shard_axis_names``: the axis itself on a 1-D mesh, ``axis_x``,
+    ``axis_y``[, ``axis_z``] on more), as it names the JAX mesh's;
+    ``run_shard`` holds a group to it.  ``num_batches``/``gamma`` are
+    training-only, and the shard runtime's converter ignores them.
     """
 
     monitor: detection.MonitorConfig
@@ -106,10 +110,11 @@ def _detect_step(converged: bool, outer: int) -> Optional[int]:
     return outer - 1 if converged and outer > 0 else None
 
 
-def _place(a, dev: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``a`` (a tensor, or any numpy-convertible array) on ``dev``."""
-    return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a),
-                           device=dev, dtype=dtype)
+def _place(a, dev: torch.device, dtype: Optional[torch.dtype] = None,
+           sl: tuple = ()) -> torch.Tensor:
+    """``a[sl]`` (a tensor, or any numpy-convertible array) on ``dev``."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t[sl].to(dev, dtype)
 
 
 def _sync(dev: torch.device) -> None:
@@ -117,25 +122,36 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_shard(family: str, cfg: RuntimeConfig, p: Union[int, Tuple[int, ...]],
-              n: int, x0, arg, *, stencil=None, damping: float = 0.85,
-              timing_runs: int = 0, device: DeviceLike = None) -> RunReport:
+def run_shard(family: str, cfg: RuntimeConfig,
+              p: Union[int, Tuple[int, ...], ShardGroup], n: int, x0, arg, *,
+              stencil=None, damping: float = 0.85, timing_runs: int = 0,
+              device: DeviceLike = None) -> RunReport:
     """Place, build and run the asynchronous shard solver; one call.
 
-    ``x0``/``arg`` (the rhs ``b`` for convdiff, the dense operator for
-    pagerank) may be host arrays: they are placed on ``device`` (default
-    ``cuda``) once.  Wall segments: ``build`` (placement, the runtime's
-    construction and a first run, where the kernels load), ``run`` (a
-    second run: the steady-state cost a trace records) and ``timing_runs``
-    further ``rerun`` runs, each between device synchronisations.
+    ``p`` is a shard count or mesh shape (the stacked transport, on
+    ``device``, default ``cuda``) or a ``ShardGroup`` (one shard per rank,
+    on the group's device; its axes must be ``cfg.axis``'s).  ``x0``/``arg``
+    (the rhs ``b`` for convdiff, the dense operator for pagerank) may be
+    host arrays: they are placed once, whole on the stacked transport and
+    as the rank's block (``launch.mesh.local_slices``) over a group.  Wall
+    segments: ``build`` (placement, the runtime's construction and a first
+    run, where the kernels load), ``run`` (a second run: the steady-state
+    cost a trace records) and ``timing_runs`` further ``rerun`` runs, each
+    between device synchronisations.
     """
     scfg = cfg.to_shard_config()
-    dev = resolve_device(device)
-    n_shards = int(np.prod(p))
+    group = p if isinstance(p, ShardGroup) else None
+    if group is not None and group.axis_names != shard_axis_names(cfg.axis,
+                                                                  len(group.shape)):
+        raise ValueError(f"the group's axes {group.axis_names} are not those of "
+                         f"cfg.axis {cfg.axis!r}")
+    dev = group.device if group else resolve_device(device)
+    n_shards = group.p if group else int(np.prod(p))
+    sl = local_slices(family, group, n) if group else ()
     _sync(dev)
     t0 = time.perf_counter()
-    a_dev = _place(arg, dev)
-    x_dev = _place(x0, dev, a_dev.dtype)
+    a_dev = _place(arg, dev, sl=sl)
+    x_dev = _place(x0, dev, a_dev.dtype, sl=sl)
     run = make_runtime(family, scfg, p, n, stencil=stencil, damping=damping,
                        device=dev)
     run(x_dev, a_dev)

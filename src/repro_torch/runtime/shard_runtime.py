@@ -1,4 +1,5 @@
-"""Asynchronous shard runtime — the paper's execution model on one device.
+"""Asynchronous shard runtime — the paper's execution model, on one device
+or one shard per process.
 
 Each of ``p`` shards owns an x-pencil of the convection–diffusion grid and
 the *ingredients of asynchrony are explicit, per-shard quantities*:
@@ -10,12 +11,24 @@ the *ingredients of asynchrony are explicit, per-shard quantities*:
 * **k-lagged reduction lanes** — in non-blocking mode shard i's reduction
   contribution is its local residual from ``contrib_lag[i]`` checks ago.
 
-The shards run over a *stacked single-process transport*: the ``p`` blocks
-live in one process on one device, a halo exchange hands each shard views
-of its neighbours' faces, and the JAX package's ``psum``/``pmax`` become a
-sum/max over the stacked shard lanes.  The global residual is produced
-three ways (``core.reduction``), all through the same ``core.detection``
-monitor:
+The shards run over one of two transports (``runtime/transport.py``),
+driven by the same loop (``_make_loop``):
+
+* the *stacked* transport (``p`` a shard count or mesh shape): the ``p``
+  blocks live in one process on one device, a halo exchange hands each
+  shard views of its neighbours' faces, and the JAX package's
+  ``psum``/``pmax`` become a sum/max over the stacked shard lanes;
+* the *process-group* transport (``p`` a ``launch.mesh.ShardGroup``): one
+  shard per rank of a ``torch.distributed`` group (gloo or NCCL), as the
+  JAX package runs one shard per device of a mesh.  Rank r places only its
+  block (``launch.mesh.local_slices``), faces travel as point-to-point
+  messages, the non-blocking reduction is an async ``all_reduce`` waited
+  for K checks later, and the result is gathered to the global layout on
+  every rank.
+
+A configuration gives the same detection over either.  The global residual
+is produced three ways (``core.reduction``), all decided by the same
+``core.detection`` code:
 
 * ``blocking``    — an *extra* residual-only pass over the fresh
   post-exchange state, consumed the same step (the synchronous reference);
@@ -32,12 +45,14 @@ row-major as in the JAX package).  A mesh shard exchanges one face plane
 per partitioned direction per outer step and sweeps through the
 halo-consuming kernel ops, which read the six face planes where they lie.
 With ``overlap`` the last sweep of a step first recomputes the new face
-planes from thickness-1 slabs and ships them, then sweeps the whole block
-— bitwise the same result as without overlap.
+planes from thickness-1 slabs and launches their exchange, then sweeps the
+whole block and waits for the exchange after it — bitwise the same result
+as without overlap; over a process group the transfer hides behind the
+sweep.
 
 PageRank (``make_pagerank_runtime``) splits the state into ``p`` row
 blocks of the dense operator; its exchange is the whole state view, one
-concatenation of the blocks, and its sweep a row-block matvec.
+all-gather of the blocks, and its sweep a row-block matvec.
 ``make_runtime`` picks the runtime by problem family.
 
 Every sweep and contribution goes through the kernel ops (``jacobi3d``
@@ -48,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +75,13 @@ from repro_torch.core.reduction import get_reduction
 from repro_torch.kernels.jacobi3d import ops as jac_ops
 from repro_torch.kernels.jacobi3d.jacobi3d import fused_sweep_residual_halo
 from repro_torch.kernels.residual_norm import ops as rn_ops
+from repro_torch.launch.mesh import ShardGroup, local_slices, mesh_shape
+from repro_torch.runtime.transport import (
+    GroupTransport,
+    Pending,
+    ReductionPipeline,
+    make_transport,
+)
 from repro_torch.solvers import jacobi
 from repro_torch.solvers.convdiff import Stencil
 from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
@@ -142,17 +164,18 @@ class ShardRunResult(NamedTuple):
 
 
 class _ShardProblem(NamedTuple):
-    """Per-shard view of the problem; ``i`` is the shard index."""
+    """Per-shard view of the problem.  ``i`` is a shard's rank; ``xs`` and
+    the ghost maps are ``{i: ...}`` over the transport's local shards."""
 
-    exchange: Callable       # [x_i] -> [ghosts_i] (the per-step halo exchange)
+    exchange: Callable       # {i: x_i} -> {i: ghosts_i} (the per-step halo exchange)
     sweep: Callable          # (i, x_i, ghosts_i) -> x_i'
     sweep_contrib: Callable  # (i, x_i, ghosts_i) -> (x_i', pre-σ contrib)
     exact_contrib: Callable  # (i, x_i, ghosts_i) -> pre-σ contrib of x_i
-    # comm-overlapped final step: (i, x_i, ghosts_i) -> (x_i', contrib,
-    # faces_i), the new face planes recomputed as thin slabs *before* the
-    # full-block sweep; ``ship([faces_i]) -> [ghosts_i]`` hands them to the
-    # neighbours (None: no overlap)
-    fused_step: Optional[Callable] = None
+    # comm overlap: ``faces(i, x_i, ghosts_i)`` recomputes the new face
+    # planes as thin slabs *before* the full-block sweep, and ``ship({i:
+    # faces_i})`` launches their exchange, a ``Pending`` of the ghost map
+    # (None: no overlap)
+    faces: Optional[Callable] = None
     ship: Optional[Callable] = None
 
 
@@ -179,14 +202,8 @@ def _ring_fill(value, length: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Reductions over the stacked shard lanes
+# Recursive doubling
 # ---------------------------------------------------------------------------
-
-
-def _preduce(lanes: torch.Tensor, ord: float) -> torch.Tensor:
-    """Pre-σ global reduction of the per-shard lanes ``[p]`` (sum / max);
-    σ is applied by ``detection.step``."""
-    return lanes.amax() if np.isinf(ord) else lanes.sum()
 
 
 def _butterfly_rounds(p: int) -> int:
@@ -195,21 +212,22 @@ def _butterfly_rounds(p: int) -> int:
     return max(p.bit_length() - 1, 0)
 
 
-def _butterfly_step(lane: torch.Tensor, partial: torch.Tensor,
-                    visible: torch.Tensor, k: int, perms: List[torch.Tensor],
-                    ord: float):
+def _butterfly_step(transport, lanes: Dict[int, torch.Tensor],
+                    partial: Dict[int, torch.Tensor], visible: Dict[int, torch.Tensor],
+                    k: int, rounds: int, ord: float):
     """One round of the modified recursive-doubling reduction over the
-    stacked lanes ``[p]``: round ``k mod log2(p)`` combines each shard's
-    partial with its XOR partner's (``perms[r][i] = i ^ 2^r``); a completed
-    global value becomes visible every log2(p) steps.  Returns
+    local shards' lanes: round ``r = k mod log2(p)`` combines each shard's
+    partial with its XOR partner's (``i ^ 2^r``, one message each way); a
+    completed global value becomes visible every log2(p) steps.  ``+`` and
+    ``max`` commute, so every shard holds the same bits.  Returns
     ``(partial, visible)``."""
-    rounds = len(perms)
     if rounds == 0:  # single shard: the lane is the global value
-        return lane, lane
+        return lanes, lanes
     r = k % rounds
-    base = lane if r == 0 else partial   # fresh epoch samples the lane
-    recv = base.index_select(0, perms[r])
-    total = torch.maximum(base, recv) if np.isinf(ord) else base + recv
+    base = lanes if r == 0 else partial   # fresh epoch samples the lane
+    got = transport.route({i: {(i ^ (1 << r), "bf"): base[i]} for i in base}).wait()
+    comb = torch.maximum if np.isinf(ord) else torch.add
+    total = {i: comb(base[i], got[i][i ^ (1 << r), "bf"]) for i in base}
     return total, (total if r == rounds - 1 else visible)
 
 
@@ -218,11 +236,14 @@ def _butterfly_step(lane: torch.Tensor, partial: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device,
+def _make_loop(cfg: ShardRuntimeConfig, transport,
                mesh_shape: Optional[Tuple[int, ...]] = None):
     """Validate the per-shard config and return ``loop(prob, xs)``, which
-    runs the shards (``xs``, updated in place) to detection or
-    ``max_outer`` and returns ``(outer_iters, monitor_state, trace)``."""
+    runs the local shards (``xs``, updated in place) to detection or
+    ``max_outer`` and returns ``(outer_iters, monitor_state, trace)``.
+    Both transports run this loop; every rank leaves it at the same step,
+    since ``converged`` is decided from the reduced value."""
+    p, device = transport.p, transport.device
     mon_cfg = cfg.effective_monitor()
     ord_ = mon_cfg.ord
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps", mesh_shape)
@@ -235,73 +256,113 @@ def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device,
     if blocking and (delay.any() or lag.any()):
         raise ValueError("blocking mode is the synchronous barrier reference: "
                          "halo_delay and contrib_lag must be 0")
-    perms = []
-    if butterfly:
-        perms = [torch.tensor([i ^ (1 << r) for i in range(p)], device=device)
-                 for r in range(_butterfly_rounds(p))]
+    rounds = _butterfly_rounds(p) if butterfly else 0
     Lg, Lc = int(delay.max()) + 1, int(lag.max()) + 1
-    tlen = max(int(cfg.trace_len), 1)
 
-    def loop(prob: _ShardProblem, xs: List[torch.Tensor]):
-        def exact(xs, ghosts) -> torch.Tensor:
-            """Blocking exact reduction of the fresh state (σ applied)."""
-            return res.psum_sigma(torch.stack(
-                [prob.exact_contrib(i, xs[i], ghosts[i]) for i in range(p)]), ord_)
-
-        overlapped = prob.fused_step is not None
+    def loop(prob: _ShardProblem, xs: Dict[int, torch.Tensor]):
+        local = tuple(xs)
+        overlapped = prob.faces is not None
         inf = torch.full((), float("inf"), dtype=torch.float32, device=device)
         # overlap double-buffers the halo ring: the exchange of step k+1
         # lands in a slot the sweep of step k does not read
         gring = _ring_fill(prob.exchange(xs), max(Lg, 2) if overlapped else Lg)
-        crings = [_ring_fill(inf, Lc) for _ in range(p)]
-        partial = visible = torch.full((p,), float("inf"), device=device)
+        crings = {i: _ring_fill(inf, Lc) for i in local}
+        partial = visible = dict.fromkeys(local, inf)
+        reductions = ReductionPipeline(mon_cfg.staleness, ord_, cfg.trace_len, device)
         mon = detection.init_state(mon_cfg, device)
-        trace = []
         k = 0
         while k < cfg.max_outer:
-            contribs, faces = [], []
-            for i in range(p):
-                ghosts = _ring_read(gring, k - int(delay[i]))[i]
-                x = xs[i]
+            ghosts = {i: _ring_read(gring, k - int(delay[i]))[i] for i in local}
+            for i in local:
                 for _ in range(int(inner[i]) - (0 if blocking else 1)):
-                    x = prob.sweep(i, x, ghosts)
-                c = None
-                if overlapped:
-                    x, c, f = prob.fused_step(i, x, ghosts)
-                    faces.append(f)
-                elif not blocking:
-                    x, c = prob.sweep_contrib(i, x, ghosts)
-                xs[i] = x
-                contribs.append(c)
-            fresh = prob.ship(faces) if overlapped else prob.exchange(xs)
+                    xs[i] = prob.sweep(i, xs[i], ghosts[i])
+            # overlap: the new faces are shipped while the full blocks sweep
+            shipped = prob.ship({i: prob.faces(i, xs[i], ghosts[i]) for i in local}) \
+                if overlapped else None
+            contribs = {}
+            if not blocking:
+                for i in local:
+                    xs[i], contribs[i] = prob.sweep_contrib(i, xs[i], ghosts[i])
+            fresh = shipped.wait() if overlapped else prob.exchange(xs)
             _ring_write(gring, fresh, k + 1)
-            lanes = []
-            for i in range(p):
+            lanes = {}
+            for i in local:
                 # barrier mode: detection pays a residual-only pass over the
                 # fresh post-exchange state, every check
-                c = contribs[i] if contribs[i] is not None else \
-                    prob.exact_contrib(i, xs[i], fresh[i])
+                c = prob.exact_contrib(i, xs[i], fresh[i]) if blocking else contribs[i]
                 _ring_write(crings[i], c, k)
-                lanes.append(_ring_read(crings[i], k - int(lag[i])))
-            lane = torch.stack(lanes)
+                lanes[i] = _ring_read(crings[i], k - int(lag[i]))
             if butterfly:
-                partial, visible = _butterfly_step(lane, partial, visible, k,
-                                                   perms, ord_)
-                g_pre = visible[0]  # every shard holds the same value
+                partial, visible = _butterfly_step(transport, lanes, partial, visible,
+                                                   k, rounds, ord_)
+                reductions.launch(Pending.done(visible[local[0]]))
             else:
-                g_pre = _preduce(lane, ord_)
-            if k < tlen:
-                trace.append(res.sigma(g_pre, ord_).to(torch.float32))
-            mon = detection.step(
-                mon_cfg, mon, g_pre,
-                exact_residual_fn=lambda xs=list(xs), fresh=fresh: exact(xs, fresh))
+                reductions.launch(transport.reduce(lanes, ord_))
+            mon = detection.decide(
+                mon_cfg, mon, reductions.consume(),
+                exact_residual_fn=lambda: transport.exact(
+                    {i: prob.exact_contrib(i, xs[i], fresh[i]) for i in local}, ord_))
             k += 1
             if bool(mon.converged):  # the loop's one device→host sync
                 break
-        trace = torch.stack(trace + [inf] * (tlen - len(trace)))
-        return k, mon, trace
+        return k, mon, reductions.drain()
 
     return loop
+
+
+# ---------------------------------------------------------------------------
+# Placement and results, shared by the families
+# ---------------------------------------------------------------------------
+
+
+def _group_of(p) -> Optional[ShardGroup]:
+    return p if isinstance(p, ShardGroup) else None
+
+
+def _transport_of(p, device: DeviceLike):
+    """The transport of ``p``: a ``ShardGroup`` (whose device the run uses)
+    or a shard count stacked on ``device`` (default ``cuda``)."""
+    if isinstance(p, ShardGroup):
+        if device is not None and torch.device(device).type != p.device.type:
+            raise ValueError(f"a shard group runs on its own device {p.device}, "
+                             f"not {device}")
+        return make_transport(p, p.device)
+    return make_transport(p, resolve_device(device))
+
+
+def _block_shape(sl: tuple, gshape: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(len(range(*s.indices(g))) for s, g in zip(sl, gshape)) + \
+        tuple(gshape[len(sl):])
+
+
+def _blocks(a, transport, slices: Sequence[tuple], gshape: Tuple[int, ...],
+            what: str, dtype: Optional[torch.dtype] = None) -> Dict[int, torch.Tensor]:
+    """The local shards' blocks of ``a`` (slices of the global ``gshape``)
+    on the transport's device.  Over a group ``a`` may also be the rank's
+    block already; only that block is moved to the card.  ``what`` is the
+    message for any other shape."""
+    a = torch.as_tensor(a)
+    group = isinstance(transport, GroupTransport)
+    if tuple(a.shape) == tuple(gshape):
+        if not group:
+            a = a.to(transport.device, dtype)   # the whole array, once
+        parts = {i: a[slices[i]] for i in transport.local}
+    elif group and tuple(a.shape) == _block_shape(slices[transport.local[0]], gshape):
+        parts = {transport.local[0]: a}
+    else:
+        raise ValueError(what + (" (or this rank's block)" if group else "")
+                         + f", got {tuple(a.shape)}")
+    return {i: t.to(transport.device, dtype).contiguous() for i, t in parts.items()}
+
+
+def _result(transport, xs, assemble, mon, k: int, inner: np.ndarray,
+            trace: torch.Tensor) -> ShardRunResult:
+    """The run's result, the same on every rank: ``x`` gathered to the
+    global layout, ``local_sweeps`` the per-shard vector."""
+    return ShardRunResult(
+        x=assemble(transport.all_gather(xs)), residual=mon.detected_residual,
+        outer_iters=k, converged=bool(mon.converged), local_sweeps=k * inner,
+        verifications=int(mon.verifications), trace=trace)
 
 
 # ---------------------------------------------------------------------------
@@ -309,52 +370,56 @@ def _make_loop(cfg: ShardRuntimeConfig, p: int, device: torch.device,
 # ---------------------------------------------------------------------------
 
 
-def _as_global(x0, b, n: int, dev: torch.device):
-    b = torch.as_tensor(b, device=dev)
-    x0 = torch.as_tensor(x0, device=dev, dtype=b.dtype)
-    if tuple(b.shape) != (n, n, n) or x0.shape != b.shape:
-        raise ValueError(f"x0 and b must be ({n}, {n}, {n})")
-    return x0, b
-
-
 def make_convdiff_runtime(cfg: ShardRuntimeConfig,
-                          p: Union[int, Tuple[int, ...]], stencil: Stencil,
+                          p: Union[int, Tuple[int, ...], ShardGroup], stencil: Stencil,
                           n: int, device: DeviceLike = None):
-    """Build ``run(x0, b) -> ShardRunResult`` over stacked shards.
+    """Build ``run(x0, b) -> ShardRunResult``.
 
-    ``x0, b`` are global (n, n, n) tensors or numpy arrays (moved to
-    ``device``, default ``cuda``).  With an int ``p`` each of the ``p``
-    shards owns an x-pencil of ``n // p`` planes and exchanges its two
-    x-faces per outer step (y/z faces are the physical boundary).  A mesh
-    shape ``p = (px, py[, pz])`` — or ``cfg.overlap`` — routes to the
+    ``p`` is a shard count or mesh shape (the stacked transport, on
+    ``device``, default ``cuda``) or a ``ShardGroup`` (one shard per rank,
+    on the group's device; the JAX package passes a mesh here).  ``x0, b``
+    are global (n, n, n) tensors or numpy arrays (over a group, or the
+    rank's block; each rank places its block only).  With a 1-D ``p`` each
+    of the ``p`` shards owns an x-pencil of ``n // p`` planes and exchanges
+    its two x-faces per outer step (y/z faces are the physical boundary).
+    A mesh shape ``(px, py[, pz])`` — or ``cfg.overlap`` — routes to the
     block-decomposed mesh runtime, as the JAX package routes a multi-axis
     mesh; ``cfg.mesh_shape``, when set, must name the same mesh.
     """
-    mesh = tuple(int(s) for s in p) if isinstance(p, (tuple, list)) else (int(p),)
+    group = _group_of(p)
+    mesh = group.shape if group else mesh_shape(p)
     if cfg.mesh_shape is not None and cfg.mesh_shape != mesh:
         raise ValueError(f"cfg.mesh_shape {cfg.mesh_shape} does not match the "
                          f"mesh shape {mesh}")
     if len(mesh) > 1 or cfg.overlap:
-        return _make_convdiff_mesh_runtime(cfg, mesh, stencil, n, device)
+        return _make_convdiff_mesh_runtime(cfg, group or mesh, stencil, n, device)
     p = mesh[0]
     if n % p:
         raise ValueError(f"n={n} not divisible by shard count p={p}")
     res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
     ord_ = cfg.monitor.ord
-    dev = resolve_device(device)
-    loop = _make_loop(cfg, p, dev)
+    transport = _transport_of(group or p, device)
+    dev = transport.device
+    loop = _make_loop(cfg, transport)
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps")
     bx = n // p
+    slices = [local_slices("convdiff", mesh, n, i) for i in range(p)]
     st = stencil
 
     def run(x0, b) -> ShardRunResult:
-        x0, b = _as_global(x0, b, n, dev)
-        bs = b.split(bx)
-        zx, zy = b.new_zeros((n, n)), b.new_zeros((bx, n))
+        what = f"x0 and b must be ({n}, {n}, {n})"
+        bs = _blocks(b, transport, slices, (n, n, n), what)
+        dtype = next(iter(bs.values())).dtype
+        xs = _blocks(x0, transport, slices, (n, n, n), what, dtype)
+        zx = torch.zeros((n, n), dtype=dtype, device=dev)
+        zy = torch.zeros((bx, n), dtype=dtype, device=dev)
 
         def exchange(xs):
-            return [(xs[i - 1][-1] if i > 0 else zx,
-                     xs[i + 1][0] if i < p - 1 else zx) for i in range(p)]
+            got = transport.route({i: {**({(i - 1, 0): xs[i][0]} if i > 0 else {}),
+                                       **({(i + 1, 0): xs[i][-1]} if i < p - 1 else {})}
+                                   for i in xs}).wait()
+            return {i: (got[i].get((i - 1, 0), zx), got[i].get((i + 1, 0), zx))
+                    for i in xs}
 
         def ghosts4(ghosts):
             return ghosts + (zy, zy)  # y ghosts = BC = 0
@@ -378,13 +443,10 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
             return jac_ops.residual_contribution(
                 st, ghosted(x, ghosts4(ghosts)), bs[i], ord=ord_)
 
-        xs = list(x0.split(bx))  # sweeps return new blocks: x0 is not written
+        # sweeps return new blocks: x0 is not written
         k, mon, trace = loop(
             _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
-        return ShardRunResult(
-            x=torch.cat(xs), residual=mon.detected_residual, outer_iters=k,
-            converged=bool(mon.converged), local_sweeps=k * inner,
-            verifications=int(mon.verifications), trace=trace)
+        return _result(transport, xs, torch.cat, mon, k, inner, trace)
 
     return run
 
@@ -394,7 +456,8 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
 # ---------------------------------------------------------------------------
 
 
-def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
+def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig,
+                                p: Union[Tuple[int, ...], ShardGroup],
                                 stencil: Stencil, n: int, device: DeviceLike):
     """Multi-axis (or comm-overlapped) convdiff runtime.
 
@@ -406,12 +469,14 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
     whose kernels keep the single-pass fused sweep + residual, so every
     reduction consumes the same free by-product as the 1-D path.
 
-    With ``cfg.overlap`` the last sweep of each step is ``fused_step``: the
-    new face planes are first recomputed from thickness-1 slabs by the same
-    halo kernel (bitwise the faces the full sweep produces: same inputs,
-    same operations), handed to the exchange, and the full fused sweep then
-    runs with no dependence on them.
+    With ``cfg.overlap`` the last sweep of each step first recomputes the
+    new face planes from thickness-1 slabs by the same halo kernel
+    (bitwise the faces the full sweep produces: same inputs, same
+    operations) and launches their exchange; the full fused sweep then runs
+    with no dependence on them, and the exchange is waited for after it.
     """
+    group = _group_of(p)
+    shape = group.shape if group else p
     part = MeshPartition(n, shape)
     p = part.p
     block = part.block                                  # (bx, by, bz)
@@ -427,12 +492,13 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
                     f"block {block}")
     res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
     ord_ = cfg.monitor.ord
-    dev = resolve_device(device)
-    loop = _make_loop(cfg, p, dev, mesh_shape=shape)
+    transport = _transport_of(group or p, device)
+    dev = transport.device
+    loop = _make_loop(cfg, transport, mesh_shape=shape)
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps", shape)
     st = stencil
     offsets = [part.offsets(i) for i in range(p)]
-    slices = [tuple(slice(o, o + e) for o, e in zip(off, block)) for off in offsets]
+    slices = [local_slices("convdiff", shape, n, i) for i in range(p)]
     # per shard and partitioned direction: the (minus, plus) neighbour
     # ranks, None at the mesh edge
     nbrs = []
@@ -443,21 +509,28 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
                               for s in (-1, 1)) for d in parted})
 
     def run(x0, b) -> ShardRunResult:
-        x0, b = _as_global(x0, b, n, dev)
-        bs = [b[sl].contiguous() for sl in slices]
-        zeros = {d: b.new_zeros(plane[d]) for d in range(3)}
+        what = f"x0 and b must be ({n}, {n}, {n})"
+        bs = _blocks(b, transport, slices, (n, n, n), what)
+        dtype = next(iter(bs.values())).dtype
+        xs = _blocks(x0, transport, slices, (n, n, n), what, dtype)
+        zeros = {d: torch.zeros(plane[d], dtype=dtype, device=dev) for d in range(3)}
 
         def ship(faces):
-            """Shard c's minus ghost is shard c−1's plus face, its plus ghost
-            shard c+1's minus face; the mesh edges get the zero plane."""
-            return [{d: tuple(zeros[d] if j is None else faces[j][d][1 - side]
-                              for side, j in enumerate(nbrs[i][d]))
-                     for d in parted} for i in range(p)]
+            """Shard i sends its minus face to its minus neighbour and its
+            plus face to its plus neighbour, so its minus ghost is shard
+            c−1's plus face and its plus ghost shard c+1's minus face; the
+            mesh edges get the zero plane."""
+            sends = {i: {(j, d): faces[i][d][side] for d in parted
+                         for side, j in enumerate(nbrs[i][d]) if j is not None}
+                     for i in faces}
+            return transport.route(sends).then(lambda got: {
+                i: {d: tuple(zeros[d] if j is None else got[i][j, d] for j in nbrs[i][d])
+                    for d in parted} for i in got})
 
         def exchange(xs):
-            return ship([{d: (x.select(d, 0).contiguous(),
-                              x.select(d, -1).contiguous()) for d in parted}
-                         for x in xs])
+            return ship({i: {d: (x.select(d, 0).contiguous(),
+                                 x.select(d, -1).contiguous()) for d in parted}
+                         for i, x in xs.items()}).wait()
 
         def halos6(ghosts):
             """The six face planes: exchanged ghosts on partitioned
@@ -500,25 +573,21 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
                 b.narrow(d, idx, 1).contiguous(), st.coefs, op="sweep")
             return new.squeeze(d)
 
-        def fused_step(i, x, ghosts):
+        def faces(i, x, ghosts):
             h = halos6(ghosts)
-            faces = {d: (face_sweep(x, h, bs[i], d, False),
-                         face_sweep(x, h, bs[i], d, True)) for d in parted}
-            new, contrib = jac_ops.sweep_with_contribution_halo(
-                st, x, h, bs[i], sweep="jacobi", ord=ord_)
-            return new, contrib, faces
+            return {d: (face_sweep(x, h, bs[i], d, False),
+                        face_sweep(x, h, bs[i], d, True)) for d in parted}
+
+        def assemble(blocks):
+            x = torch.empty((n, n, n), dtype=dtype, device=dev)
+            for sl, xi in zip(slices, blocks):
+                x[sl] = xi
+            return x
 
         prob = _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib,
-                             *((fused_step, ship) if cfg.overlap else ()))
-        xs = [x0[sl].contiguous() for sl in slices]  # sweeps return new blocks
-        k, mon, trace = loop(prob, xs)
-        x = torch.empty_like(b)
-        for sl, xi in zip(slices, xs):
-            x[sl] = xi
-        return ShardRunResult(
-            x=x, residual=mon.detected_residual, outer_iters=k,
-            converged=bool(mon.converged), local_sweeps=k * inner,
-            verifications=int(mon.verifications), trace=trace)
+                             *((faces, ship) if cfg.overlap else ()))
+        k, mon, trace = loop(prob, xs)   # sweeps return new blocks
+        return _result(transport, xs, assemble, mon, k, inner, trace)
 
     return run
 
@@ -528,23 +597,25 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig, shape: Tuple[int, ...],
 # ---------------------------------------------------------------------------
 
 
-def make_pagerank_runtime(cfg: ShardRuntimeConfig, p: Union[int, Tuple[int, ...]],
+def make_pagerank_runtime(cfg: ShardRuntimeConfig,
+                          p: Union[int, Tuple[int, ...], ShardGroup],
                           n: int, damping: float = 0.85, device: DeviceLike = None):
-    """Build ``run(x0, P_dense) -> ShardRunResult`` over ``p`` stacked row
-    blocks.
+    """Build ``run(x0, P_dense) -> ShardRunResult`` over ``p`` row blocks.
 
-    ``x0`` is the global (n,) state and ``P_dense`` the (n, n)
-    column-stochastic operator, tensors or numpy arrays (moved to
-    ``device``, default ``cuda``); shard i owns rows ``i·n/p`` onward.  The
-    "halo" is the full state view, one concatenation of the shards' blocks
-    that every shard's ring slot holds by reference; staleness delays the
-    *consumed* view, while a shard's own block is always current (the
-    asynchronous-iterations convention).  The sweep is ``d · (P_rows @ view)
-    + v``; its contribution is the update difference (scale 1) through
-    ``residual_norm.update_contribution``, so on the card it is the
-    diff-norm kernel.
+    ``p`` is a shard count (stacked on ``device``, default ``cuda``) or a
+    1-D ``ShardGroup``.  ``x0`` is the global (n,) state and ``P_dense``
+    the (n, n) column-stochastic operator, tensors or numpy arrays (over a
+    group, or the rank's block and rows: a rank places its own rows only);
+    shard i owns rows ``i·n/p`` onward.  The "halo" is the full state view,
+    one all-gather of the shards' blocks that every ring slot holds by
+    reference; staleness delays the *consumed* view, while a shard's own
+    block is always current (the asynchronous-iterations convention).  The
+    sweep is ``d · (P_rows @ view) + v``; its contribution is the update
+    difference (scale 1) through ``residual_norm.update_contribution``, so
+    on the card it is the diff-norm kernel.
     """
-    mesh = tuple(int(s) for s in p) if isinstance(p, (tuple, list)) else (int(p),)
+    group = _group_of(p)
+    mesh = group.shape if group else mesh_shape(p)
     for shape in (mesh, cfg.mesh_shape or mesh):
         if len(shape) != 1:
             raise ValueError(
@@ -558,22 +629,24 @@ def make_pagerank_runtime(cfg: ShardRuntimeConfig, p: Union[int, Tuple[int, ...]
         raise ValueError(f"n={n} not divisible by shard count p={p}")
     res.partial_mode(cfg.monitor.ord)  # the kernel ops run ord 1, 2 or inf only
     ord_ = cfg.monitor.ord
-    dev = resolve_device(device)
-    loop = _make_loop(cfg, p, dev)
+    transport = _transport_of(group or p, device)
+    loop = _make_loop(cfg, transport)
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps")
     nb = n // p
+    slices = [local_slices("pagerank", mesh, n, i) for i in range(p)]
     d = float(damping)
     v = (1.0 - d) / n
 
     def run(x0, P_dense) -> ShardRunResult:
-        P = torch.as_tensor(P_dense, device=dev)
-        x0 = torch.as_tensor(x0, device=dev, dtype=P.dtype)
-        if tuple(P.shape) != (n, n) or tuple(x0.shape) != (n,):
-            raise ValueError(f"x0 must be ({n},) and P_dense ({n}, {n})")
-        rows = P.split(nb)
+        what = f"x0 must be ({n},) and P_dense ({n}, {n})"
+        rows = _blocks(P_dense, transport, slices, (n, n), what)
+        dtype = next(iter(rows.values())).dtype
+        xs = _blocks(x0, transport, slices, (n,), what, dtype)
 
         def exchange(xs):
-            return [torch.cat(xs)] * p   # the all-gather: one view, p references
+            # the all-gather: one view, a reference for every local shard
+            view = torch.cat(transport.all_gather(xs))
+            return dict.fromkeys(xs, view)
 
         def own_current(i, x, view):
             """The view with shard i's block replaced by its current state,
@@ -591,13 +664,10 @@ def make_pagerank_runtime(cfg: ShardRuntimeConfig, p: Union[int, Tuple[int, ...]
         def exact_contrib(i, x, view):
             return res.local_contribution(sweep(i, x, view) - x, ord_)
 
-        xs = list(x0.split(nb))  # sweeps return new blocks: x0 is not written
+        # sweeps return new blocks: x0 is not written
         k, mon, trace = loop(
             _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
-        return ShardRunResult(
-            x=torch.cat(xs), residual=mon.detected_residual, outer_iters=k,
-            converged=bool(mon.converged), local_sweeps=k * inner,
-            verifications=int(mon.verifications), trace=trace)
+        return _result(transport, xs, torch.cat, mon, k, inner, trace)
 
     return run
 
@@ -611,10 +681,12 @@ FAMILIES = ("convdiff", "pagerank")
 
 
 def make_runtime(family: str, cfg: ShardRuntimeConfig,
-                 p: Union[int, Tuple[int, ...]], n: int, *,
+                 p: Union[int, Tuple[int, ...], ShardGroup], n: int, *,
                  stencil: Optional[Stencil] = None, damping: float = 0.85,
                  device: DeviceLike = None):
-    """``run(x0, problem_arg) -> ShardRunResult`` for a problem family."""
+    """``run(x0, problem_arg) -> ShardRunResult`` for a problem family, over
+    the stacked transport (``p`` a shard count or mesh shape) or a
+    ``ShardGroup``."""
     if family == "convdiff":
         if stencil is None:
             raise ValueError("convdiff runtime requires stencil=")

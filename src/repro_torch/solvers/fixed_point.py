@@ -15,11 +15,18 @@ the ops' plain versions or the solvers' own sweeps, as the JAX flag does.
 
 The JAX package's ``lax.while_loop`` is a Python loop here whose predicate
 reads ``converged`` on the host: one device→host sync per outer iteration.
+
+``make_sharded_solver`` is the distributed solve: x-y blocks (z whole)
+over the stacked transport (an ``(nx, ny)`` shape, all blocks on one
+device) or one block per rank of a ``launch.mesh.ShardGroup``
+(``runtime/transport.py``); the JAX package's ``shard_map`` over a
+``(data, model)`` mesh.  ``solve_single`` is the one-device reference.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -28,6 +35,8 @@ from repro_torch.core import detection
 from repro_torch.core import residual as res
 from repro_torch.kernels import _build
 from repro_torch.kernels.jacobi3d import ops as jac_ops
+from repro_torch.launch.mesh import ShardGroup, mesh_coords, mesh_shape, shard_axis_names
+from repro_torch.runtime.transport import ReductionPipeline, make_transport
 from repro_torch.solvers import gauss_seidel, jacobi
 from repro_torch.solvers.convdiff import Stencil
 
@@ -161,3 +170,156 @@ def solve_single(cfg: SolverConfig, b, x0=None,
             break
     return SolveResult(x=x, residual=mon.detected_residual, outer_iters=k,
                        converged=bool(mon.converged))
+
+
+# ---------------------------------------------------------------------------
+# Distributed solve (x-y blocks over a transport)
+# ---------------------------------------------------------------------------
+
+
+def halo_exchange(transport, xs: Dict[int, torch.Tensor], nbrs,
+                  zeros: Tuple[torch.Tensor, ...]) -> Dict[int, tuple]:
+    """Exchange the four (x, y) faces of each local (bx, by, bz) block.
+    ``nbrs[i]`` holds shard i's (x−, x+, y−, y+) neighbour ranks, None at
+    the grid's edge.  Returns ``{i: (gxm, gxp, gym, gyp)}``: each ghost the
+    facing plane of that neighbour, and at an edge the matching plane of
+    ``zeros`` (homogeneous Dirichlet BC)."""
+    def faces(x):   # what goes to the (x−, x+, y−, y+) neighbour
+        return (x[0], x[-1], x[:, 0].contiguous(), x[:, -1].contiguous())
+
+    sends = {i: {(j, "xxyy"[s]): f for s, (j, f) in enumerate(zip(nbrs[i], faces(x)))
+                 if j is not None} for i, x in xs.items()}
+    got = transport.route(sends).wait()
+    return {i: tuple(z if j is None else got[i][j, "xxyy"[s]]
+                     for s, (j, z) in enumerate(zip(nbrs[i], zeros))) for i in xs}
+
+
+def _axes(ax: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _linear_index(coords: Sequence[int], shape: Sequence[int],
+                  names: Tuple[str, ...], axes: Tuple[str, ...]) -> int:
+    """Linear rank along possibly-composite mesh axes (row-major over
+    ``axes``, in the order given)."""
+    idx = 0
+    for a in axes:
+        d = names.index(a)
+        idx = idx * shape[d] + coords[d]
+    return idx
+
+
+def make_sharded_solver(cfg: SolverConfig,
+                        mesh: Union[Tuple[int, ...], ShardGroup],
+                        ax_x: Optional[Union[str, Tuple[str, ...]]] = None,
+                        ax_y: Optional[Union[str, Tuple[str, ...]]] = None,
+                        device: DeviceLike = None):
+    """Build ``solve(x0, b) -> SolveResult`` over x-y blocks.
+
+    ``mesh`` is a shape ``(nx, ny)`` (1-D to 3-D; the stacked transport on
+    ``device``, default ``cuda``) or a ``ShardGroup`` (one block per rank,
+    on the group's device).  ``ax_x``/``ax_y`` name the mesh axes
+    (``shard_axis_names``; default the first axis and the rest) whose
+    product splits the grid's x and y; a composite axis such as
+    ``("shard_x", "shard_y")`` is ranked row-major in the order given.  z
+    is not partitioned.  ``x0, b`` are global (n, n, n) tensors or numpy
+    arrays (over a group, or the rank's block); ``x`` comes back global on
+    every rank.
+
+    Per outer iteration, as in JAX: ``inner_sweeps`` sweeps (the last one
+    fused with the detection contribution, or a residual-only pass after
+    the exchange when ``fuse_residual`` is off), the four-face halo
+    exchange, and one check on the reduction launched K checks earlier.
+    The red-black parity uses the block's global offsets; NFAIS2's exact
+    verification measures the fresh post-exchange state, lazily.
+    """
+    group = mesh if isinstance(mesh, ShardGroup) else None
+    shape = group.shape if group else mesh_shape(mesh)
+    names = shard_axis_names(group.axis if group else "shard", len(shape))
+    ax_x_t = _axes(names[0] if ax_x is None else ax_x)
+    ax_y_t = _axes(names[1:] if ax_y is None else ax_y)
+    if sorted(ax_x_t + ax_y_t) != sorted(names):
+        raise ValueError(f"ax_x {ax_x_t} and ax_y {ax_y_t} must split the mesh "
+                         f"axes {names} between them, each once")
+    nx = math.prod(shape[names.index(a)] for a in ax_x_t)
+    ny = math.prod(shape[names.index(a)] for a in ax_y_t)
+    p = nx * ny
+    transport = make_transport(group or p, group.device if group else
+                               resolve_device(device))
+    dev = transport.device
+    # shard rank -> (ix, iy), and back
+    ixy = {r: tuple(_linear_index(mesh_coords(r, shape), shape, names, ax)
+                    for ax in (ax_x_t, ax_y_t)) for r in range(p)}
+    rank_at = {v: r for r, v in ixy.items()}
+    nbrs = {r: tuple(rank_at.get((ix + dx, iy + dy)) for dx, dy in
+                     ((-1, 0), (1, 0), (0, -1), (0, 1)))
+            for r, (ix, iy) in ixy.items()}
+    mon_cfg = cfg.monitor
+
+    def solve(x0, b) -> SolveResult:
+        b = torch.as_tensor(b)
+        n = b.shape[-1]
+        if b.dim() != 3 or n % nx or n % ny:
+            raise ValueError(f"b must be an (n, n, n) grid with n divisible by the "
+                             f"{nx} × {ny} blocks, got {tuple(b.shape)}")
+        bx, by = n // nx, n // ny
+        sl = {r: (slice(ix * bx, (ix + 1) * bx), slice(iy * by, (iy + 1) * by))
+              for r, (ix, iy) in ixy.items()}
+
+        def place(a, dtype=None):
+            """The local blocks of ``a`` on ``dev``: ``a`` is the global
+            grid, or over a group the rank's block (only it is moved)."""
+            a = torch.as_tensor(a)
+            if tuple(a.shape) == (n, n, n):
+                if group is None:
+                    a = a.to(dev, dtype)   # the whole grid, once
+                return {i: a[sl[i]].to(dev, dtype).contiguous() for i in transport.local}
+            if group is not None and tuple(a.shape) == (bx, by, n):
+                return {group.rank: a.to(dev, dtype).contiguous()}
+            raise ValueError(f"x0 and b must be ({n}, {n}, {n})"
+                             + (" or this rank's block" if group else "")
+                             + f", got {tuple(a.shape)}")
+
+        bs = place(b)
+        dtype = bs[transport.local[0]].dtype
+        xs = place(x0, dtype)
+        zeros = (torch.zeros((by, n), dtype=dtype, device=dev),) * 2 + \
+            (torch.zeros((bx, n), dtype=dtype, device=dev),) * 2
+        offs = {i: (ixy[i][0] * bx, ixy[i][1] * by) for i in xs}
+        ghosts = halo_exchange(transport, xs, nbrs, zeros)
+        reductions = ReductionPipeline(mon_cfg.staleness, mon_cfg.ord, 0, dev)
+        mon = detection.init_state(mon_cfg, dev)
+        k = 0
+        while k < cfg.max_outer:
+            contribs = {}
+            for i in xs:
+                xs[i], contribs[i] = _outer_iteration(cfg, xs[i], ghosts[i], bs[i], *offs[i])
+            ghosts = halo_exchange(transport, xs, nbrs, zeros)
+            if contribs[next(iter(xs))] is None:
+                # unfused baseline: post-exchange residual-only pass
+                contribs = {i: _local_contribution(cfg, ghosted(xs[i], ghosts[i]), bs[i])
+                            for i in xs}
+
+                def exact_fn(c=contribs):
+                    return transport.exact(c, mon_cfg.ord)
+            else:
+                # the fused contribution is one sweep stale; NFAIS2's exact
+                # verification measures the fresh post-exchange state
+                def exact_fn(g=ghosts):
+                    return transport.exact(
+                        {i: _local_contribution(cfg, ghosted(xs[i], g[i]), bs[i])
+                         for i in xs}, mon_cfg.ord)
+            reductions.launch(transport.reduce(contribs, mon_cfg.ord))
+            mon = detection.decide(mon_cfg, mon, reductions.consume(),
+                                   exact_residual_fn=exact_fn)
+            k += 1
+            if bool(mon.converged):  # the loop's one device→host sync
+                break
+        reductions.drain()
+        x = torch.empty((n, n, n), dtype=dtype, device=dev)
+        for r, blk in enumerate(transport.all_gather(xs)):
+            x[sl[r]] = blk
+        return SolveResult(x=x, residual=mon.detected_residual, outer_iters=k,
+                           converged=bool(mon.converged))
+
+    return solve

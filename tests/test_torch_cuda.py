@@ -26,7 +26,9 @@ calls.  The stencil and diff-norm kernels are checked in all three partial
 modes (l∞ max|r|, l2 Σr², l1 Σ|r|); an l1 run on the card takes the CPU's
 iterations.  PageRank through ``runtime.api.run_shard`` on the card takes the
 CPU's iterations, with x within 1e-12 and the residual history within rtol
-5e-5; #5 in l1 at its PageRank blocks is held at 2e-5.
+5e-5; #5 in l1 at its PageRank blocks is held at 2e-5.  A world of ranks
+on the card (gloo sharing it, NCCL at world size 1) equals the stacked run
+on the card bitwise.
 """
 import numpy as np
 import pytest
@@ -179,6 +181,37 @@ def test_shard_runtime_on_card_matches_cpu(card, reduction, sweep):
     np.testing.assert_allclose(gpu.trace.cpu().numpy(), cpu.trace.numpy(), rtol=5e-5)
     if reduction != "blocking" and sweep == "jacobi":
         assert trk.LAUNCHES["diff_norm_partials"] == p * gpu.outer_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,k,shape", [("gloo", 4, (2, 2)), ("gloo", 2, (2,)),
+                                             ("nccl", 1, (1,))])
+def test_world_on_card_equals_stacked_on_card(card, tmp_path, backend, k, shape):
+    """One shard per rank on the card (gloo ranks share it and stage through
+    host memory; NCCL at world size 1) against the stacked runtime on the
+    card: same iterations, x and the l∞ trace bitwise, launches in the
+    ranks, bytes staged under gloo only."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.worlds import Case, Inputs, make_inputs, run_cases
+
+    n = 12
+    mon = detection.for_mode("pfait", eps_tilde=1e-6, margin=10.0, ord=INF)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, max_outer=2000, trace_len=64,
+                                 overlap=len(shape) > 1, inner_sweeps=2)
+    case = Case("card", "runtime", cfg, shape, Inputs("convdiff", n))
+    ranks = spawn_world(run_cases, k, str(tmp_path), args=(backend, [case], None),
+                        timeout=300)
+    x0, b, kw = make_inputs(case.inputs)
+    want = tsr.make_convdiff_runtime(cfg, shape if len(shape) > 1 else shape[0],
+                                     kw["stencil"], n, device=card)(x0, b)
+    got = ranks[0]["cases"][0]
+    assert got["outer_iters"] == want.outer_iters and got["converged"]
+    np.testing.assert_array_equal(got["x"], want.x.cpu().numpy())
+    np.testing.assert_array_equal(got["trace"], want.trace.cpu().numpy())
+    for r in ranks:
+        c = r["cases"][0]
+        assert sum(c["launches"].values()) > 0
+        assert (c["staged_bytes"] > 0) == (backend == "gloo" and k > 1)
 
 
 def _halo_planes(shape, gen, card, dtype):

@@ -15,7 +15,7 @@ from repro_torch import _device
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import detection
-from repro_torch.launch import serve
+from repro_torch.launch import mesh, serve
 from repro_torch.models.model import Model
 from repro_torch.runtime import api, shard_runtime
 from repro_torch.solvers import fixed_point
@@ -39,6 +39,9 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
     assert "repro_torch.solvers.pagerank" in names, names
+    assert "repro_torch.launch.mesh" in names, names
+    assert "repro_torch.launch.worlds" in names, names
+    assert "repro_torch.runtime.transport" in names, names
     print("ISOLATED", len(names))
 """)
 
@@ -61,6 +64,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     cfg = fixed_point.SolverConfig(stencil=st, monitor=detection.MonitorConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fixed_point.solve_single(cfg, np.ones((4, 4, 4)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fixed_point.make_sharded_solver(cfg, (2, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.make_shard_group((2,), "gloo", rank=0)
     rcfg = shard_runtime.ShardRuntimeConfig(monitor=detection.MonitorConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         shard_runtime.make_convdiff_runtime(rcfg, 2, st, 4)

@@ -29,6 +29,7 @@ from repro_torch import interop
 from repro_torch.core import detection as tdet
 from repro_torch.kernels.jacobi3d import ops as tops
 from repro_torch.runtime import shard_runtime as tsr
+from repro_torch.runtime.transport import StackedTransport
 
 INF = float("inf")
 EPS_TILDE = 1e-6
@@ -153,14 +154,14 @@ def test_stacked_runtime_drives_the_kernel_ops():
 
 
 def test_butterfly_matches_flat_reduction():
-    lanes = torch.tensor([3.0, 1.0, 4.0, 1.5])
-    perms = [torch.tensor([i ^ (1 << r) for i in range(4)]) for r in range(2)]
-    inf = torch.full((4,), INF)
+    lanes = dict(enumerate(torch.tensor([3.0, 1.0, 4.0, 1.5])))
+    transport = StackedTransport(4, torch.device("cpu"))
+    inf = dict.fromkeys(range(4), torch.tensor(INF))
     for ord, flat in ((INF, 4.0), (2.0, 9.5)):
-        partial, visible = tsr._butterfly_step(lanes, inf, inf, 0, perms, ord)
-        assert bool(torch.isinf(visible).all())   # not complete after round 0
-        partial, visible = tsr._butterfly_step(lanes, partial, visible, 1, perms, ord)
-        assert visible.tolist() == [flat] * 4
+        partial, visible = tsr._butterfly_step(transport, lanes, inf, inf, 0, 2, ord)
+        assert all(bool(torch.isinf(v)) for v in visible.values())  # not complete yet
+        partial, visible = tsr._butterfly_step(transport, lanes, partial, visible, 1, 2, ord)
+        assert [float(visible[i]) for i in range(4)] == [flat] * 4
     assert tsr._butterfly_rounds(1) == 0 and tsr._butterfly_rounds(8) == 3
     with pytest.raises(ValueError, match="power-of-two"):
         tsr._butterfly_rounds(6)
