@@ -66,12 +66,15 @@ Phases, each of which must pass or the script exits non-zero:
    4's PFAIT hybrid run): every run must equal its stacked twin (same
    iterations, detection and verifications, x bitwise, the trace bitwise
    at l∞ and within p·2^-24 relative at l1), every rank must report the
-   same outcome, and #1-#5 must launch inside the worlds; ms per step and
+   same outcome, and #1-#5 must launch inside the worlds (the ranks' own
+   counters; a world that reports none fails the phase); ms per step and
    the host-staged bytes per step are printed beside the stacked twin's;
-10. rank the stencil kernels by launches x (device ms - bound ms) over the
-   (kernel, block shape) pairs the main paths launched, each timed at its
-   shape; print one JSON line of per-kernel numbers, the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+10. require that every (stencil kernel, block shape) pair the main paths
+   launched, in this process and inside the worlds, was held against its
+   plain version in phase 2; rank the stencil kernels by launches x (device
+   ms - bound ms) over those pairs, each timed at its shape; print one JSON
+   line of per-kernel numbers, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Phases 4 to 9 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
@@ -124,9 +127,13 @@ PAGERANK_VECTORS = (4096, 4095, 16384)
 F64_UNIT = 2.0 ** -53
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
-# 25×150×150 block of one of 6 shards and the 75×150×150 block of one of 2
-# at n = 150, and a ragged block
+# 25×150×150 block of one of 6 shards, the 75×150×150 block of one of 2 and
+# the whole 150³ grid of one at n = 150, the 38×152×152 block of one of 4 at
+# n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, and a
+# ragged block.  main() fails if a main path launches #1-#4 at a block
+# shape not listed here (or in HALO_SHAPES for #3/#4)
 SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p2": (75, 150, 150),
+          "p1": (150, 150, 150), "p4": (38, 152, 152), "mesh32": (50, 75, 150),
           "ragged": (13, 37, 19)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
 # n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
@@ -1097,11 +1104,12 @@ DIST_KERNELS = ("fused_sweep_residual", "fused_rbgs_sweep_residual",
 class DistRun(NamedTuple):
     """The distributed path: per world its ranks' reports and wall, the
     stacked twins this phase ran itself, and the launches made inside the
-    worlds (every rank, every case)."""
+    worlds (every rank, every case), also by (stencil kernel, block shape)."""
 
     worlds: dict
     twins: list
     world_launches: dict
+    world_shapes: Counter
 
 
 def dist_cells():
@@ -1175,7 +1183,7 @@ def run_distributed(dev) -> DistRun:
         else:
             fn = lambda: sr.make_convdiff_runtime(cfg, p, st, n, device=dev)(x0, b)  # noqa: E731
         twins.append(_run(name, fn, st, b, cfg.monitor.ord))
-    out, inside = {}, Counter()
+    out, inside, shapes = {}, Counter(), Counter()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
         for label, k, backend, cases in worlds:
@@ -1187,7 +1195,8 @@ def run_distributed(dev) -> DistRun:
             for r in ranks:
                 for c in r["cases"]:
                     inside.update(c["launches"])
-    return DistRun(out, twins, dict(inside))
+                    shapes.update(c["launch_shapes"])
+    return DistRun(out, twins, dict(inside), shapes)
 
 
 def verify_distributed(dist_run: DistRun, runs: dict, card: str) -> None:
@@ -1603,12 +1612,28 @@ def main() -> int:
         torch.cuda.synchronize()
         used_by[path] = used = _launches()
         print(f"main-path launches, {path}:", json.dumps(used))
-        inside = getattr(runs[path], "world_launches", {})
-        for k in kernels:
-            _require((inside or used)[k] > 0, f"{k}: not launched on the {path} path")
-        for k in launches:
-            launches[k] += used[k] + inside.get(k, 0)
         shape_launches.update(jk.LAUNCH_SHAPES)
+        need = used
+        if isinstance(runs[path], DistRun):
+            # required of the ranks' own launches, not of the stacked twins
+            need = runs[path].world_launches
+            _require(bool(need), "the worlds reported no launch counters")
+            for k in launches:
+                launches[k] += need.get(k, 0)
+            shape_launches.update(runs[path].world_shapes)
+        for k in kernels:
+            _require(need.get(k, 0) > 0, f"{k}: not launched on the {path} path")
+        for k in launches:
+            launches[k] += used[k]
+    checked = {k: set((HALO_SHAPES if "halo" in k else SHAPES).values())
+               for k, _ in shape_launches}
+    unchecked = sorted(f"{k} {_shape_str(s)}" for k, s in shape_launches
+                       if s not in checked[k])
+    _require(not unchecked, f"main-path launches at shapes never held against the "
+                            f"plain version: {unchecked}")
+    print(f"every (stencil kernel, block shape) the main paths launched, in this process "
+          f"and inside the worlds ({len(shape_launches)} pairs), was held against its "
+          f"plain version above")
     verify_runs(*(runs[path] for path, _, _ in PATHS[:3]), runs["distributed shard runtime"].twins)
     verify_serve(runs["serve"], used_by["serve"], dev)
     verify_distributed(runs["distributed shard runtime"], runs, nvidia_smi())

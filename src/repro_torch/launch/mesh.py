@@ -6,13 +6,15 @@ lays them over the ranks of a ``torch.distributed`` process group, one shard
 per process:
 
 * ``ShardGroup`` holds the mesh shape (1-D to 3-D, ranks row-major as
-  ``solvers.partition.MeshPartition`` ranks shards), the process group with
-  its rank and backend, and the rank's device;
+  ``solvers.partition.MeshPartition`` ranks shards), the rank and backend
+  of the default process group, and the rank's device;
 * ``make_shard_group`` joins (or reuses) the process group and picks the
   device: ``cuda:<local rank>`` under NCCL, the caller's device under gloo;
 * ``local_slices`` says which block of the global state, and which rows of
   PageRank's operator, a rank owns — the counterpart of JAX's
   ``state_spec`` / ``mesh_state_spec``;
+* ``place_blocks`` moves the local shards' blocks of an array to the
+  shard's device (only those blocks, over a group);
 * ``spawn_world`` starts a local world of k ranks (spawned processes that
   meet at a ``FileStore``), runs a job on each and returns their results;
   a rank that raises, dies or hangs ends the world with an error.
@@ -26,8 +28,9 @@ import time
 import traceback
 import uuid
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -65,17 +68,17 @@ def mesh_coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
 
 @dataclass(eq=False)
 class ShardGroup:
-    """The ranks of a process group laid out as a shard mesh; this process
-    is shard ``rank``.  The transport's counters: ``staged_bytes``, the
-    bytes gloo staged between the card and the host, ``staged_s`` the host
-    seconds that took (stream synchronisations included), and ``wait_s``
-    the host seconds blocked in transfers and collectives."""
+    """The ranks of the default process group laid out as a shard mesh;
+    this process is shard ``rank``.  The transport's counters:
+    ``staged_bytes``, the bytes gloo staged between the card and the host,
+    ``staged_s`` the host seconds that took (stream synchronisations
+    included), and ``wait_s`` the host seconds blocked in transfers and
+    collectives."""
 
     shape: Tuple[int, ...]
     rank: int
     backend: str
     device: torch.device
-    group: Optional[Any] = None      # None: the default (world) group
     axis: str = "shard"
     staged_bytes: int = 0
     staged_s: float = 0.0
@@ -181,6 +184,34 @@ def local_slices(family: str, group: Union[ShardGroup, int, Sequence[int]], n: i
         nb = n // shape[0]
         return (slice(r * nb, (r + 1) * nb),)
     raise KeyError(f"family {family!r} not in {FAMILIES}")
+
+
+def place_blocks(a, slices: Mapping[int, tuple], device: torch.device,
+                 dtype: Optional[torch.dtype] = None, *,
+                 gshape: Optional[Sequence[int]] = None,
+                 what: str = "") -> Dict[int, torch.Tensor]:
+    """The blocks ``a[slices[i]]`` of the local shards ``i`` on ``device``,
+    contiguous.
+
+    ``a`` (a tensor, or anything numpy converts) is the global array, of
+    shape ``gshape`` where that is given; or, where one shard is local and
+    ``gshape`` is given, that shard's block already.  Only the local blocks
+    reach ``device``: where several shards are local (the stacked
+    transport) the whole array moves once, else only the one block moves.
+    ``what`` opens the message for any other shape."""
+    a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    if gshape is None or tuple(a.shape) == tuple(gshape):
+        if len(slices) > 1:
+            a = a.to(device, dtype)   # the whole array, once
+        return {i: a[s].to(device, dtype).contiguous() for i, s in slices.items()}
+    if len(slices) == 1:
+        ((i, s),) = slices.items()
+        block = tuple(len(range(*si.indices(g))) for si, g in zip(s, gshape)) \
+            + tuple(gshape[len(s):])
+        if tuple(a.shape) == block:
+            return {i: a.to(device, dtype).contiguous()}
+    raise ValueError(what + (" (or the local block)" if len(slices) == 1 else "")
+                     + f", got {tuple(a.shape)}")
 
 
 # ---------------------------------------------------------------------------

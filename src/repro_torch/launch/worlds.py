@@ -9,7 +9,8 @@ array crosses a process boundary on the way in; each rank places only its
 own block.  It returns host values only: per case the iterations, the
 detection, the trace, a digest of ``x`` (and ``x`` itself from rank 0),
 the wall time of the timed run, and over the case's ``runs`` runs (``api``
-runs twice: build and timed) the kernel launches made and the bytes the
+runs twice: build and timed) the kernel launches made, the stencil
+launches by block shape (``jacobi3d.LAUNCH_SHAPES``) and the bytes the
 gloo transport staged through host memory.
 
     from repro_torch.launch.mesh import spawn_world
@@ -145,7 +146,7 @@ def run_cases(rank: int, k: int, store, backend: str, cases: Sequence[Case],
         warmed = True
         if case.inputs not in made:
             made[case.inputs] = make_inputs(case.inputs)
-        before = _launches()
+        before, shapes = _launches(), jk.LAUNCH_SHAPES.copy()
         r, wall = _run(case, group, made[case.inputs])
         trace = getattr(r, "trace", None)
         results.append(dict(
@@ -158,5 +159,6 @@ def run_cases(rank: int, k: int, store, backend: str, cases: Sequence[Case],
             # a fresh group per case: its counters are this case's
             staged_bytes=group.staged_bytes, staged_s=group.staged_s,
             wait_s=group.wait_s,
-            launches={key: v - before[key] for key, v in _launches().items()}))
+            launches={key: v - before[key] for key, v in _launches().items()},
+            launch_shapes=dict(jk.LAUNCH_SHAPES - shapes)))
     return dict(rank=rank, backend=backend, cases=results)

@@ -25,7 +25,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import detection
 from repro_torch.core.reduction import get_reduction
 from repro_torch.core.trace import Trace, _series_prefix, trace_from_shard_run
-from repro_torch.launch.mesh import ShardGroup, local_slices, shard_axis_names
+from repro_torch.launch.mesh import ShardGroup, local_slices, place_blocks, shard_axis_names
 from repro_torch.runtime.shard_runtime import ShardRuntimeConfig, make_runtime
 
 #: trace_len used when ``record_trace=True`` and the user left trace_len=0
@@ -110,13 +110,6 @@ def _detect_step(converged: bool, outer: int) -> Optional[int]:
     return outer - 1 if converged and outer > 0 else None
 
 
-def _place(a, dev: torch.device, dtype: Optional[torch.dtype] = None,
-           sl: tuple = ()) -> torch.Tensor:
-    """``a[sl]`` (a tensor, or any numpy-convertible array) on ``dev``."""
-    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-    return t[sl].to(dev, dtype)
-
-
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -147,11 +140,12 @@ def run_shard(family: str, cfg: RuntimeConfig,
                          f"cfg.axis {cfg.axis!r}")
     dev = group.device if group else resolve_device(device)
     n_shards = group.p if group else int(np.prod(p))
-    sl = local_slices(family, group, n) if group else ()
+    # this process's part, placed once: the whole arrays, or the rank's block
+    part = {0: local_slices(family, group, n) if group else ()}
     _sync(dev)
     t0 = time.perf_counter()
-    a_dev = _place(arg, dev, sl=sl)
-    x_dev = _place(x0, dev, a_dev.dtype, sl=sl)
+    (a_dev,) = place_blocks(arg, part, dev).values()
+    (x_dev,) = place_blocks(x0, part, dev, a_dev.dtype).values()
     run = make_runtime(family, scfg, p, n, stencil=stencil, damping=damping,
                        device=dev)
     run(x_dev, a_dev)

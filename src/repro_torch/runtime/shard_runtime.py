@@ -75,9 +75,8 @@ from repro_torch.core.reduction import get_reduction
 from repro_torch.kernels.jacobi3d import ops as jac_ops
 from repro_torch.kernels.jacobi3d.jacobi3d import fused_sweep_residual_halo
 from repro_torch.kernels.residual_norm import ops as rn_ops
-from repro_torch.launch.mesh import ShardGroup, local_slices, mesh_shape
+from repro_torch.launch.mesh import ShardGroup, local_slices, mesh_shape, place_blocks
 from repro_torch.runtime.transport import (
-    GroupTransport,
     Pending,
     ReductionPipeline,
     make_transport,
@@ -330,29 +329,12 @@ def _transport_of(p, device: DeviceLike):
     return make_transport(p, resolve_device(device))
 
 
-def _block_shape(sl: tuple, gshape: Tuple[int, ...]) -> Tuple[int, ...]:
-    return tuple(len(range(*s.indices(g))) for s, g in zip(sl, gshape)) + \
-        tuple(gshape[len(sl):])
-
-
 def _blocks(a, transport, slices: Sequence[tuple], gshape: Tuple[int, ...],
             what: str, dtype: Optional[torch.dtype] = None) -> Dict[int, torch.Tensor]:
-    """The local shards' blocks of ``a`` (slices of the global ``gshape``)
-    on the transport's device.  Over a group ``a`` may also be the rank's
-    block already; only that block is moved to the card.  ``what`` is the
-    message for any other shape."""
-    a = torch.as_tensor(a)
-    group = isinstance(transport, GroupTransport)
-    if tuple(a.shape) == tuple(gshape):
-        if not group:
-            a = a.to(transport.device, dtype)   # the whole array, once
-        parts = {i: a[slices[i]] for i in transport.local}
-    elif group and tuple(a.shape) == _block_shape(slices[transport.local[0]], gshape):
-        parts = {transport.local[0]: a}
-    else:
-        raise ValueError(what + (" (or this rank's block)" if group else "")
-                         + f", got {tuple(a.shape)}")
-    return {i: t.to(transport.device, dtype).contiguous() for i, t in parts.items()}
+    """The local shards' blocks of ``a`` on the transport's device
+    (``launch.mesh.place_blocks``)."""
+    return place_blocks(a, {i: slices[i] for i in transport.local}, transport.device,
+                        dtype, gshape=gshape, what=what)
 
 
 def _result(transport, xs, assemble, mon, k: int, inner: np.ndarray,

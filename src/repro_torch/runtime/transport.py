@@ -107,7 +107,8 @@ class StackedTransport:
 
 
 class GroupTransport:
-    """One shard per rank of a ``ShardGroup``'s process group."""
+    """One shard per rank of the default process group, which a
+    ``ShardGroup`` lays out as a shard mesh (its ranks are the world's)."""
 
     def __init__(self, group):
         self.group, self.p, self.device = group, group.p, group.device
@@ -152,14 +153,12 @@ class GroupTransport:
 
     def reduce(self, lanes: Dict[int, torch.Tensor], ord: float) -> Pending:
         (wire,) = self._out([self._own(lanes).reshape(1)])
-        work = dist.all_reduce(wire, op=self._op(ord), group=self.group.group,
-                               async_op=True)
+        work = dist.all_reduce(wire, op=self._op(ord), async_op=True)
         return Pending(lambda: self._wait([work]) or self._in(wire).reshape(()))
 
     def exact(self, contribs: Dict[int, torch.Tensor], ord: float) -> torch.Tensor:
         (wire,) = self._out([self._own(contribs).reshape(1)])
-        self._wait([dist.all_reduce(wire, op=self._op(ord), group=self.group.group,
-                                    async_op=True)])
+        self._wait([dist.all_reduce(wire, op=self._op(ord), async_op=True)])
         return res.sigma(self._in(wire), ord)
 
     def route(self, sends: Msgs) -> Pending:
@@ -169,8 +168,8 @@ class GroupTransport:
         bufs = [torch.empty_like(w) for w in wires]
         ops = []
         for (peer, _), w, b in zip(keys, wires, bufs):
-            ops += [dist.P2POp(dist.isend, w, peer, self.group.group),
-                    dist.P2POp(dist.irecv, b, peer, self.group.group)]
+            ops += [dist.P2POp(dist.isend, w, peer),
+                    dist.P2POp(dist.irecv, b, peer)]
         works = dist.batch_isend_irecv(ops) if ops else []
         rank = self.group.rank
         return Pending(lambda: self._wait(works) or
@@ -179,7 +178,7 @@ class GroupTransport:
     def all_gather(self, blocks: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
         (wire,) = self._out([self._own(blocks)])
         outs = [torch.empty_like(wire) for _ in range(self.p)]
-        self._wait([dist.all_gather(outs, wire, group=self.group.group, async_op=True)])
+        self._wait([dist.all_gather(outs, wire, async_op=True)])
         return [self._in(o) for o in outs]
 
 

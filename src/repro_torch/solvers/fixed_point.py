@@ -35,7 +35,13 @@ from repro_torch.core import detection
 from repro_torch.core import residual as res
 from repro_torch.kernels import _build
 from repro_torch.kernels.jacobi3d import ops as jac_ops
-from repro_torch.launch.mesh import ShardGroup, mesh_coords, mesh_shape, shard_axis_names
+from repro_torch.launch.mesh import (
+    ShardGroup,
+    mesh_coords,
+    mesh_shape,
+    place_blocks,
+    shard_axis_names,
+)
 from repro_torch.runtime.transport import ReductionPipeline, make_transport
 from repro_torch.solvers import gauss_seidel, jacobi
 from repro_torch.solvers.convdiff import Stencil
@@ -267,18 +273,8 @@ def make_sharded_solver(cfg: SolverConfig,
               for r, (ix, iy) in ixy.items()}
 
         def place(a, dtype=None):
-            """The local blocks of ``a`` on ``dev``: ``a`` is the global
-            grid, or over a group the rank's block (only it is moved)."""
-            a = torch.as_tensor(a)
-            if tuple(a.shape) == (n, n, n):
-                if group is None:
-                    a = a.to(dev, dtype)   # the whole grid, once
-                return {i: a[sl[i]].to(dev, dtype).contiguous() for i in transport.local}
-            if group is not None and tuple(a.shape) == (bx, by, n):
-                return {group.rank: a.to(dev, dtype).contiguous()}
-            raise ValueError(f"x0 and b must be ({n}, {n}, {n})"
-                             + (" or this rank's block" if group else "")
-                             + f", got {tuple(a.shape)}")
+            return place_blocks(a, {i: sl[i] for i in transport.local}, dev, dtype,
+                                gshape=(n, n, n), what=f"x0 and b must be ({n}, {n}, {n})")
 
         bs = place(b)
         dtype = bs[transport.local[0]].dtype

@@ -211,6 +211,7 @@ def test_world_on_card_equals_stacked_on_card(card, tmp_path, backend, k, shape)
     for r in ranks:
         c = r["cases"][0]
         assert sum(c["launches"].values()) > 0
+        assert sum(c["launch_shapes"].values()) > 0
         assert (c["staged_bytes"] > 0) == (backend == "gloo" and k > 1)
 
 

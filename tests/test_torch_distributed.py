@@ -164,11 +164,12 @@ def test_every_rank_reports_the_same_outcome(worlds, k):
 
 def test_world_sweeps_went_through_the_kernel_ops(worlds):
     """The ranks' launch counters stay 0 on the CPU (the plain versions
-    serve CPU tensors), and are reported per case."""
+    serve CPU tensors), and are reported per case, by block shape too."""
     for r in worlds[4]:
         for c in r["cases"]:
             assert set(c["launches"]) >= {"fused_sweep_residual", "diff_norm_partials"}
             assert not any(c["launches"].values())
+            assert c["launch_shapes"] == {}
 
 
 def _failing_job(rank, k, store, how):
@@ -230,6 +231,31 @@ def test_local_slices_tile_the_grid(shape):
     assert [(s.start, s.stop) for s in rows] == [(16 * r, 16 * r + 16) for r in range(4)]
     with pytest.raises(ValueError, match="1-D row blocks"):
         tmesh.local_slices("pagerank", (2, 2), 64, 0)
+
+
+@pytest.mark.parametrize("local", [(0, 1, 2, 3), (2,)])
+def test_place_blocks_takes_the_global_array_or_the_local_block(local):
+    """Every local shard gets its block, contiguous and in the asked dtype,
+    from the global array; a lone local shard takes its block as given;
+    any other shape raises."""
+    gshape = (8, 8, 8)
+    a = np.random.default_rng(0).standard_normal(gshape)
+    slices = {r: tmesh.local_slices("convdiff", (2, 2), 8, r) for r in local}
+    got = tmesh.place_blocks(a, slices, torch.device("cpu"), torch.float32,
+                             gshape=gshape, what="a")
+    assert sorted(got) == list(local)
+    for r, t in got.items():
+        assert t.is_contiguous() and t.dtype == torch.float32
+        assert torch.equal(t, torch.as_tensor(a[slices[r]], dtype=torch.float32))
+    block = a[slices[local[0]]]
+    if len(local) == 1:
+        again = tmesh.place_blocks(block, slices, torch.device("cpu"), gshape=gshape)
+        assert torch.equal(again[local[0]], torch.as_tensor(block))
+    else:
+        with pytest.raises(ValueError, match=r"a, got \(4, 4, 8\)"):
+            tmesh.place_blocks(block, slices, torch.device("cpu"), gshape=gshape, what="a")
+    with pytest.raises(ValueError, match="got"):
+        tmesh.place_blocks(a[:3], slices, torch.device("cpu"), gshape=gshape, what="a")
 
 
 def test_shard_axes_follow_the_axis_names():
