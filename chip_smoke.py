@@ -69,18 +69,39 @@ Phases, each of which must pass or the script exits non-zero:
    same outcome, and #1-#5 must launch inside the worlds (the ranks' own
    counters; a world that reports none fails the phase); ms per step and
    the host-staged bytes per step are printed beside the stacked twin's;
-10. require that every (stencil kernel, block shape) pair the main paths
+10. require that every (stencil kernel, block shape, dtype) the main paths
    launched, in this process and inside the worlds, was held against its
    plain version in phase 2; rank the stencil kernels by launches x (device
-   ms - bound ms) over those pairs, each timed at its shape; print one JSON
-   line of per-kernel numbers, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   ms - bound ms) over those triples, each timed at its shape in its type;
+   print one JSON line of per-kernel numbers, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``;
+11. the detection service, run as the last main path (before phase 10's
+   checks, which cover its launches): a seeded open-loop load of 64
+   tenants (Poisson, 2 a tick) over convdiff at n = 150 (Jacobi #1 and
+   hybrid #2 lanes, f32), PageRank at n = 4096 (#5 over each bucket) and
+   mlfixed at n = 1024 through ``launch.serve.serve_detection`` on the
+   card, each signature's lanes one CUDA graph: every tenant must be
+   served with no timeout and no false detection; each packed verdict must
+   be bitwise ``batched_monitor``'s on the card on the tenant's series;
+   ``compile_count`` must equal the distinct signatures and the warm hits
+   follow the rule; the counted launches must be those of the buckets'
+   replays; each family's ε̃ grid must sit ≥ 3× above its residual floor
+   after the PFAIT margin, the larger of the f32 series' floor and the f64
+   residual of the f32 states it stalls at (both measured here); one served
+   tenant per family at the load's least ε̃ must pass the oracle rule on
+   its f64 residual at its detect step; one chunk per family replayed
+   from its graph must be bitwise the same chunk run eagerly, across a
+   refill; one tenant per family rerun on the CPU must take the same
+   verdict.  Prints ticks, time to detection and queue wait percentiles,
+   tenants/s, ms per tick, lane-steps/s per family and the device's busy
+   share over ticks 10–13 from ``torch.profiler``.
 
-Phases 4 to 9 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
-path must show launches there (phase 9's in the counters its ranks report).  Needs CUDA: without a card, or without the
-repository's ``src/`` beside it, the script exits non-zero and prints no
-result.
+path must show launches there (phase 9's in the counters its ranks report;
+phase 11's graph replays add the launches their capture recorded).  Needs
+CUDA: without a card, or without the repository's ``src/`` beside it, the
+script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -101,6 +122,7 @@ SOLVER_N = 185                        # the paper's larger grid (EXPERIMENTS.md)
 SHARD_N = 150                         # the paper's smaller grid
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_F64_FLOPS = 34e12               # H100 SXM data sheet, f64 outside the tensor cores
+PEAK_F32_FLOPS = 67e12               # H100 SXM data sheet, f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12             # H100 SXM data sheet, dense bf16 on the tensor cores
 # the serving path: qwen2-1.5b at full width (28 layers, 12 q / 2 kv heads of
 # 128), batch 4, 2048-token prompts, 64 new tokens
@@ -128,7 +150,8 @@ F64_UNIT = 2.0 ** -53
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
 # 25×150×150 block of one of 6 shards, the 75×150×150 block of one of 2 and
-# the whole 150³ grid of one at n = 150, the 38×152×152 block of one of 4 at
+# the whole 150³ grid of one at n = 150 (also a convdiff lane of the
+# detection service, in f32), the 38×152×152 block of one of 4 at
 # n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, and a
 # ragged block.  main() fails if a main path launches #1-#4 at a block
 # shape not listed here (or in HALO_SHAPES for #3/#4)
@@ -168,6 +191,41 @@ TOL = {("block", "f64"): 1e-12, ("block", "f32"): 1e-5, ("block", "bf16"): 1e-5,
 # evaluation that drops kv tile 0 for the last 64 rows (16.44); both are
 # read again in every run, and the run fails if the bar leaves that gap
 BF16_MODEL_BAR = 3.0
+
+
+# the detection service path (phase 11): the service's knobs, and an
+# open-loop load of 64 tenants arriving as a Poisson stream of 2 a tick
+# (seed 0), round-robin over the families, each family's tenants alternating
+# over its variants.  Sizes users run: convdiff at the paper's smaller grid
+# (150³, a 13.5 MB f32 lane), PageRank at n = 4096 (a 64 MiB f32 operator a
+# lane), mlfixed at n = 1024 over 3072 rows.  Each ε̃ grid sits ≥ 3× above
+# the family's floor after the PFAIT margin (min(grid) / 10 ≥ 3 × floor),
+# the larger of its f32 and f64 floors, which the phase measures and checks
+# in every run
+SERVICE_CFG = dict(lanes=2, chunk=16, max_staleness=8, max_steps=4096)
+SERVICE_TENANTS, SERVICE_RATE, SERVICE_SEED = 64, 2.0, 0
+SERVICE_MODES = ("pfait", "nfais5", "nfais2", "sync")
+SERVICE_FAMILIES = (
+    ("convdiff", ({"n": 150, "p": 4, "rho": 0.9, "sweep": "jacobi"},
+                  {"n": 150, "p": 4, "rho": 0.9, "sweep": "hybrid"}), (1e-3, 1e-4)),
+    ("pagerank", ({"n": 4096, "p": 4},), (1e-3, 1e-4, 1e-5)),
+    ("mlfixed", ({"n": 1024, "p": 4, "m_rows": 3072, "task": "lstsq", "cond": 10.0},
+                 {"n": 1024, "p": 4, "m_rows": 3072, "task": "logistic", "cond": 10.0}),
+     (1e-3, 1e-4)),
+)
+SERVICE_KERNELS = ("fused_sweep_residual", "fused_rbgs_sweep_residual", "diff_norm_partials")
+# #5's shape on that path: one launch over a PageRank bucket's lanes
+SERVICE_PAGERANK_LANES = (SERVICE_CFG["lanes"], 4096)
+# the ticks the profiler records (first tick, count): arrivals still come
+# and every family's buckets run
+SERVICE_PROFILE = (10, 4)
+# the floors: seeds and steps each variant runs with no detection
+FLOOR_SEEDS, FLOOR_STEPS = (0, 1), 2048
+# a tenant's series on the card against its CPU rerun: rtol 2e-5 (sums) or
+# 1e-5 (max), plus twice the family's f32 floor and four f32 units of the
+# tenant's first residual (the scale of its terms): below those the two
+# paths' roundings differ
+SERVICE_RTOL = {"convdiff": 1e-5, "pagerank": 2e-5, "mlfixed": 2e-5}
 
 
 class SmokeFailure(RuntimeError):
@@ -385,13 +443,28 @@ def check_kernels(st, dev, check: Checker) -> None:
         c[n // 3] = float("nan")
         _require(bool(rk.diff_norm_partials(a, c, ord=1.0).isnan().all()),
                  f"diff_norm_partials {n} f64: a NaN does not reach the l1 partial")
+    # the service path's PageRank lanes: [lanes, n] f32 states, a partial per
+    # lane (block n), differences of a step near convergence
+    lanes, n = SERVICE_PAGERANK_LANES
+    a = (rand((lanes, n), torch.float64) / n).float()
+    c = a + rand((lanes, n), torch.float32) * 1e-6
+    for ord_, red in ORDS.items():
+        tag = f"{lanes}x{n} block {n} f32 {_ord_tag(ord_)}"
+        got = same_twice("diff_norm_partials", tag,
+                         lambda: (rk.diff_norm_partials(a, c, block=n, ord=ord_),))[0]
+        _require(tuple(got.shape) == (lanes,), f"diff_norm_partials {tag}: {tuple(got.shape)}")
+        check("diff_norm_partials", tag, red, "f32", got,
+              rref.diff_norm_partials_ref(a, c, block=n, ord=ord_))
+        n_cases += 1
     torch.cuda.synchronize()
     print(f"kernels vs plain: {n_cases} cases within tolerance, each in the three partial "
           f"modes (l∞ max|r|, l2 Σr², l1 Σ|r|); every stencil kernel's output and partials "
           f"and diff_norm_partials' partials bitwise equal across two calls at every shape, "
           f"variant, phase and mode; a NaN in the block reaches the l∞ partial of #1-#4 at "
           f"{', '.join(NAN_SHAPES)} and #5's l1 partial at the PageRank vectors "
-          f"{', '.join(map(str, PAGERANK_VECTORS))}; the halo sweep's six face slabs bitwise the block's "
+          f"{', '.join(map(str, PAGERANK_VECTORS))}; #5 at the service's PageRank lanes "
+          f"{'x'.join(map(str, SERVICE_PAGERANK_LANES))} f32, a partial per lane; the halo "
+          f"sweep's six face slabs bitwise the block's "
           f"faces at {'x'.join(map(str, HALO_SHAPES['mesh32']))}")
     for k, v in check.rel_err.items():
         print(f"  {k}: max relative error {v:.2e}; worst case at {check.of_tol[k]:.3f} "
@@ -558,8 +631,9 @@ def time_flash(dev) -> dict:
 HALO_KERNELS = ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")
 
 
-def _stencil_case(k, shape, st, rand):
-    """A stencil kernel at a block shape, f64, l∞, on random inputs:
+def _stencil_case(k, shape, st, rand, size=8):
+    """A stencil kernel at a block shape, l∞, on random inputs from
+    ``rand`` (f64, or f32 with ``size=4``, the bytes of an element):
     ``(kernel call, plain call, ghosted block for the library call, bytes,
     flops)``.  Bytes count each input read once and each output written
     once: the block (or the ghosted block) and the rhs in, the new block
@@ -577,7 +651,7 @@ def _stencil_case(k, shape, st, rand):
         else 25 * cells
     if k in HALO_KERNELS:
         h = [rand(s) for s in ((by, bz), (by, bz), (bx, bz), (bx, bz), (bx, by), (bx, by))]
-        nbytes = 8 * (3 * cells + sum(p.numel() for p in h)) + 4 * nx * ny
+        nbytes = size * (3 * cells + sum(p.numel() for p in h)) + 4 * nx * ny
         if k == "fused_sweep_residual_halo":
             kern = lambda: jk.fused_sweep_residual_halo(x, h, b, st.coefs)  # noqa: E731
             plain = lambda: jref.fused_sweep_residual_halo_ref(x, h, b, st.coefs)  # noqa: E731
@@ -591,19 +665,19 @@ def _stencil_case(k, shape, st, rand):
     if k == "fused_sweep_residual":
         kern = lambda: jk.fused_sweep_residual(g, b, st.coefs)  # noqa: E731
         plain = lambda: jref.fused_sweep_residual_ref(g, b, st.coefs)  # noqa: E731
-        nbytes = 8 * (g.numel() + 2 * cells) + 4 * nx * ny
+        nbytes = size * (g.numel() + 2 * cells) + 4 * nx * ny
     else:
         g2 = jops.ghost_pad2(x, ghosts)
         kern = lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0)  # noqa: E731
         plain = lambda: jref.fused_rbgs_sweep_residual_ref(g2, b, st.coefs, 0)  # noqa: E731
-        nbytes = 8 * (g2.numel() + 2 * cells) + 4 * nx * ny
+        nbytes = size * (g2.numel() + 2 * cells) + 4 * nx * ny
     return kern, plain, g, nbytes, flops
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=None):
     """The least time (ms) the card could take, and which of bytes and
-    operations sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    operations sets it (operations at ``peak``, f64 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or PEAK_F64_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -710,34 +784,38 @@ def time_kernels(st, dev) -> dict:
 
 
 def rank_launches(st, dev, shape_launches, times) -> list:
-    """The stencil kernels' main-path launches by (kernel, block shape),
-    each priced at its shape's device time less its bound, largest first.
-    A shape no timing above covered is timed here (device time only).
-    Residual-only passes of the Jacobi kernels are priced at the sweep's
-    numbers (they write no block, so this over-prices them a little)."""
+    """The stencil kernels' main-path launches by (kernel, block shape,
+    dtype), each priced at its shape's device time less its bound in its
+    own type (f32 at 4 bytes an element and the f32 peak), largest first.
+    A triple no timing above covered (those cover f64) is timed here
+    (device time only).  Residual-only passes of the Jacobi kernels are
+    priced at the sweep's numbers (they write no block, so this over-prices
+    them a little)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(4)
-
-    def rand(shape):
-        return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    dtypes = {"f64": (torch.float64, 8, PEAK_F64_FLOPS), "f32": (torch.float32, 4, PEAK_F32_FLOPS)}
 
     rows = []
-    for (k, shape), n in shape_launches.items():
-        t = times.get((k, shape))
+    for (k, shape, dt), n in shape_launches.items():
+        dtype, size, peak = dtypes[dt]
+        t = times.get((k, shape)) if dt == "f64" else None
         if t is None:
-            kern, _, _, nbytes, flops = _stencil_case(k, shape, st, rand)
+            def rand(s, dtype=dtype):
+                return torch.rand(s, generator=gen, device=dev, dtype=dtype) * 2 - 1
+
+            kern, _, _, nbytes, flops = _stencil_case(k, shape, st, rand, size)
             ms, _ = _time_ms(kern)
-            bound_ms, _ = _bound(nbytes, flops)
+            bound_ms, _ = _bound(nbytes, flops, peak)
             t = dict(ms=ms, bound_ms=bound_ms)
-        rows.append(dict(kernel=k, shape=_shape_str(shape), launches=n, ms=t["ms"],
+        rows.append(dict(kernel=k, shape=_shape_str(shape), dtype=dt, launches=n, ms=t["ms"],
                          bound_ms=t["bound_ms"], loss_ms=n * (t["ms"] - t["bound_ms"])))
     rows.sort(key=lambda r: -r["loss_ms"])
-    print("rank by launches x (device ms - bound ms) over the main paths (f64 device ms at "
-          "each block shape):")
+    print("rank by launches x (device ms - bound ms) over the main paths (device ms at each "
+          "block shape, in the launches' own type):")
     for r in rows:
-        print(f"  {r['kernel']:32s} {r['shape']:>12s}  launches {r['launches']:6d}  device "
-              f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  loss {r['loss_ms']:.1f} ms")
+        print(f"  {r['kernel']:32s} {r['shape']:>12s} {r['dtype']}  launches {r['launches']:6d}  "
+              f"device {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  loss {r['loss_ms']:.1f} ms")
     return rows
 
 
@@ -1260,6 +1338,453 @@ def verify_distributed(dist_run: DistRun, runs: dict, card: str) -> None:
     print(f"main-path launches inside the worlds: {json.dumps(dist_run.world_launches)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the detection service
+# ---------------------------------------------------------------------------
+
+
+def service_requests() -> list:
+    """The phase's open-loop load, drawn as ``bench_serve.poisson_requests``
+    draws it: Poisson arrivals (exponential inter-arrivals floored to
+    ticks), families round-robin, seeded modes, seeds, ε̃, K and m; each
+    family's tenants alternate over its variants."""
+    import numpy as np
+
+    from repro_torch.launch.serve import TenantSpec
+
+    rng = np.random.default_rng(SERVICE_SEED)
+    arrivals = np.floor(np.cumsum(rng.exponential(1.0 / SERVICE_RATE, SERVICE_TENANTS)))
+    reqs = []
+    for i in range(SERVICE_TENANTS):
+        family, variants, grid = SERVICE_FAMILIES[i % len(SERVICE_FAMILIES)]
+        mode = SERVICE_MODES[int(rng.integers(0, len(SERVICE_MODES)))]
+        spec = TenantSpec(
+            tenant=f"t{i:04d}", family=family,
+            problem=variants[(i // len(SERVICE_FAMILIES)) % len(variants)],
+            seed=int(rng.integers(0, 8)),
+            eps_tilde=float(grid[int(rng.integers(0, len(grid)))]),
+            mode=mode, staleness=int(rng.integers(0, 5)),
+            persistence=int(rng.choice((2, 4))))
+        reqs.append((spec, int(arrivals[i])))
+    return reqs
+
+
+class ServiceRun(NamedTuple):
+    """The service path's run: its report and requests, the wall time of
+    ``serve_detection`` (problem construction included), where the ticks'
+    wall went (``DetectionService.wall_breakdown``), and over the profiled
+    window of ticks their wall time, the device time of kernels and of
+    copies the profiler saw, and the top rows."""
+
+    rep: object
+    reqs: list
+    wall: float
+    breakdown: dict
+    window_s: float
+    kernel_s: float
+    copy_s: float
+    top: list
+
+
+def run_service(dev) -> ServiceRun:
+    """Phase 11: the load through ``serve_detection`` on the card, with
+    ``torch.profiler`` active over ``SERVICE_PROFILE`` ticks (it reads the
+    device's busy share over them; a window, since a kernel a monitor
+    operation makes the whole run's trace slow to read)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.launch.serve import ServeConfig, serve_detection
+
+    reqs = service_requests()
+    start, ticks = SERVICE_PROFILE
+    walls, service, stepping = [], [], [0.0]
+
+    def on_tick(svc):
+        walls.append(svc.wall_s)
+        service[:] = [svc]
+        t0 = time.perf_counter()
+        prof.step()
+        stepping[0] += time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=start - 1, warmup=1, active=ticks, repeat=1)) as prof:
+        t0 = time.perf_counter()
+        rep = serve_detection(reqs, ServeConfig(**SERVICE_CFG), device=dev, on_tick=on_tick)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device rows only; the schedule's step annotations repeat their kernels
+    rows = sorted(((getattr(e, "device_time_total", 0.0), e.count, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")), reverse=True)
+    copies = sum(r[0] for r in rows if r[2].startswith(("Memcpy", "Memset"))) / 1e6
+    window = walls[start + ticks - 1] - walls[start - 1]
+    breakdown = {**service[0].wall_breakdown(), "profiler steps": stepping[0]}
+    return ServiceRun(rep, reqs, wall, breakdown, window,
+                      sum(r[0] for r in rows) / 1e6 - copies, copies, rows[:8])
+
+
+def _service_ord(family) -> float:
+    return INF if family == "convdiff" else (1.0 if family == "pagerank" else 2.0)
+
+
+def _lane_buffers(probs, dev):
+    """Stacked lane buffers of ``probs`` (X, operands) on ``dev``."""
+    import numpy as np
+    import torch
+
+    X = torch.as_tensor(np.stack([p.lane_x0() for p in probs]), device=dev)
+    ops = {k: torch.as_tensor(np.stack([np.asarray(p.lane_operands()[k], np.float32)
+                                        for p in probs]), device=dev)
+           for k in probs[0].lane_operands()}
+    return X, ops
+
+
+def _exact_sigma(prob, x) -> float:
+    """The σ-applied residual of one f32 lane state ``x`` in f64 on the
+    host: PageRank's and mlfixed's ``exact_residual``, and for convdiff the
+    plain sweep's input-state residual in f64."""
+    import torch
+
+    from repro_torch.launch.serve import _sigma_np
+
+    x = x.detach().to("cpu", torch.float64)
+    if hasattr(prob, "exact_residual"):
+        return float(prob.exact_residual([x.numpy()]))
+    _, c = prob.update_with_residual_batched(x[None])
+    return float(_sigma_np(c.numpy(), float(prob.ord))[0])
+
+
+def service_floors(dev) -> dict:
+    """Each family's residual floor on the card: every variant at the
+    phase's size runs ``FLOOR_STEPS`` lane steps from its lane x0 (seeds
+    ``FLOOR_SEEDS``, no detection: ε = −1).  The f32 floor is the largest σ
+    value over the last quarter of the steps, where the residual has
+    stopped falling; the f64 floor is the largest f64 residual of the final
+    f32 states (``_exact_sigma``), which the f32 series cannot see below
+    its own rounding.  Returns ``{family: (f32 floor, f64 floor, [first σ
+    values])}``."""
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.launch.serve import _sigma_np, make_serve_problem
+
+    out = {}
+    for family, variants, _ in SERVICE_FAMILIES:
+        floor, exact, first = 0.0, 0.0, []
+        for kw in variants:
+            probs = [make_serve_problem(family, seed=s, **kw) for s in FLOOR_SEEDS]
+            X, ops = _lane_buffers(probs, dev)
+            L, p0 = len(probs), probs[0]
+            state = detection.init_lanes(L, 1, dev)
+            eps = torch.full((L,), -1.0, device=dev)
+            K = torch.zeros(L, dtype=torch.int32, device=dev)
+            m = torch.ones(L, dtype=torch.int32, device=dev)
+            run = detection.make_lane_runner(
+                "pfait", lambda Xc, o, p0=p0: p0.update_with_residual_batched(Xc, **o),
+                SERVICE_CFG["chunk"], ord=float(p0.ord))
+            cs = [run(X, ops, state, eps, eps, K, m)[2].clone()
+                  for _ in range(FLOOR_STEPS // SERVICE_CFG["chunk"])]
+            ser = _sigma_np(torch.cat(cs, dim=1).cpu().numpy(), float(p0.ord))
+            floor = max(floor, float(ser[:, 3 * FLOOR_STEPS // 4:].max()))
+            exact = max(exact, *(_exact_sigma(p, X[i]) for i, p in enumerate(probs)))
+            first += ser[:, 0].tolist()
+            del X, ops, run, cs
+        out[family] = (floor, exact, first)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_exact_at_detection(rep, specs, dev) -> None:
+    """One served tenant per family at the family's least ε̃ in the load
+    (the one with the fewest steps), replayed alone on the card to its
+    detect step k: the f64 residual of its state there (``_exact_sigma`` of
+    X_k, the state whose residual check k recorded) must pass the service's
+    oracle rule, below ``oracle_factor`` × ε̃, as its f32 series did."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import ServeConfig, _sigma_np, make_serve_problem
+
+    factor = ServeConfig(**SERVICE_CFG).oracle_factor
+    for family, _, _ in SERVICE_FAMILIES:
+        ts = [t for t in rep.tenants if t.family == family and t.status == "served"]
+        least = min(t.eps_tilde for t in ts)
+        t = min((t for t in ts if t.eps_tilde == least), key=lambda t: (t.steps, t.tenant))
+        spec = specs[t.tenant]
+        prob = make_serve_problem(family, seed=spec.seed, **dict(spec.problem))
+        X = torch.as_tensor(prob.lane_x0()[None], device=dev)
+        ops = {k: torch.as_tensor(np.asarray(v, np.float32)[None], device=dev)
+               for k, v in prob.lane_operands().items()}
+        for _ in range(t.detect_step):
+            X, _ = prob.update_with_residual_batched(X, **ops)
+        exact = _exact_sigma(prob, X[0])
+        f32 = float(_sigma_np(t.series, float(prob.ord))[t.detect_step])
+        print(f"service {family} {t.tenant} ({t.mode}, K {_lane_K(spec)}, ε̃ {t.eps_tilde:g}, "
+              f"the load's least): at its detect step {t.detect_step} the f64 residual "
+              f"{exact:.3e} = {exact / t.eps_tilde:.3f} ε̃ (its f32 series {f32:.3e}); "
+              f"below {factor:g} ε̃: {exact < factor * t.eps_tilde}")
+        _require(exact < factor * t.eps_tilde,
+                 f"service {family} {t.tenant}: its f64 residual at detection fails the "
+                 f"oracle rule")
+
+
+def _lane_K(spec) -> int:
+    return 0 if spec.mode == "sync" else int(spec.staleness)
+
+
+def _thresholds(t) -> set:
+    import numpy as np
+
+    from repro_torch.core import detection
+
+    return {float(np.float32(detection.for_mode(t.mode, t.eps_tilde).eps)),
+            float(np.float32(t.eps_tilde))}
+
+
+def check_service_verdicts(rep, specs, dev) -> int:
+    """Every served tenant's (detect step, detected residual) is bitwise
+    what ``detection.batched_monitor`` gives on the card on its recorded
+    series: one grid per (mode, norm), the tenants' series as its seeds
+    (padded with +inf after their end: a verdict, once fired, stays)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import detection
+
+    groups = {}
+    for t in rep.tenants:
+        groups.setdefault((t.mode, _service_ord(t.family)), []).append(t)
+    for (mode, ord_), ts in groups.items():
+        T = max(len(t.series) for t in ts)
+        cs = np.full((len(ts), T), np.inf, np.float32)
+        for i, t in enumerate(ts):
+            cs[i, :len(t.series)] = t.series
+        pairs = sorted({(detection.for_mode(mode, t.eps_tilde).eps, t.eps_tilde) for t in ts})
+        Ks = sorted({_lane_K(specs[t.tenant]) for t in ts})
+        Ms = sorted({specs[t.tenant].persistence for t in ts})
+        v = detection.batched_monitor(mode, torch.as_tensor(cs, device=dev),
+                                      [e for e, _ in pairs], Ks, Ms, ord=ord_,
+                                      eps_tilde=[e for _, e in pairs])
+        for i, t in enumerate(ts):
+            cell = (i, pairs.index((detection.for_mode(mode, t.eps_tilde).eps, t.eps_tilde)),
+                    Ks.index(_lane_K(specs[t.tenant])), Ms.index(specs[t.tenant].persistence))
+            got = np.float32(v.detected_residual[cell].item())
+            _require(bool(v.converged[cell]) and int(v.detect_step[cell]) == t.detect_step
+                     and got.tobytes() == np.float32(t.detected_residual).tobytes(),
+                     f"service {t.tenant}: the packed verdict ({t.detect_step}, "
+                     f"{t.detected_residual!r}) is not batched_monitor's on the card "
+                     f"({int(v.detect_step[cell])}, {float(got)!r})")
+    return len(groups)
+
+
+def check_replay_vs_eager(dev) -> None:
+    """One chunk of a two-lane bucket per family, replayed from its CUDA
+    graph, is bitwise the same chunk run eagerly on a copy of its buffers;
+    then lane 1 is refilled in place (another seed) in both, a second chunk
+    runs, and again the two agree bitwise, with lane 0 carried through the
+    refill bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.launch.serve import make_serve_problem
+
+    chunk, ring = SERVICE_CFG["chunk"], SERVICE_CFG["max_staleness"] + 1
+    for family, variants, grid in SERVICE_FAMILIES:
+        kw = variants[-1]
+        probs = [make_serve_problem(family, seed=s, **kw) for s in (0, 1, 2)]
+        p0 = probs[0]
+
+        def step(Xc, o, p0=p0):
+            return p0.update_with_residual_batched(Xc, **o)
+
+        X, ops = _lane_buffers(probs[:2], dev)
+        state = detection.init_lanes(2, ring, dev)
+        X2, ops2 = X.clone(), {k: v.clone() for k, v in ops.items()}
+        state2 = detection.LaneState(*(t.clone() for t in state))
+        f32 = dict(dtype=torch.float32, device=dev)
+        eps = torch.tensor([grid[0] / 10, grid[-1]], **f32)
+        epst = torch.tensor([grid[0], grid[-1]], **f32)
+        K = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+        m = torch.tensor([2, 4], dtype=torch.int32, device=dev)
+        run = detection.make_lane_runner("nfais5", step, chunk, ord=float(p0.ord))
+        same = []
+        for r in range(2):
+            cg = run(X, ops, state, eps, epst, K, m)[2]
+            ce = run.run_eager(X2, ops2, state2, eps, epst, K, m)[2]
+            same.append(torch.equal(cg, ce) and torch.equal(X, X2)
+                        and all(torch.equal(a, b) for a, b in zip(state, state2)))
+            if r == 0:
+                lane0 = (X[0].clone(), [t[0].clone() for t in state])
+                for XX, OO, SS in ((X, ops, state), (X2, ops2, state2)):
+                    XX[1].copy_(torch.as_tensor(probs[2].lane_x0()))
+                    for k, v in probs[2].lane_operands().items():
+                        OO[k][1].copy_(torch.as_tensor(np.asarray(v, np.float32)))
+                    for dst, src in zip(SS, detection.reset_lanes(SS, [False, True])):
+                        dst.copy_(src)
+                same.append(torch.equal(X[0], lane0[0])
+                            and all(torch.equal(t[0], v) for t, v in zip(state, lane0[1])))
+        print(f"service {family} {kw}: a chunk replayed from its CUDA graph vs run eagerly, "
+              f"twice with lane 1 refilled in place between: bitwise {all(same)}")
+        _require(all(same), f"service {family}: graph replay is not bitwise the eager chunk")
+        del X, ops, X2, ops2, run
+    torch.cuda.empty_cache()
+
+
+def check_cpu_rerun(rep, specs, floors) -> None:
+    """One tenant per family, rerun alone through ``serve_detection`` on the
+    CPU (the plain versions): the same status and detect step, and the
+    series within ``SERVICE_RTOL`` plus twice the family's f32 floor and
+    four f32 units of the tenant's first residual.  The tenant is the one
+    with the fewest steps whose thresholds sit further from its series, at
+    every check up to its detection, than that bar: for it, equal verdicts
+    are what the precision predicts."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeConfig, _sigma_np, serve_detection
+
+    for family, _, _ in SERVICE_FAMILIES:
+        rtol, ord_ = SERVICE_RTOL[family], _service_ord(family)
+
+        def bar(t, sig):
+            return rtol * np.abs(sig) + 2 * floors[family][0] + 4 * 2.0 ** -24 * sig[0]
+
+        def clear(t):
+            sig = _sigma_np(t.series, ord_)
+            end = t.detect_step + 1
+            return all(np.all(np.abs(sig[:end] - thr) > bar(t, sig)[:end])
+                       for thr in _thresholds(t))
+
+        cands = sorted((t for t in rep.tenants if t.family == family and clear(t)),
+                       key=lambda t: (t.steps, t.tenant))
+        _require(bool(cands), f"service {family}: no tenant keeps its thresholds clear of "
+                              f"the rounding bar")
+        t = cands[0]
+        t0 = time.perf_counter()
+        (c,) = serve_detection([(specs[t.tenant], 0)], ServeConfig(**SERVICE_CFG),
+                               device="cpu").tenants
+        cpu_s = time.perf_counter() - t0
+        card, cpu = _sigma_np(t.series, ord_), _sigma_np(c.series, ord_)
+        ok_len = len(card) == len(cpu)
+        gap = np.abs(card - cpu) if ok_len else np.array([np.inf])
+        within = ok_len and bool(np.all(gap <= bar(t, cpu)))
+        rel = float(np.max(gap / np.abs(cpu))) if ok_len else float("inf")
+        print(f"service {family} {t.tenant} ({t.mode}, ε̃ {t.eps_tilde:g}, "
+              f"{len(cands)} of its tenants clear of the bar) rerun on the CPU in "
+              f"{cpu_s:.1f} s: status {c.status} / card {t.status}, detect step "
+              f"{c.detect_step} / {t.detect_step}; series max|Δ| {gap.max():.3e}, max rel "
+              f"{rel:.3e}, within rtol {rtol:g} + 2·floor + 4·2^-24·r0: {within}")
+        _require(c.status == t.status and c.detect_step == t.detect_step,
+                 f"service {family} {t.tenant}: the CPU rerun's verdict differs from the card's")
+        _require(within, f"service {family} {t.tenant}: the CPU series departs from the card's")
+
+
+def check_service_launches(rep, specs, used) -> dict:
+    """The launches the path counted are the ones its chunks made: per
+    bucket, one warm-up step before its capture plus ``chunk`` steps for
+    each tick it was busy (a tenant occupies its lane from its admit tick to
+    the tick before its done tick), times each step's launches (a stencil
+    kernel per lane for convdiff, one #5 launch for a PageRank bucket)."""
+    busy, per_step = {}, {}
+    lanes = SERVICE_CFG["lanes"]
+    for t in rep.tenants:
+        busy.setdefault(t.signature, set()).update(range(t.admit_tick, t.done_tick))
+        spec = specs[t.tenant]
+        if t.family == "convdiff":
+            k = ("fused_sweep_residual" if spec.problem["sweep"] == "jacobi"
+                 else "fused_rbgs_sweep_residual")
+            per_step[t.signature] = (k, lanes)
+        elif t.family == "pagerank":
+            per_step[t.signature] = ("diff_norm_partials", 1)
+    want = dict.fromkeys(SERVICE_KERNELS, 0)
+    for sig, (k, n) in per_step.items():
+        want[k] += n * (1 + SERVICE_CFG["chunk"] * len(busy[sig]))
+    got = {k: used[k] for k in SERVICE_KERNELS}
+    print(f"service launches: counted {json.dumps(got)}, from the buckets' busy ticks "
+          f"{json.dumps(want)}")
+    _require(got == want, "service: the launch counters do not count the graph replays")
+    return want
+
+
+def verify_service(run: ServiceRun, used: dict, dev) -> None:
+    """Phase 11's checks and numbers (see the module docstring)."""
+    from repro_torch.launch.serve import ServeConfig, signature_key, signature_of
+
+    rep, cfg = run.rep, ServeConfig(**SERVICE_CFG)
+    specs = {spec.tenant: spec for spec, _ in run.reqs}
+    sigs = {signature_key(signature_of(spec, cfg)) for spec in specs.values()}
+    modes = {spec.mode for spec in specs.values()}
+    first = {}
+    for t in rep.tenants:
+        first[t.signature] = min(first.get(t.signature, t.admit_tick), t.admit_tick)
+    cold = sum(t.admit_tick == first[t.signature] for t in rep.tenants)
+    tp = rep.throughput
+    print(f"service: {len(specs)} tenants ({', '.join(sorted(modes))}), {rep.served} served, "
+          f"{rep.rejected} rejected, {rep.shed} shed, {rep.timeouts} timeouts, "
+          f"{rep.false_detections} false detections (oracle-scored); {rep.ticks} ticks; "
+          f"ttd ticks {rep.ttd_ticks}, queue-wait ticks {rep.queue_wait_ticks}; "
+          f"{tp['tenants_per_s']:.3f} tenants/s over {rep.wall_s:.3f} s of ticks "
+          f"({tp['ms_per_tick']:.3f} ms per tick); lane-steps/s "
+          + ", ".join(f"{f} {tp['lane_steps_per_s/' + f]:.1f}" for f, _, _ in SERVICE_FAMILIES)
+          + f"; serve_detection {run.wall:.2f} s with problem construction; compile_count "
+          f"{rep.compile_count} for {len(sigs)} signatures, warm hits {rep.warm_hits} "
+          f"(tenants − compile_count {len(specs) - rep.compile_count}; admitted at a bucket's "
+          f"creation {cold})")
+    start, ticks = SERVICE_PROFILE
+    b = dict(run.breakdown)
+    steps = b.pop("profiler steps")
+    print("service ticks' wall: " + ", ".join(f"{k} {v:.3f} s" for k, v in b.items())
+          + f" (of {rep.wall_s:.3f} s); outside the ticks {run.wall - rep.wall_s:.3f} s: "
+          f"the profiler's steps {steps:.3f} s, the rest submission (the seeded problems "
+          f"built on the host) and the report")
+    print(f"profile service, ticks {start}–{start + ticks - 1}: kernels {run.kernel_s:.4f} s and "
+          f"copies {run.copy_s:.4f} s over {run.window_s:.4f} s of ticks (device busy "
+          f"{100 * (run.kernel_s + run.copy_s) / run.window_s:.1f}%, kernels alone "
+          f"{100 * run.kernel_s / run.window_s:.1f}%); top rows by device time:")
+    for dev_us, count, key in run.top:
+        print(f"  {dev_us / 1e3:9.3f} ms  {count:6d}×  {key[:90]}")
+    print(f"service card: {nvidia_smi()}")
+    _require(rep.served == len(specs) and not (rep.timeouts or rep.rejected or rep.shed),
+             "service: not every tenant was served")
+    _require(rep.false_detections == 0, "service: a false detection")
+    _require(modes == set(SERVICE_MODES), "service: the load lacks a mode")
+    _require(rep.compile_count == len(sigs), "service: compile_count is not the number of "
+                                             "distinct signatures")
+    _require(rep.warm_hits == rep.served - cold, "service: warm hits do not follow the rule "
+                                                 "(every admission into a live bucket)")
+    # in this load each bucket's creation admits one tenant, so every other
+    # admission is a warm hit
+    _require(rep.warm_hits == len(specs) - rep.compile_count,
+             "service: warm hits are not tenants − compile_count")
+    check_service_launches(rep, specs, used)
+    t0 = time.perf_counter()
+    groups = check_service_verdicts(rep, specs, dev)
+    print(f"service: every packed verdict bitwise batched_monitor's on the card on the "
+          f"tenant's recorded series ({groups} (mode, norm) grids, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    floors = service_floors(dev)
+    print(f"service floors measured in {time.perf_counter() - t0:.1f} s")
+    for family, _, grid in SERVICE_FAMILIES:
+        floor, exact, r0 = floors[family]
+        eps, worst = min(grid) / 10.0, max(floor, exact)
+        print(f"service floors {family}: f32 {floor:.3e} (largest σ over the last "
+              f"{FLOOR_STEPS // 4} of {FLOOR_STEPS} steps, seeds {FLOOR_SEEDS}, every "
+              f"variant; first residual {min(r0):.3f}–{max(r0):.3f}), f64 {exact:.3e} (the "
+              f"final f32 states' exact residual); the grid's least ε after the PFAIT "
+              f"margin {eps:g} = {eps / worst if worst else float('inf'):.1f} × the larger")
+        _require(eps >= 3 * worst, f"service {family}: the ε̃ grid is not 3× above the "
+                                   f"larger floor after the margin")
+    check_exact_at_detection(rep, specs, dev)
+    t0 = time.perf_counter()
+    check_replay_vs_eager(dev)
+    print(f"service replay vs eager checked in {time.perf_counter() - t0:.1f} s")
+    check_cpu_rerun(rep, specs, floors)
+
+
 def warm_serve(dev) -> None:
     """A short serve at the same width and prompt length before the main
     paths (its launches are not counted), so the counted serve run is warm;
@@ -1543,7 +2068,7 @@ KERNELS = {
     "flash_attention_flat": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention/flash_attention.py:90"),
 }
-# the main paths (phases 4–8) and the kernels each must launch
+# the main paths (phases 4–9 and 11) and the kernels each must launch
 PATHS = (
     ("solve_single", run_solver, ("fused_sweep_residual", "fused_rbgs_sweep_residual")),
     ("1-D shard runtime", run_shards,
@@ -1555,6 +2080,7 @@ PATHS = (
     # the stacked twins run in this process; the kernels are required of
     # the launches inside the worlds
     ("distributed shard runtime", run_distributed, DIST_KERNELS),
+    ("detection service", run_service, SERVICE_KERNELS),
 )
 
 
@@ -1625,19 +2151,23 @@ def main() -> int:
             _require(need.get(k, 0) > 0, f"{k}: not launched on the {path} path")
         for k in launches:
             launches[k] += used[k]
-    checked = {k: set((HALO_SHAPES if "halo" in k else SHAPES).values())
-               for k, _ in shape_launches}
-    unchecked = sorted(f"{k} {_shape_str(s)}" for k, s in shape_launches
-                       if s not in checked[k])
+    # phase 2 holds each stencil kernel at every shape of its dict in f64
+    # and in f32
+    checked = {(k, shape, dt) for k, _, _ in shape_launches
+               for shape in (HALO_SHAPES if "halo" in k else SHAPES).values()
+               for dt in ("f64", "f32")}
+    unchecked = sorted(f"{k} {_shape_str(s)} {dt}" for k, s, dt in shape_launches
+                       if (k, s, dt) not in checked)
     _require(not unchecked, f"main-path launches at shapes never held against the "
                             f"plain version: {unchecked}")
-    print(f"every (stencil kernel, block shape) the main paths launched, in this process "
-          f"and inside the worlds ({len(shape_launches)} pairs), was held against its "
-          f"plain version above")
+    print(f"every (stencil kernel, block shape, dtype) the main paths launched, in this "
+          f"process and inside the worlds ({len(shape_launches)} triples), was held "
+          f"against its plain version above")
     verify_runs(*(runs[path] for path, _, _ in PATHS[:3]), runs["distributed shard runtime"].twins)
     verify_serve(runs["serve"], used_by["serve"], dev)
     verify_distributed(runs["distributed shard runtime"], runs, nvidia_smi())
     verify_pagerank(runs["pagerank shard runtime"], runs["1-D shard runtime"])
+    verify_service(runs["detection service"], used_by["detection service"], dev)
     rank_launches(st, dev, shape_launches, times)
 
     rows = []

@@ -13,13 +13,14 @@ Every C entry point takes pointers and the CUDA stream as ``void*``, returns
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, MutableMapping, Sequence
 
 import torch
 
@@ -30,6 +31,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: every wrapper module's launch counters (its ``LAUNCHES``, and
+#: ``LAUNCH_SHAPES`` where it keeps one), registered at import, so that a
+#: ``CountedGraph``'s replays can count the launches it captured
+COUNTERS: List[MutableMapping] = []
 
 #: ctypes argument codes used in the ``signatures`` tables of the wrappers
 PTR, INT, LONG, DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
@@ -98,6 +104,45 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def register_counters(*counters: MutableMapping) -> None:
+    """Register a wrapper module's launch counters in ``COUNTERS``."""
+    COUNTERS.extend(counters)
+
+
+def _snapshot() -> List[Dict]:
+    return [dict(c) for c in COUNTERS]
+
+
+def _add(delta: List[Dict], sign: int) -> None:
+    for c, d in zip(COUNTERS, delta):
+        for k, v in d.items():
+            c[k] += sign * v
+
+
+class CountedGraph:
+    """A CUDA graph whose every replay adds the kernel launches its capture
+    recorded to the registered counters.  A capture launches nothing, so
+    ``capture`` takes back what the wrappers counted while it ran."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self._delta: List[Dict] = []
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = _snapshot()
+        with torch.cuda.graph(self.graph):
+            yield
+        before += [{}] * (len(COUNTERS) - len(before))
+        self._delta = [{k: v - b.get(k, 0) for k, v in c.items() if v != b.get(k, 0)}
+                       for c, b in zip(COUNTERS, before)]
+        _add(self._delta, -1)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _add(self._delta, 1)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -23,6 +23,8 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIGNATURES = {f"flash_attention_{s}": (PTR,) * 4 + (INT,) * 7 + (PTR,)
                for s in _SUFFIX.values()}
 
+_build.register_counters(LAUNCHES)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:

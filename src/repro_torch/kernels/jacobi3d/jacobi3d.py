@@ -8,7 +8,8 @@ goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
 or raises.  ``LAUNCHES`` counts kernel launches (only
 launches — the CPU path does not count), so a run can show that its main
 path went through the kernels; ``LAUNCH_SHAPES`` counts the same launches
-by (kernel, block shape), so a run can price them at each shape's time.
+by (kernel, block shape, dtype), so a run can price them at each shape's
+time in their own type.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ LAUNCHES: Dict[str, int] = {"fused_sweep_residual": 0,
                             "fused_rbgs_sweep_residual": 0,
                             "fused_sweep_residual_halo": 0,
                             "fused_rbgs_sweep_residual_halo": 0}
-LAUNCH_SHAPES: Counter = Counter()   # (kernel, (bx, by, bz)) -> launches
+LAUNCH_SHAPES: Counter = Counter()   # (kernel, (bx, by, bz), "f64"/"f32") -> launches
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _PLANES = ("gxm", "gxp", "gym", "gyp", "gzm", "gzp")
@@ -50,6 +51,8 @@ _SOURCES = {
 _SOURCE_OF = {k: src for src, (kernels, _) in _SOURCES.items() for k in kernels}
 _SIGNATURES = {src: {f"{k}_{s}": sig for k in kernels for s in _SUFFIX.values()}
                for src, (kernels, sig) in _SOURCES.items()}
+
+_build.register_counters(LAUNCHES, LAUNCH_SHAPES)
 
 
 def reset_launches() -> None:
@@ -109,7 +112,7 @@ def _launch(kernel: str, ins: Sequence[torch.Tensor], b, out: Optional[torch.Ten
                  torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(err, kernel)
     LAUNCHES[kernel] += 1
-    LAUNCH_SHAPES[kernel, (bx, by, bz)] += 1
+    LAUNCH_SHAPES[kernel, (bx, by, bz), _SUFFIX[b.dtype]] += 1
     return parts
 
 

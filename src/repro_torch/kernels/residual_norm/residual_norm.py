@@ -21,6 +21,8 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIGNATURES = {f"diff_norm_partials_{s}": (PTR, PTR, PTR, LONG, LONG, INT, PTR)
                for s in _SUFFIX.values()}
 
+_build.register_counters(LAUNCHES)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:

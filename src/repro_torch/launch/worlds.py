@@ -10,7 +10,7 @@ own block.  It returns host values only: per case the iterations, the
 detection, the trace, a digest of ``x`` (and ``x`` itself from rank 0),
 the wall time of the timed run, and over the case's ``runs`` runs (``api``
 runs twice: build and timed) the kernel launches made, the stencil
-launches by block shape (``jacobi3d.LAUNCH_SHAPES``) and the bytes the
+launches by block shape and dtype (``jacobi3d.LAUNCH_SHAPES``) and the bytes the
 gloo transport staged through host memory.
 
     from repro_torch.launch.mesh import spawn_world

@@ -11,12 +11,14 @@
   ``ShardGroup``, each rank its own block), builds the shard runtime of a
   problem family (``shard_runtime.make_runtime``) and runs it.
   Trace recording attaches here (``record_trace=True``).
+* ``TenantReport`` / ``ServeReport`` — what the multi-tenant detection
+  service (``launch/serve.py``) reports, per tenant and for the service.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,6 +101,75 @@ class RunReport:
     def wall_s(self) -> float:
         """Total wall seconds across all measured run segments."""
         return float(sum(s for _, s in self.wall_segments))
+
+
+@dataclass
+class TenantReport:
+    """Per-tenant outcome of one detection-service solve (``launch/serve.py``).
+
+    ``status`` is the tenant's terminal state: ``"served"`` (detection
+    fired), ``"timeout"`` (step budget exhausted without detection),
+    ``"rejected"`` (failed admission validation — ``error``/``reason``
+    carry the structured cause), or ``"shed"`` (still queued when the
+    service shut down).  Tick fields are in service ticks (one tick = one
+    ``chunk`` of device steps per lane bucket) and are deterministic for a
+    seeded load; ``detect_step`` is the lane-local check index, bitwise
+    comparable to a solo ``detection.batched_monitor`` run over
+    ``series``, the raw (pre-σ, f32) contribution series the lane produced
+    (None for a tenant that never ran).
+    """
+
+    tenant: str
+    status: str
+    family: str = ""
+    mode: str = ""
+    eps_tilde: float = float("nan")
+    converged: bool = False
+    detect_step: Optional[int] = None
+    detected_residual: Optional[float] = None
+    steps: int = 0                       # device steps executed
+    arrival_tick: int = 0
+    admit_tick: Optional[int] = None
+    done_tick: Optional[int] = None
+    queue_wait_ticks: Optional[int] = None
+    ttd_ticks: Optional[int] = None      # time-to-detection, arrival → done
+    oracle_step: Optional[int] = None    # first true crossing below ε̃
+    false_detection: bool = False
+    signature: str = ""                  # executable key (warm-sharing id)
+    error: Optional[str] = None          # rejection code
+    reason: Optional[str] = None         # rejection detail
+    series: Optional[np.ndarray] = field(repr=False, default=None)
+
+
+@dataclass
+class ServeReport(RunReport):
+    """Service-level ``RunReport`` of a multi-tenant detection campaign.
+
+    The inherited fields take their service-level meaning: ``converged``
+    is True iff every admitted tenant's detection fired (no timeouts),
+    ``outer_iters`` counts service ticks, ``wall_segments`` holds the
+    single ``("serve", seconds)`` segment (the ticks' wall time), and
+    ``x``/``trace`` are unused.  ``queue_wait_ticks``/``ttd_ticks`` are
+    nearest-rank p50/p95/p99 percentile dicts over served tenants.
+    ``compile_count`` counts lane runners built, one per signature (on the
+    card, one CUDA-graph capture each).  ``throughput`` holds tenants per
+    tick and per second, ms per tick, and per family the lane-steps per
+    second of its buckets' chunks, captures excluded
+    (``"lane_steps_per_s/<family>"``).
+    """
+
+    tenants: List[TenantReport] = field(default_factory=list)
+    served: int = 0
+    rejected: int = 0
+    shed: int = 0
+    timeouts: int = 0
+    false_detections: int = 0
+    compile_count: int = 0               # distinct lane runners built
+    warm_hits: int = 0                   # admissions served by a live runner
+    ticks: int = 0
+    queue_wait_ticks: Dict[str, float] = field(default_factory=dict)
+    ttd_ticks: Dict[str, float] = field(default_factory=dict)
+    throughput: Dict[str, float] = field(default_factory=dict)
 
 
 def _history(trace_arr, outer: int, tlen: int) -> np.ndarray:

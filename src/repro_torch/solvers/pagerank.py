@@ -21,6 +21,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.residual_norm.residual_norm import diff_norm_partials
 
 
 class PageRankProblem:
@@ -87,3 +91,38 @@ class PageRankProblem:
         if self.ord == 1.0:
             return float(np.abs(r).sum())
         return float(np.sum(np.abs(r) ** self.ord) ** (1.0 / self.ord))
+
+    # -- batched device path (the detection lanes) ---------------------------
+    def update_with_residual_batched(self, X: torch.Tensor, P=None):
+        """One synchronous global D-iteration step of every lane, with each
+        lane's pre-step residual contribution.
+
+        ``X`` — ``[B, n]`` lane states; ``P`` — the dense operator, ``[n, n]``
+        or one per lane ``[B, n, n]`` (this instance's by default).  ``Y =
+        d·P x + v`` is a library product (``torch.mm``/``torch.bmm``), as in
+        the JAX package; the contribution of ``R = Y − X`` (Σ|r|^l, max|r|
+        for l∞) comes from one launch of the diff-norm kernel over all lanes
+        (a partial per lane) for l ∈ {1, 2, ∞}.  Other orders raise on the
+        card and are reduced plainly on the CPU.  Returns ``(Y, contrib[B])``.
+        """
+        P = torch.as_tensor(self.to_dense() if P is None else P, dtype=X.dtype,
+                            device=X.device)
+        if P.dim() == 2:
+            Y = self.d * (X @ P.T) + self.v
+        else:
+            Y = self.d * torch.bmm(P, X.unsqueeze(-1)).squeeze(-1) + self.v
+        if float(self.ord) in (1.0, 2.0, float("inf")) or _build.on_cuda(X, Y):
+            contrib = diff_norm_partials(Y, X, block=self.n, ord=self.ord)
+        else:
+            contrib = ((Y - X).abs() ** self.ord).sum(dim=-1)
+        return Y, contrib
+
+    def lane_x0(self) -> np.ndarray:
+        """Initial state of one detection-service lane (f32, uniform)."""
+        return np.full((self.n,), 1.0 / self.n, np.float32)
+
+    def lane_operands(self) -> dict:
+        """This instance's per-lane operands for the batched step: the
+        seeded graph's operator (f32).  ``v`` and the damping are shape-
+        bucket constants shared from any instance."""
+        return {"P": np.asarray(self.to_dense(), np.float32)}

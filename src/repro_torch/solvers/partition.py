@@ -1,4 +1,9 @@
-"""Partition of the convection–diffusion grid over a 1-D/2-D/3-D shard mesh.
+"""Partition of the convection–diffusion grid over a process grid or a
+1-D/2-D/3-D shard mesh.
+
+``GridPartition`` is the paper's fixed ``px × py`` (x, y)-plane grid with
+the whole z-interval local (§4.1); ``process_grid`` factors p into it.
+``ConvDiffProblem`` validates its ``(n, p)`` against them.
 
 ``MeshPartition`` is the geometry the mesh shard runtime builds against:
 per-shard blocks and offsets, row-major rank ↔ coords, face-neighbour
@@ -13,6 +18,79 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
+
+def process_grid(p: int) -> Tuple[int, int]:
+    """Factor p into the most-square (px, py) grid (the paper uses 2-D grids)."""
+    best = (p, 1)
+    for px in range(1, int(math.isqrt(p)) + 1):
+        if p % px == 0:
+            best = (p // px, px)
+    return best
+
+
+@dataclass(frozen=True)
+class GridPartition:
+    """Partition of an ``n × n × n`` interior grid over a ``px × py`` grid."""
+
+    n: int
+    px: int
+    py: int
+
+    def __post_init__(self):
+        if self.n % self.px or self.n % self.py:
+            raise ValueError(f"n={self.n} not divisible by ({self.px},{self.py})")
+
+    @property
+    def p(self) -> int:
+        """Total subdomain count px x py."""
+        return self.px * self.py
+
+    @property
+    def block(self) -> Tuple[int, int, int]:
+        """Per-subdomain block extents (x, y, full z pencil)."""
+        return (self.n // self.px, self.n // self.py, self.n)
+
+    def coords(self, i: int) -> Tuple[int, int]:
+        """Row-major (cx, cy) grid coordinates of rank i."""
+        return divmod(i, self.py)
+
+    def rank(self, cx: int, cy: int) -> int:
+        """Row-major rank of grid coordinates (cx, cy)."""
+        return cx * self.py + cy
+
+    def neighbors(self, i: int) -> List[int]:
+        """Face-adjacent ranks of subdomain i (4-neighbourhood)."""
+        cx, cy = self.coords(i)
+        out = []
+        if cx > 0:
+            out.append(self.rank(cx - 1, cy))
+        if cx < self.px - 1:
+            out.append(self.rank(cx + 1, cy))
+        if cy > 0:
+            out.append(self.rank(cx, cy - 1))
+        if cy < self.py - 1:
+            out.append(self.rank(cx, cy + 1))
+        return out
+
+    def side(self, i: int, j: int) -> str:
+        """Which face of subdomain i touches neighbour j: x-|x+|y-|y+."""
+        (cx, cy), (dx, dy) = self.coords(i), self.coords(j)
+        if dx == cx - 1 and dy == cy:
+            return "x-"
+        if dx == cx + 1 and dy == cy:
+            return "x+"
+        if dx == cx and dy == cy - 1:
+            return "y-"
+        if dx == cx and dy == cy + 1:
+            return "y+"
+        raise ValueError(f"{j} is not a neighbour of {i}")
+
+    def offsets(self, i: int) -> Tuple[int, int]:
+        """Global (x, y) grid offsets of subdomain i's block origin."""
+        cx, cy = self.coords(i)
+        bx, by, _ = self.block
+        return (cx * bx, cy * by)
+
 
 #: face labels per grid axis, (minus, plus) — the exchange vocabulary
 FACES = (("x-", "x+"), ("y-", "y+"), ("z-", "z+"))

@@ -654,3 +654,108 @@ def test_diff_norm_nan_propagates_on_card(card):
     for ord in ORDS:
         got = trk.diff_norm_partials(a, b, ord=ord)
         assert got.isnan().tolist() == [i == 1 for i in range(9)]
+
+
+# ---------------------------------------------------------------------------
+# detection lanes: the lane runner on the card (one CUDA graph per runner)
+# ---------------------------------------------------------------------------
+
+LANE_FAMILIES = [("convdiff", {"n": 12, "p": 4, "rho": 0.9, "sweep": "jacobi"}),
+                 ("convdiff", {"n": 12, "p": 4, "rho": 0.9, "sweep": "hybrid"}),
+                 ("pagerank", {"n": 256, "p": 4}),
+                 ("mlfixed", {"n": 64, "p": 4, "m_rows": 192, "task": "lstsq", "cond": 10.0}),
+                 ("mlfixed", {"n": 64, "p": 4, "m_rows": 192, "task": "logistic",
+                              "cond": 10.0})]
+
+
+def _lanes(family, kw, seeds, device):
+    """The problems of ``seeds`` and a two-lane bucket's buffers for the
+    first two: X, operands, lane state and the per-lane ε / ε̃ / K / m (lane
+    0 detects, lane 1 never: ε = −1)."""
+    probs = [tserve.make_serve_problem(family, seed=s, **kw) for s in seeds]
+    X = torch.as_tensor(np.stack([p.lane_x0() for p in probs[:2]]), device=device)
+    ops = {k: torch.as_tensor(np.stack([np.asarray(p.lane_operands()[k], np.float32)
+                                        for p in probs[:2]]), device=device)
+           for k in probs[0].lane_operands()}
+    f32 = dict(dtype=torch.float32, device=device)
+    params = (torch.tensor([1e-4, -1.0], **f32), torch.tensor([1e-3, -1.0], **f32),
+              torch.tensor([2, 0], dtype=torch.int32, device=device),
+              torch.tensor([2, 1], dtype=torch.int32, device=device))
+    return probs, X, ops, detection.init_lanes(2, 4, device), params
+
+
+def _runner(probs):
+    p0 = probs[0]
+    return detection.make_lane_runner(
+        "nfais5", lambda X, o: p0.update_with_residual_batched(X, **o), 16, ord=float(p0.ord))
+
+
+# Card series against CPU series, after σ: rtol 1e-5 for a max (convdiff's
+# l∞), 2e-5 for a sum, plus twice the family's f32 residual floor at these
+# sizes (the largest σ over the last 512 of 2048 lane steps of seeds 0 and
+# 1 on the CPU plain path: convdiff 7.2e-7, PageRank 2.8e-9, mlfixed
+# 2.0e-7) and four f32 units of the first residual: near the floor the
+# kernels and the plain versions round differently, and the first residual
+# sets the scale of the terms a step sums.
+LANE_RTOL = {"convdiff": 1e-5, "pagerank": 2e-5, "mlfixed": 2e-5}
+LANE_FLOOR = {"convdiff": 7.2e-7, "pagerank": 2.8e-9, "mlfixed": 2.0e-7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", LANE_FAMILIES)
+def test_lane_runner_on_card_matches_cpu(card, family, kw):
+    """Three chunks replayed from the card's graph against the same chunks
+    eagerly on the CPU (the plain versions): states within rtol 1e-5, the
+    σ-applied series within the family's ``LANE_RTOL`` plus twice its
+    ``LANE_FLOOR`` and 4·2^-24 of its first residual, the same checks
+    counted."""
+    _, Xc, opsc, stc, pc = _lanes(family, kw, (0, 1), "cpu")
+    probs, X, ops, st, p = _lanes(family, kw, (0, 1), card)
+    run_card, run_cpu = _runner(probs), _runner(probs)
+    ord_, atol = float(probs[0].ord), None
+    for _ in range(3):
+        got = tserve._sigma_np(run_card(X, ops, st, *p)[2].cpu().numpy(), ord_)
+        want = tserve._sigma_np(run_cpu(Xc, opsc, stc, *pc)[2].numpy(), ord_)
+        if atol is None:
+            atol = 2 * LANE_FLOOR[family] + 4 * 2.0 ** -24 * float(want[:, 0].max())
+        np.testing.assert_allclose(got, want, rtol=LANE_RTOL[family], atol=atol)
+    assert run_card.captured is not None and run_cpu.captured is None
+    torch.testing.assert_close(X.cpu(), Xc, rtol=1e-5, atol=1e-6)
+    assert torch.equal(st.step.cpu(), stc.step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", LANE_FAMILIES)
+def test_lane_graph_replay_is_bitwise_eager_with_refill(card, family, kw):
+    """A chunk replayed from the graph is bitwise the chunk run eagerly on
+    the card; lane 1 refilled in place between two replays (another seed)
+    leaves lane 0 bitwise; each replay counts its kernel launches."""
+    probs, X, ops, st, p = _lanes(family, kw, (0, 1, 2), card)
+    X2, ops2 = X.clone(), {k: v.clone() for k, v in ops.items()}
+    st2 = detection.LaneState(*(t.clone() for t in st))
+    graph = _runner(probs)
+    counters = {**tk.LAUNCHES, **trk.LAUNCHES}
+    for r in range(2):
+        cg, ce = graph(X, ops, st, *p)[2], graph.run_eager(X2, ops2, st2, *p)[2]
+        assert torch.equal(cg, ce) and torch.equal(X, X2)
+        assert all(torch.equal(a, b) for a, b in zip(st, st2))
+        if r == 0:
+            lane0 = [X[0].clone()] + [t[0].clone() for t in st]
+            for XX, OO, SS in ((X, ops, st), (X2, ops2, st2)):
+                XX[1].copy_(torch.as_tensor(probs[2].lane_x0()))
+                for k, v in probs[2].lane_operands().items():
+                    OO[k][1].copy_(torch.as_tensor(np.asarray(v, np.float32)))
+                for dst, src in zip(SS, detection.reset_lanes(SS, [False, True])):
+                    dst.copy_(src)
+            assert torch.equal(X[0], lane0[0])
+            assert all(torch.equal(t[0], v) for t, v in zip(st, lane0[1:]))
+    # a step launches a stencil kernel per lane (convdiff) or #5 once
+    # (PageRank); the capture's warm-up step launches once, each replay and
+    # each eager chunk 16 steps' worth
+    kernel, per_step = {"jacobi": ("fused_sweep_residual", 2),
+                        "hybrid": ("fused_rbgs_sweep_residual", 2)}.get(
+        kw.get("sweep"), ("diff_norm_partials", 1 if family == "pagerank" else 0))
+    made = {k: v - counters[k] for k, v in {**tk.LAUNCHES, **trk.LAUNCHES}.items()}
+    assert made == {k: (per_step * (1 + 4 * 16) if k == kernel else 0) for k in made}
+    with pytest.raises(ValueError, match="captured"):
+        graph(X2, ops2, st2, *p)

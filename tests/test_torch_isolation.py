@@ -42,6 +42,7 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.launch.mesh" in names, names
     assert "repro_torch.launch.worlds" in names, names
     assert "repro_torch.runtime.transport" in names, names
+    assert "repro_torch.solvers.mlfixed" in names, names
     print("ISOLATED", len(names))
 """)
 
@@ -78,6 +79,17 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
                       np.full(4, 0.25), np.eye(4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.serve("qwen2-1.5b", batch=1, prompt_len=4, max_new=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.serve_detection([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.DetectionService()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        detection.init_lanes(2, 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        detection.batched_monitor("pfait", np.ones((1, 4), np.float32), [1e-3], [0], [1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        detection.batched_monitor("pfait", torch.ones(1, 4), [1e-3], [0], [1])
+    assert detection.init_lanes(2, 3, "cpu").step.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Model(reduced(get_arch("qwen2-1.5b")))
     assert Model(reduced(get_arch("qwen2-1.5b")), device="cpu").device.type == "cpu"
