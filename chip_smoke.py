@@ -75,8 +75,8 @@ Phases, each of which must pass or the script exits non-zero:
    ms - bound ms) over those triples, each timed at its shape in its type;
    print one JSON line of per-kernel numbers, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``;
-11. the detection service, run as the last main path (before phase 10's
-   checks, which cover its launches): a seeded open-loop load of 64
+11. the detection service, run after phase 9 (phase 10's checks, which
+   cover its launches, come after phase 13): a seeded open-loop load of 64
    tenants (Poisson, 2 a tick) over convdiff at n = 150 (Jacobi #1 and
    hybrid #2 lanes, f32), PageRank at n = 4096 (#5 over each bucket) and
    mlfixed at n = 1024 through ``launch.serve.serve_detection`` on the
@@ -94,12 +94,39 @@ Phases, each of which must pass or the script exits non-zero:
    refill; one tenant per family rerun on the CPU must take the same
    verdict.  Prints ticks, time to detection and queue wait percentiles,
    tenants/s, ms per tick, lane-steps/s per family and the device's busy
-   share over ticks 10–13 from ``torch.profiler``.
+   share over ticks 10–13 from ``torch.profiler``;
+12. asynchronous data-parallel training through ``runtime.api.run_train``:
+   ridge least squares at n = 1024 over 262144 rows (a 2 GiB f64 design,
+   512 MiB a worker), p = 4, 8 minibatches of 8192 rows, cond 10, l2,
+   ε̃ = 1e-8 — (a) blocking, (b) non-blocking PFAIT K = 2 with
+   heterogeneous steps, delays and lags, (c) recursive doubling, (d)
+   NFAIS2, (e) logistic at 65536 rows, and (a) at p = 1; (b) again in a
+   gloo world of 4 ranks sharing the card and (a) at p = 1 in an NCCL world
+   of 1, each rank reading its own rows.  Every run must converge with the
+   exact lifted residual of its replicas (``exact_train_residual``, host
+   numpy) under ε̃; (a) must follow ``reference_trace`` round for round
+   and its detection be consistent with its exact trace; each world
+   must equal its stacked twin (X bitwise, the l2 trace within p·2^-24);
+   #5 must launch once a round and verification (a launch over the [p, n]
+   replica stack, or one a rank).  Prints the host build and
+   ``safe_gamma`` times, rounds and ms per round, and a profile of 8
+   rounds of (b);
+13. the elastic driver through ``runtime.api.run_elastic``: convdiff at
+   n = 150 over 6 slots (PFAIT K = 2, Jacobi, inner 2, halo delay 1, lag 1,
+   segments of 40 rounds, a checkpoint every 2) with worker 1 crashing in
+   segment 3 and rejoining after 8, and PageRank at n = 16384 over 4 slots
+   (l1, ε̃ = 1e-9, segments of 5) with worker 2 crashing in segment 2 and
+   rejoining after 6: each must restart once after stalling, pass through
+   6 → 5 → 6 and 4 → 2 → 4 shards, converge with the exact residual of its
+   result under ε̃ and write a valid trace; the convdiff restart must roll
+   iterations back.  Prints the recovery accounting, the walls of saves
+   and restores and ms per segment.
 
-Phases 4 to 9 and 11 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 13 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
-path must show launches there (phase 9's in the counters its ranks report;
-phase 11's graph replays add the launches their capture recorded).  Needs
+path must show launches there (phase 9's and phase 12's in the counters
+their ranks report; phase 11's graph replays add the launches their
+capture recorded).  Needs
 CUDA: without a card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -141,23 +168,29 @@ FLASH_CASES = [(48, 8, 2048, 128, True, 0, "bf16"), (48, 8, 2048, 128, True, 0, 
 PAGERANK_N, PAGERANK_P, PAGERANK_EPS = 16384, 4, 1e-9
 PAGERANK_KNOBS = dict(inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 0, 2),
                       contrib_lag=(0, 1, 0, 1))
-# #5's 1-D shapes on that path: a shard's block (one partial, split over a
-# cluster), a ragged block and the whole state
-PAGERANK_VECTORS = (4096, 4095, 16384)
+# #5's 1-D shapes on the main paths: a PageRank shard's block (one partial,
+# split over a cluster), a ragged block and the whole state; the block of
+# one of 2 shards (the elastic path after its crash); and the training
+# path's replica of a rank (its stacks are TRAIN_STACKS, below)
+PAGERANK_VECTORS = (4096, 4095, 16384, 8192, 1024)
+# the PageRank problem and its dense operator on the host, drawn by phase 8
+# and run again by phase 13
+_PAGERANK_HOST: dict = {}
 # f64 unit roundoff: two f64 evaluations of Σ|d·P x + v − x| in different
 # summation orders may part by a few units of it times Σ(d·P|x| + v + |x|)
 F64_UNIT = 2.0 ** -53
 
 # shapes the main path gives the kernels: the 185³ single-device grid, the
-# 25×150×150 block of one of 6 shards, the 75×150×150 block of one of 2 and
+# 25×150×150 block of one of 6 shards, the 30×150×150 block of one of 5
+# (the elastic path after its crash), the 75×150×150 block of one of 2 and
 # the whole 150³ grid of one at n = 150 (also a convdiff lane of the
 # detection service, in f32), the 38×152×152 block of one of 4 at
 # n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, and a
 # ragged block.  main() fails if a main path launches #1-#4 at a block
 # shape not listed here (or in HALO_SHAPES for #3/#4)
-SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p2": (75, 150, 150),
-          "p1": (150, 150, 150), "p4": (38, 152, 152), "mesh32": (50, 75, 150),
-          "ragged": (13, 37, 19)}
+SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p5": (30, 150, 150),
+          "p2": (75, 150, 150), "p1": (150, 150, 150), "p4": (38, 152, 152),
+          "mesh32": (50, 75, 150), "ragged": (13, 37, 19)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
 # n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
 # (3, 2) mesh's two overlap face slabs.  The halo Jacobi sweep splits a
@@ -443,6 +476,20 @@ def check_kernels(st, dev, check: Checker) -> None:
         c[n // 3] = float("nan")
         _require(bool(rk.diff_norm_partials(a, c, ord=1.0).isnan().all()),
                  f"diff_norm_partials {n} f64: a NaN does not reach the l1 partial")
+    # the training path's [p, n] f64 replica stacks, a partial per replica
+    # (block n), update differences of a round near convergence
+    for rows, n in TRAIN_STACKS:
+        a = rand((rows, n), torch.float64)
+        c = a + rand((rows, n), torch.float64) * 1e-9
+        for ord_, red in ORDS.items():
+            tag = f"{rows}x{n} block {n} f64 {_ord_tag(ord_)}"
+            got = same_twice("diff_norm_partials", tag,
+                             lambda: (rk.diff_norm_partials(a, c, block=n, ord=ord_),))[0]
+            _require(tuple(got.shape) == (rows,),
+                     f"diff_norm_partials {tag}: {tuple(got.shape)}")
+            check("diff_norm_partials", tag, red, "f64", got,
+                  rref.diff_norm_partials_ref(a, c, block=n, ord=ord_))
+            n_cases += 1
     # the service path's PageRank lanes: [lanes, n] f32 states, a partial per
     # lane (block n), differences of a step near convergence
     lanes, n = SERVICE_PAGERANK_LANES
@@ -461,8 +508,10 @@ def check_kernels(st, dev, check: Checker) -> None:
           f"modes (l∞ max|r|, l2 Σr², l1 Σ|r|); every stencil kernel's output and partials "
           f"and diff_norm_partials' partials bitwise equal across two calls at every shape, "
           f"variant, phase and mode; a NaN in the block reaches the l∞ partial of #1-#4 at "
-          f"{', '.join(NAN_SHAPES)} and #5's l1 partial at the PageRank vectors "
-          f"{', '.join(map(str, PAGERANK_VECTORS))}; #5 at the service's PageRank lanes "
+          f"{', '.join(NAN_SHAPES)} and #5's l1 partial at the 1-D vectors "
+          f"{', '.join(map(str, PAGERANK_VECTORS))}; #5 at the training replica stacks "
+          f"{', '.join('x'.join(map(str, t)) for t in TRAIN_STACKS)} f64, a partial per "
+          f"replica; #5 at the service's PageRank lanes "
           f"{'x'.join(map(str, SERVICE_PAGERANK_LANES))} f32, a partial per lane; the halo "
           f"sweep's six face slabs bitwise the block's "
           f"faces at {'x'.join(map(str, HALO_SHAPES['mesh32']))}")
@@ -766,6 +815,23 @@ def time_kernels(st, dev) -> dict:
         lambda: rref.diff_norm_partials_ref(x, b, ord=1.0), lambda: torch.dist(x, b, 1)),
         _bound(8 * 2 * n + 4, 3 * n), mode=" l1 (one partial)")
     del x, b
+    # the elastic path's PageRank block after its crash (one of 2 shards,
+    # 8192 f64, l1), and the training path's replica stack (a partial per
+    # replica, l2)
+    n = PAGERANK_N // 2
+    x, b = rand((n,)), rand((n,))
+    record("diff_norm_partials", (n,), (
+        lambda: rk.diff_norm_partials(x, b, ord=1.0),
+        lambda: rref.diff_norm_partials_ref(x, b, ord=1.0), lambda: torch.dist(x, b, 1)),
+        _bound(8 * 2 * n + 4, 3 * n), mode=" l1 (one partial)")
+    rows, n = TRAIN_STACKS[0]
+    x, b = rand((rows, n)), rand((rows, n))
+    record("diff_norm_partials", (rows, n), (
+        lambda: rk.diff_norm_partials(x, b, block=n, ord=2.0),
+        lambda: rref.diff_norm_partials_ref(x, b, block=n, ord=2.0),
+        lambda: torch.linalg.vector_norm(x - b, dim=1)),
+        _bound(8 * 2 * rows * n + 4 * rows, 3 * rows * n), mode=" l2 (a partial per row)")
+    del x, b
     # the runtime sweeps its six shards in turn, so each finds its block
     # gone from the L2: six shards' worth of inputs (> 50 MB), taken in turn
     for k, shape in (("fused_sweep_residual_halo", HALO_SHAPES["mesh32"]),
@@ -1058,6 +1124,7 @@ def run_pagerank(dev) -> dict:
     t2 = time.perf_counter()
     P = torch.as_tensor(P_host, device=dev)
     torch.cuda.synchronize()
+    _PAGERANK_HOST.update(prob=prob, P_host=P_host)   # phase 13 runs it again
     print(f"pagerank n = {n}, p = {p}, seed 0: graph draw {t1 - t0:.2f} s, to_dense "
           f"{t2 - t1:.2f} s, placed on the card in {time.perf_counter() - t2:.2f} s "
           f"({P_host.nbytes / 2**30:.1f} GiB f64)")
@@ -2047,6 +2114,356 @@ def verify_runs(solver_runs, shard_runs, mesh_runs, dist_twins=()) -> None:
           f"({1e3 * wall1d / r1d.outer_iters:.3f} ms/step)")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: asynchronous data-parallel training
+# ---------------------------------------------------------------------------
+
+# ridge least squares at n = 1024 over 262144 rows (a 2 GiB f64 design,
+# 512 MiB a worker at p = 4), cond 10, 8 minibatches of 8192 rows a worker;
+# inner steps a multiple of TRAIN_NB, so each round's map is fixed and the
+# residual can reach ε̃; l2, ε̃ = 1e-8, margin 10.  Logistic at 65536 rows
+TRAIN_N, TRAIN_M, TRAIN_P, TRAIN_NB, TRAIN_COND = 1024, 262144, 4, 8, 10.0
+TRAIN_EPS, TRAIN_LOGISTIC_M = 1e-8, 65536
+TRAIN_KNOBS = dict(inner_sweeps=(8, 16, 8, 16), halo_delay=(0, 1, 0, 2),
+                   contrib_lag=(0, 1, 0, 1))
+# #5's shapes on that path: the [p, n] replica stacks at block n (one
+# partial per replica; p = 1 is the NCCL world's twin) and a rank's replica
+TRAIN_STACKS = ((TRAIN_P, TRAIN_N), (1, TRAIN_N))
+TRAIN_PROFILE_ROUNDS = 8
+# the trace recorded by each run (run (a)'s is held to reference_trace)
+TRAIN_TRACE_LEN = 4096
+
+
+class TrainPath(NamedTuple):
+    """The training path: the problems, their step sizes and host build
+    times, the stacked runs (name → (RunReport, p, RuntimeConfig, launches
+    of its two runs)), the worlds' rank reports, and the launches made
+    inside them."""
+
+    probs: dict
+    gammas: dict
+    times: dict
+    runs: dict
+    worlds: dict
+    world_launches: dict
+    world_shapes: Counter
+
+
+def train_cells(gammas) -> list:
+    """Phase 12's stacked runs: ``(name, task, p, RuntimeConfig)``; the
+    worlds repeat (b) on gloo ×4 and (a) at p = 1 on NCCL ×1."""
+    from repro_torch.core import detection
+    from repro_torch.runtime import api
+
+    def mon(mode="pfait"):
+        return detection.for_mode(mode, eps_tilde=TRAIN_EPS, margin=10.0, staleness=2,
+                                  persistence=4, ord=2.0)
+
+    def cfg(task, p, **kw):
+        return api.RuntimeConfig(num_batches=TRAIN_NB, gamma=gammas[task, p],
+                                 max_outer=5000, trace_len=TRAIN_TRACE_LEN, **kw)
+
+    p = TRAIN_P
+    return [
+        ("(a) blocking", "lstsq", p, cfg("lstsq", p, monitor=mon(), reduction="blocking",
+                                         inner_sweeps=8)),
+        ("(b) nonblocking pfait K=2 hetero", "lstsq", p, cfg(
+            "lstsq", p, monitor=mon(), reduction="nonblocking", **TRAIN_KNOBS)),
+        ("(c) rdoubling", "lstsq", p, cfg("lstsq", p, monitor=mon(), reduction="rdoubling",
+                                          inner_sweeps=8)),
+        ("(d) nonblocking nfais2", "lstsq", p, cfg("lstsq", p, monitor=mon("nfais2"),
+                                                   reduction="nonblocking", inner_sweeps=8)),
+        ("(e) logistic nonblocking", "logistic", p, cfg(
+            "logistic", p, monitor=mon(), reduction="nonblocking", inner_sweeps=8)),
+        ("(a) blocking p=1", "lstsq", 1, cfg("lstsq", 1, monitor=mon(), reduction="blocking",
+                                             inner_sweeps=8)),
+    ]
+
+
+def run_training(dev) -> TrainPath:
+    """Phase 12: ``runtime.api.run_train`` at full size on the card, and
+    the worlds that repeat (b) and (a) one replica per rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.worlds import Case, run_cases, save_train_inputs
+    from repro_torch.runtime import api
+    from repro_torch.runtime.train_async import init_replicas, safe_gamma
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+
+    probs, gammas, times, placed = {}, {}, {}, {}
+    for task, m in (("lstsq", TRAIN_M), ("logistic", TRAIN_LOGISTIC_M)):
+        t0 = time.perf_counter()
+        probs[task] = prob = MLFixedPointProblem(n=TRAIN_N, p=TRAIN_P, m_rows=m, task=task,
+                                                 cond=TRAIN_COND, seed=0)
+        times["build", task] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed[task] = (torch.as_tensor(prob.A, device=dev), torch.as_tensor(prob.y, device=dev))
+        torch.cuda.synchronize()
+        times["place", task] = time.perf_counter() - t0
+        for p in (TRAIN_P, 1) if task == "lstsq" else (TRAIN_P,):
+            t0 = time.perf_counter()
+            gammas[task, p] = safe_gamma(prob, p, TRAIN_NB, device=dev)
+            times["safe_gamma", task, p] = time.perf_counter() - t0
+    runs = {}
+    cells = train_cells(gammas)
+    for name, task, p, cfg in cells:
+        A, y = placed[task]
+        before = _launches()
+        rep = api.run_train(probs[task], cfg, p, init_replicas(probs[task], p), A, y,
+                            device=dev)
+        runs[name] = (rep, p, cfg, {k: v - before[k] for k, v in _launches().items()})
+    # a few rounds of (b) under the profiler
+    from repro_torch.runtime.train_async import make_train_runtime
+
+    bcfg = dict((name, cfg) for name, _, _, cfg in cells)["(b) nonblocking pfait K=2 hetero"]
+    A, y = placed["lstsq"]
+    X0 = torch.zeros((TRAIN_P, TRAIN_N), dtype=torch.float64, device=dev)
+    short = dataclasses.replace(bcfg.to_train_config(), max_rounds=TRAIN_PROFILE_ROUNDS)
+    prof_run = make_train_runtime(probs["lstsq"], short, TRAIN_P, device=dev)
+    prof_run(X0, A, y)
+    profile_window(f"train (b), {TRAIN_PROFILE_ROUNDS} rounds", lambda: prof_run(X0, A, y))
+    del placed
+    torch.cuda.empty_cache()
+    # the worlds: ranks map the saved design and read their own rows
+    worlds, inside = {}, Counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    by_name = {name: cfg for name, _, _, cfg in cells}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        t0 = time.perf_counter()
+        data = save_train_inputs(probs["lstsq"], str(Path(store) / "lstsq"))
+        times["save"] = time.perf_counter() - t0
+        for label, k, backend, name in (
+                ("gloo x4", TRAIN_P, "gloo", "(b) nonblocking pfait K=2 hetero"),
+                ("nccl x1", 1, "nccl", "(a) blocking p=1")):
+            t0 = time.perf_counter()
+            ranks = spawn_world(run_cases, k, store, args=(
+                backend, [Case(name, "train", by_name[name], (k,), data)], None),
+                timeout=600)
+            worlds[label] = dict(ranks=ranks, name=name, k=k, backend=backend,
+                                 wall=time.perf_counter() - t0)
+            for r in ranks:
+                for c in r["cases"]:
+                    inside.update(c["launches"])
+    return TrainPath(probs, gammas, times, runs, worlds, dict(inside), Counter())
+
+
+def verify_train(out: TrainPath, card: str) -> None:
+    """Every run converged with the exact lifted residual of its replicas
+    under ε̃ (no false detection); (a) follows ``reference_trace`` round for
+    round and its detection is consistent with it; each world equals its
+    stacked twin (X bitwise, the l2 trace within p·2^-24); #5 launched once
+    a round (stacked: one launch over the replica stack; a rank: one over
+    its replica), plus one a verification."""
+    import numpy as np
+
+    from repro_torch.core import termination
+    from repro_torch.runtime.train_async import exact_train_residual, reference_trace
+
+    t = out.times
+    for task, prob in out.probs.items():
+        print(f"train problem {task}: n = {prob.n}, m = {prob.m} ({prob.A.nbytes / 2**30:.2f} "
+              f"GiB f64 design), cond {TRAIN_COND:g}, seed 0: host build {t['build', task]:.2f} "
+              f"s, placed on the card in {t['place', task]:.2f} s; safe_gamma on the card "
+              + ", ".join(f"p = {p}: γ = {g:.6e} in {t['safe_gamma', tk, p]:.2f} s"
+                          for (tk, p), g in out.gammas.items() if tk == task))
+    for name, (rep, p, cfg, used) in out.runs.items():
+        task = "logistic" if "logistic" in name else "lstsq"
+        prob, raw = out.probs[task], rep.raw
+        t0 = time.perf_counter()
+        r_star = exact_train_residual(prob, raw.x.cpu().numpy(), cfg.inner_sweeps,
+                                      out.gammas[task, p], ord=2.0, num_batches=TRAIN_NB)
+        r_s = time.perf_counter() - t0
+        run_s = dict(rep.wall_segments)["run"]
+        launches = used.get("diff_norm_partials", 0)
+        want = 2 * (raw.rounds + raw.verifications)   # build run and timed run
+        print(f"train {name} (p = {p}): converged={rep.converged} rounds={raw.rounds} "
+              f"verifications={raw.verifications} detected={rep.detected_residual:.3e} exact "
+              f"r* {r_star:.3e} (l2, ε̃ {TRAIN_EPS:g}; host {r_s:.2f} s) loss "
+              f"{float(raw.loss):.12e}; {1e3 * run_s / raw.rounds:.4f} ms/round (run "
+              f"{run_s:.3f} s, build {dict(rep.wall_segments)['build']:.3f} s); #5 launches "
+              f"{launches} over two runs (want {want}); launches {json.dumps(used)}")
+        _require(rep.converged, f"train {name}: did not converge")
+        _require(r_star < TRAIN_EPS, f"train {name}: false detection, r* {r_star:.3e} >= ε̃")
+        _require(launches == want, f"train {name}: #5 launched {launches} times, not {want}")
+    rep = out.runs["(a) blocking"][0]
+    T = rep.outer_iters
+    t0 = time.perf_counter()
+    _, ref = reference_trace(out.probs["lstsq"], TRAIN_P, 8, TRAIN_NB,
+                             out.gammas["lstsq", TRAIN_P], rounds=T + 1, ord=2.0)
+    ref_s = time.perf_counter() - t0
+    trace = rep.raw.trace[:T].double().cpu().numpy()
+    # the blocking lane of round k evaluates the replicas that round k
+    # produced, which are the reference's state k + 1
+    err = float(np.max(np.abs(trace - ref[1:]) / np.abs(ref[1:])))
+    # the blocking lane is the exact lifted residual: its own trace is the
+    # exact trace the oracle rule reads (as phase 8's blocking run)
+    consistent = termination.detection_consistent(rep.detect_step, trace.tolist(), TRAIN_EPS)
+    print(f"train (a): trace[k] vs reference_trace[k + 1] over its {T} rounds (host numpy, "
+          f"{ref_s:.1f} s), max rel {err:.3e} (tolerance 5e-5); oracle round "
+          f"{termination.oracle_detect_step(trace.tolist(), TRAIN_EPS)} on its exact trace, "
+          f"detected at {rep.detect_step}, consistent: {consistent}")
+    _require(err <= 5e-5, f"train (a): trace departs from reference_trace ({err:.3e})")
+    _require(consistent, "train (a): detection inconsistent with its exact trace")
+    print(f"train worlds on {card}: ranks that share one card; the design saved for the "
+          f"ranks in {out.times['save']:.2f} s")
+    for label, w in out.worlds.items():
+        twin = out.runs[w["name"]][0].raw
+        got = [r["cases"][0] for r in w["ranks"]]
+        g = got[0]
+        bar = w["k"] * 2.0 ** -24
+        fin = np.isfinite(twin.trace.cpu().numpy())
+        gap = float(np.max(np.abs(g["trace"][fin] - twin.trace.cpu().numpy()[fin])
+                           / np.abs(twin.trace.cpu().numpy()[fin]), initial=0.0))
+        same = (all(c["x_digest"] == g["x_digest"] for c in got)
+                and g["outer_iters"] == twin.rounds and g["converged"]
+                and g["verifications"] == twin.verifications
+                and np.array_equal(g["x"], twin.x.cpu().numpy())
+                and np.array_equal(np.isfinite(g["trace"]), fin))
+        per_rank = [c["launches"].get("diff_norm_partials", 0) for c in got]
+        want = 2 * (twin.rounds + twin.verifications)
+        print(f"  world {label} ({w['backend']}, {w['k']} ranks, {w['wall']:.1f} s with spawn "
+              f"and reading the rows) {w['name']}: rounds {g['outer_iters']} / stacked "
+              f"{twin.rounds}, X bitwise and rounds equal, ranks agree: {same}; l2 trace "
+              f"largest relative gap {gap:.3e} (bar {bar:.3e}); "
+              f"{1e3 * g['wall_s'] / max(g['outer_iters'], 1):.4f} ms/round; #5 per rank "
+              f"{per_rank} (want {want} each); host-staged "
+              f"{sum(c['staged_bytes'] for c in got) / (2 * max(g['outer_iters'], 1)):.0f} "
+              f"B/round (all ranks)")
+        _require(same and gap <= bar, f"train world {label}: departs from its stacked twin")
+        _require(all(n == want for n in per_rank), f"train world {label}: #5 launched "
+                 f"{per_rank} times, not {want} per rank")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the elastic driver
+# ---------------------------------------------------------------------------
+
+# convdiff at n = 150 over 6 slots, Jacobi, PFAIT K = 2 non-blocking, inner
+# 2, halo delay 1, lag 1, l∞, ε̃ = 1e-6: worker 1 crashes in segment 3 and
+# rejoins after segment 8.  The stencil contracts at ρ 0.98 (not phase 5's
+# 0.95) so that the solve outlives the rejoin: at 0.95 it converges at about
+# 170 rounds, inside segment 8 on 5 shards
+ELASTIC_N, ELASTIC_SLOTS, ELASTIC_RHO = 150, 6, 0.98
+ELASTIC_PLAN = dict(crash_at={1: 3}, join_at={1: 8})
+ELASTIC_KNOBS = dict(segment_len=40, ckpt_every=2)
+# PageRank at n = 16384 over 4 slots, l1, ε̃ = 1e-9: worker 2 crashes in
+# segment 2 and rejoins after segment 6.  The solve takes about 30 rounds,
+# so segments are 5 rounds long, short enough that it outlives the rejoin
+ELASTIC_PR_SLOTS, ELASTIC_PR_PLAN = 4, dict(crash_at={2: 2}, join_at={2: 6})
+ELASTIC_PR_KNOBS = dict(segment_len=5, ckpt_every=2)
+# the shard counts each run must pass through
+ELASTIC_HISTORY = {"convdiff": [6, 5, 6], "pagerank": [4, 2, 4]}
+
+
+def run_elastic_driver(dev) -> dict:
+    """Phase 13: ``runtime.api.run_elastic`` through a crash, a shrink and a
+    regrow, for convdiff at n = 150 and PageRank at n = 16384."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import detection
+    from repro_torch.runtime import api
+    from repro_torch.runtime.elastic import FaultPlan
+    from repro_torch.solvers.convdiff import Stencil
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    n = ELASTIC_N
+    st = Stencil.for_contraction(n, nu=1.0, a=(1.0, 1.0, 1.0), rho=ELASTIC_RHO)
+    b = _rhs(n, dev)
+    cfg = api.RuntimeConfig(
+        monitor=detection.for_mode("pfait", eps_tilde=EPS_TILDE, margin=10.0, staleness=2,
+                                   persistence=4, ord=INF),
+        reduction="nonblocking", inner_sweeps=2, halo_delay=1, contrib_lag=1,
+        record_trace=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        before = _launches()
+        rep = api.run_elastic("convdiff", cfg, n, torch.zeros_like(b), b,
+                              FaultPlan(**ELASTIC_PLAN), ckpt, stencil=st,
+                              slots=ELASTIC_SLOTS, device=dev, **ELASTIC_KNOBS)
+        out["convdiff"] = dict(rep=rep, st=st, b=b, eps=EPS_TILDE,
+                               used={k: v - before[k] for k, v in _launches().items()})
+    if "prob" not in _PAGERANK_HOST:
+        prob = PageRankProblem(n=PAGERANK_N, p=PAGERANK_P, seed=0)
+        _PAGERANK_HOST.update(prob=prob, P_host=prob.to_dense())
+    prob = _PAGERANK_HOST["prob"]
+    P = torch.as_tensor(_PAGERANK_HOST["P_host"], device=dev)
+    pcfg = api.RuntimeConfig(
+        monitor=detection.for_mode("pfait", eps_tilde=PAGERANK_EPS, margin=10.0,
+                                   staleness=2, persistence=4, ord=1.0),
+        reduction="nonblocking", record_trace=True)
+    x0 = torch.full((PAGERANK_N,), 1.0 / PAGERANK_N, dtype=torch.float64, device=dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        before = _launches()
+        rep = api.run_elastic("pagerank", pcfg, PAGERANK_N, x0, P,
+                              FaultPlan(**ELASTIC_PR_PLAN), ckpt, damping=prob.d,
+                              slots=ELASTIC_PR_SLOTS, device=dev, **ELASTIC_PR_KNOBS)
+        out["pagerank"] = dict(rep=rep, prob=prob, P=P, eps=PAGERANK_EPS,
+                               used={k: v - before[k] for k, v in _launches().items()})
+    return out
+
+
+def verify_elastic(out: dict) -> None:
+    """Each run restarted once, stalled at least a segment, went through
+    its shard counts (``ELASTIC_HISTORY``) back to every slot, converged
+    with the exact residual of its result under ε̃ (PageRank's on the card
+    and on the host, within phase 8's f64 bar), and its trace validates;
+    convdiff rolled iterations back.  Prints the recovery accounting."""
+    import statistics as stats
+
+    from repro_torch.core.trace import validate_trace
+
+    for family, o in out.items():
+        rep, raw = o["rep"], o["rep"].raw
+        slots = ELASTIC_SLOTS if family == "convdiff" else ELASTIC_PR_SLOTS
+        if family == "convdiff":
+            r_star = exact_residual(o["st"], rep.x, o["b"], INF)
+            extra = f"exact r* {r_star:.3e} (l∞)"
+            ok = r_star < o["eps"]
+        else:
+            prob, P, x = o["prob"], o["P"], rep.x
+            d, v = prob.d, prob.v
+            r_card = float((d * (P @ x) + v - x).abs().sum())
+            scale = float((d * (P @ x.abs()) + v + x.abs()).sum())
+            r_star = prob.exact_residual([x.cpu().numpy()])
+            bar = 4 * F64_UNIT * scale
+            extra = (f"exact r* card {r_card:.6e} host {r_star:.6e} (|Δ| "
+                     f"{abs(r_card - r_star):.2e}, bar {bar:.2e}; l1)")
+            ok = r_star < o["eps"] and r_card < o["eps"] and abs(r_card - r_star) <= bar
+        walls = raw.segment_walls
+        history = [p for _, p in raw.mesh_history]
+        print(f"elastic {family}: converged={rep.converged} outer={raw.outer_iters} "
+              f"segments {raw.segments_run} (run {len(walls)}, stalled {raw.stall_segments}) "
+              f"restarts {raw.restarts} lost iterations {raw.lost_iters} detection latency "
+              f"{raw.detect_latency} segments, checkpoint saves {raw.checkpoint_saves}; shard "
+              f"counts {raw.mesh_history}, members {raw.members_final}; detected "
+              f"{rep.detected_residual:.3e}, {extra}, ε̃ {o['eps']:g}; "
+              f"{1e3 * stats.mean(walls):.3f} ms a segment (median "
+              f"{1e3 * stats.median(walls):.3f}, first {1e3 * walls[0]:.3f}), saves "
+              f"{1e3 * raw.save_s:.3f} ms (host snapshots) + {1e3 * raw.flush_s:.3f} ms "
+              f"waiting for writes, restore {1e3 * raw.restore_s:.3f} ms; wall "
+              f"{rep.wall_s:.3f} s; launches {json.dumps(o['used'])}")
+        print(f"  events: {raw.events}")
+        _require(rep.converged, f"elastic {family}: did not converge")
+        _require(ok, f"elastic {family}: false detection or r* off its bar")
+        _require(raw.restarts == 1 and raw.stall_segments >= 1,
+                 f"elastic {family}: {raw.restarts} restarts, {raw.stall_segments} stalls")
+        _require(history == ELASTIC_HISTORY[family], f"elastic {family}: shard counts "
+                 f"{history}, not {ELASTIC_HISTORY[family]}")
+        _require(raw.members_final == tuple(range(slots)),
+                 f"elastic {family}: members {raw.members_final}")
+        _require(family != "convdiff" or raw.lost_iters > 0,
+                 "elastic convdiff: the restart rolled nothing back")
+        _require(validate_trace(rep.trace), f"elastic {family}: trace fails validate()")
+    del out["pagerank"]["P"]
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2068,7 +2485,7 @@ KERNELS = {
     "flash_attention_flat": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention/flash_attention.py:90"),
 }
-# the main paths (phases 4–9 and 11) and the kernels each must launch
+# the main paths (phases 4–9 and 11–13) and the kernels each must launch
 PATHS = (
     ("solve_single", run_solver, ("fused_sweep_residual", "fused_rbgs_sweep_residual")),
     ("1-D shard runtime", run_shards,
@@ -2081,6 +2498,9 @@ PATHS = (
     # the launches inside the worlds
     ("distributed shard runtime", run_distributed, DIST_KERNELS),
     ("detection service", run_service, SERVICE_KERNELS),
+    # the training path's worlds report their own launches, like phase 9's
+    ("training runtime", run_training, ("diff_norm_partials",)),
+    ("elastic driver", run_elastic_driver, ("fused_sweep_residual", "diff_norm_partials")),
 )
 
 
@@ -2103,7 +2523,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(logs)} sources compiled)")
     for line in "\n".join(logs).splitlines():
@@ -2140,10 +2560,10 @@ def main() -> int:
         print(f"main-path launches, {path}:", json.dumps(used))
         shape_launches.update(jk.LAUNCH_SHAPES)
         need = used
-        if isinstance(runs[path], DistRun):
+        if hasattr(runs[path], "world_launches"):
             # required of the ranks' own launches, not of the stacked twins
             need = runs[path].world_launches
-            _require(bool(need), "the worlds reported no launch counters")
+            _require(bool(need), f"the {path} worlds reported no launch counters")
             for k in launches:
                 launches[k] += need.get(k, 0)
             shape_launches.update(runs[path].world_shapes)
@@ -2168,6 +2588,8 @@ def main() -> int:
     verify_distributed(runs["distributed shard runtime"], runs, nvidia_smi())
     verify_pagerank(runs["pagerank shard runtime"], runs["1-D shard runtime"])
     verify_service(runs["detection service"], used_by["detection service"], dev)
+    verify_train(runs["training runtime"], nvidia_smi())
+    verify_elastic(runs["elastic driver"])
     rank_launches(st, dev, shape_launches, times)
 
     rows = []
@@ -2187,6 +2609,7 @@ def main() -> int:
             max_abs_err_of=out, ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=shape))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to here")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,16 +16,18 @@ This is the port's copy of the JAX package's schema (``core/trace.py``):
 a trace the port writes is text that the JAX package's ``Trace.loads``
 reads and validates unchanged, and that its replay and calibration
 (``sim/replay.py``, ``sim/calibrate.py``) accept.  ``trace_from_shard_run``
-turns a shard run into a trace: the runtime's loop does not timestamp its
-own events, so per-step timestamps are the measured wall interpolated over
-the outer steps, marked ``synthetic_t`` in the header.
+(and ``trace_from_train_run``) turns a shard (training) run into a trace:
+the runtime's loop does not timestamp its own events, so per-step
+timestamps are the measured wall interpolated over the outer steps, marked
+``synthetic_t`` in the header.  ``trace_from_elastic_report`` writes the
+elastic driver's segments and membership events.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -196,21 +198,24 @@ def _series_prefix(trace_arr, limit: int) -> List[float]:
 def trace_from_shard_run(result, cfg, p: int, wall_s: float,
                          source: str = "shard",
                          meta: Optional[Dict[str, Any]] = None) -> Trace:
-    """Schema trace of one shard run.
+    """Schema trace of one shard or training run.
 
-    ``result`` — a ``ShardRunResult``; ``cfg`` the ``ShardRuntimeConfig``
-    it ran under.  Per-step timestamps are the measured wall interpolated
-    uniformly over the outer steps — ``synthetic_t`` marks them.
+    ``result`` — a ``ShardRunResult`` or ``TrainRunResult``; ``cfg`` the
+    ``ShardRuntimeConfig`` or ``TrainAsyncConfig`` it ran under.  Per-step
+    timestamps are the measured wall interpolated uniformly over the outer
+    steps — ``synthetic_t`` marks them.
     """
-    outer = int(result.outer_iters)
+    outer = int(getattr(result, "outer_iters", getattr(result, "rounds", 0)))
     tlen = int(cfg.trace_len)
     series = _series_prefix(result.trace, min(outer, max(tlen, 1)))
     mode = get_reduction(cfg.reduction)
     mon = cfg.effective_monitor()
-    inner = _per_shard(cfg.inner_sweeps, p, "inner").tolist()
-    delay = _per_shard(cfg.halo_delay, p, "delay").tolist()
+    inner_field = getattr(cfg, "inner_sweeps", getattr(cfg, "inner_steps", 1))
+    delay_field = getattr(cfg, "halo_delay", getattr(cfg, "view_delay", 0))
+    inner = _per_shard(inner_field, p, "inner").tolist()
+    delay = _per_shard(delay_field, p, "delay").tolist()
     lag = _per_shard(cfg.contrib_lag, p, "contrib_lag").tolist()
-    mesh_shape = tuple(cfg.mesh_shape or (p,))
+    mesh_shape = tuple(getattr(cfg, "mesh_shape", None) or (p,))
     # per-worker exchanged faces ((label, peer) pairs) on multi-axis meshes —
     # the 1-D pencil keeps a single halo event per worker
     faces: List[List] = [[] for _ in range(p)]
@@ -261,4 +266,57 @@ def trace_from_shard_run(result, cfg, p: int, wall_s: float,
                residual=float(result.residual))
     tr.add("finish", wall_s, step=max(outer - 1, -1),
            terminated=bool(result.converged))
+    return tr
+
+
+def trace_from_train_run(result, cfg, p: int, wall_s: float,
+                         meta: Optional[Dict[str, Any]] = None) -> Trace:
+    """``trace_from_shard_run`` for the data-parallel training loop."""
+    return trace_from_shard_run(result, cfg, p, wall_s, source="train",
+                                meta=meta)
+
+
+def trace_from_elastic_report(report, cfg, p0: int,
+                              segment_walls: Optional[Iterable[float]] = None,
+                              meta: Optional[Dict[str, Any]] = None) -> Trace:
+    """Segment-level trace of the elastic control loop.
+
+    Segment boundaries and membership events are real (host-side) control
+    plane observations; ``segment_walls`` (per-segment wall seconds, when
+    the driver measured them) become the segment timestamps, else the
+    virtual one-unit-per-segment clock is used.
+    """
+    walls = list(segment_walls or [])
+    header_meta = {
+        "reduction": cfg.reduction,
+        "segments_run": int(report.segments_run),
+        "restarts": int(report.restarts),
+        "stall_segments": int(report.stall_segments),
+        "converged": bool(report.converged),
+        "mesh_history": [[int(s), int(pc)] for s, pc in report.mesh_history],
+        "synthetic_t": not walls,
+    }
+    header_meta.update(meta or {})
+    tr = Trace("elastic", p0, header_meta)
+
+    def t_of(seg: int) -> float:
+        if walls:
+            return float(sum(walls[:seg + 1]))
+        return float(seg + 1)
+
+    for seg in range(int(report.segments_run)):
+        tr.add("segment", t_of(seg), step=seg,
+               wall_s=(walls[seg] if seg < len(walls) else 1.0))
+    for seg, kind, detail in report.events:
+        if kind in ("crash", "join", "restart"):
+            tr.add("member", t_of(int(seg)), step=int(seg),
+                   change=str(kind), detail=str(detail))
+        elif kind == "detect":
+            tr.add("detect", t_of(int(seg)), step=int(seg),
+                   residual=(float(report.detected_residual)
+                             if report.detected_residual is not None
+                             else None))
+    tr.add("finish", t_of(int(report.segments_run) - 1),
+           step=int(report.segments_run) - 1,
+           terminated=bool(report.converged))
     return tr

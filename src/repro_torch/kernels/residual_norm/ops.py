@@ -1,4 +1,4 @@
-"""Fused ‖a−b‖_l and the shard runtime's update-difference contribution."""
+"""Fused ‖a−b‖_l and the runtimes' update-difference contributions."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,3 +39,19 @@ def update_contribution(new: torch.Tensor, old: torch.Tensor,
     if _build.on_cuda(new, old):
         res.partial_mode(ord)  # raises: the kernel has no such mode
     return res.local_contribution(scale * (new - old), ord)
+
+
+def row_contributions(new: torch.Tensor, old: torch.Tensor,
+                      ord: float = 2.0) -> torch.Tensor:
+    """Pre-σ contribution of each row of ``new − old`` (f32): ``[r, n]``
+    gives ``[r]``, a vector ``[n]`` one value of shape ``()``.  One launch
+    of the diff-norm kernel with ``block = n``, so one partial per row: max|Δ|
+    for l∞, Σ|Δ|² for l2, Σ|Δ| for l1.  Other l have no kernel: CPU tensors
+    take ``core.residual``, CUDA ones raise."""
+    if np.isinf(ord) or float(ord) in (1.0, 2.0):
+        parts = diff_norm_partials(new, old, block=new.shape[-1], ord=ord)
+        return parts.reshape(new.shape[:-1])
+    if _build.on_cuda(new, old):
+        res.partial_mode(ord)  # raises: the kernel has no such mode
+    d = (new - old).to(torch.float32).abs()
+    return (d ** float(ord)).sum(-1)

@@ -2,11 +2,14 @@
 
 ``run_cases`` is the job ``launch.mesh.spawn_world`` runs on every rank:
 it joins the world as a ``ShardGroup`` and runs a list of ``Case``s — shard
-runtimes (``make_runtime``), ``runtime.api.run_shard`` and
-``solvers.fixed_point.make_sharded_solver`` — over the process-group
-transport.  Inputs are made on each rank from seed 0 (``Inputs``), so no
-array crosses a process boundary on the way in; each rank places only its
-own block.  It returns host values only: per case the iterations, the
+runtimes (``make_runtime``), ``runtime.api.run_shard``,
+``solvers.fixed_point.make_sharded_solver`` and ``runtime.api.run_train``
+— over the process-group transport.  Solver inputs are made on each rank
+from seed 0 (``Inputs``), so no array crosses a process boundary on the way
+in; a training set is drawn once by the parent and saved
+(``save_train_inputs``), and each rank maps the files and reads its own
+rows.  Each rank places only its own block.  It returns host values only:
+per case the iterations, the
 detection, the trace, a digest of ``x`` (and ``x`` itself from rank 0),
 the wall time of the timed run, and over the case's ``runs`` runs (``api``
 runs twice: build and timed) the kernel launches made, the stencil
@@ -63,18 +66,39 @@ def make_inputs(spec: Inputs) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
     raise KeyError(f"family {spec.family!r} not in ('convdiff', 'pagerank')")
 
 
+class TrainInputs(NamedTuple):
+    """An ``MLFixedPointProblem``'s training set, saved as ``<path>.A.npy``
+    and ``<path>.y.npy`` (``save_train_inputs``), with the fields the
+    training runtime reads; it stands in for the problem on a rank."""
+
+    path: str
+    m: int
+    n: int
+    task: str
+    l2: float
+
+
+def save_train_inputs(problem, path: str) -> TrainInputs:
+    """Save ``problem``'s design and targets for the ranks of a world."""
+    np.save(path + ".A.npy", problem.A)
+    np.save(path + ".y.npy", problem.y)
+    return TrainInputs(path, problem.m, problem.n, problem.task, problem.l2)
+
+
 @dataclass(frozen=True)
 class Case:
     """One run: ``kind`` is ``runtime`` (``make_runtime`` with a
     ``ShardRuntimeConfig``), ``api`` (``run_shard`` with a
-    ``RuntimeConfig``) or ``solver`` (``make_sharded_solver`` with a
-    ``SolverConfig``; the inputs' stencil is the config's)."""
+    ``RuntimeConfig``), ``solver`` (``make_sharded_solver`` with a
+    ``SolverConfig``; the inputs' stencil is the config's) or ``train``
+    (``run_train`` with a ``RuntimeConfig`` on ``TrainInputs``, from zero
+    replicas)."""
 
     name: str
     kind: str
     cfg: Any
     shape: Tuple[int, ...]
-    inputs: Inputs
+    inputs: Any
 
 
 def _launches() -> Dict[str, int]:
@@ -111,6 +135,14 @@ def _run(case: Case, group, made) -> Tuple[Any, float]:
     from repro_torch.runtime.shard_runtime import make_runtime
     from repro_torch.solvers.fixed_point import make_sharded_solver
 
+    if case.kind == "train":
+        data = case.inputs
+        rows = data.m // group.p
+        sl = slice(group.rank * rows, (group.rank + 1) * rows)
+        A = np.array(np.load(data.path + ".A.npy", mmap_mode="r")[sl])
+        y = np.array(np.load(data.path + ".y.npy", mmap_mode="r")[sl])
+        rep = api.run_train(data, case.cfg, group, np.zeros((1, data.n)), A, y)
+        return rep.raw, dict(rep.wall_segments)["run"]
     x0, arg, kw = made
     n = case.inputs.n
     if case.kind == "api":
@@ -121,7 +153,8 @@ def _run(case: Case, group, made) -> Tuple[Any, float]:
     elif case.kind == "solver":
         run = make_sharded_solver(case.cfg, group)
     else:
-        raise ValueError(f"case kind {case.kind!r} not in ('runtime', 'api', 'solver')")
+        raise ValueError(f"case kind {case.kind!r} not in ('runtime', 'api', 'solver', "
+                         "'train')")
     dist.barrier()
     _sync(group.device)
     t0 = time.perf_counter()
@@ -144,18 +177,19 @@ def run_cases(rank: int, k: int, store, backend: str, cases: Sequence[Case],
         if not warmed and group.device.type == "cuda":
             _warm(group.device)
         warmed = True
-        if case.inputs not in made:
+        if case.kind != "train" and case.inputs not in made:
             made[case.inputs] = make_inputs(case.inputs)
         before, shapes = _launches(), jk.LAUNCH_SHAPES.copy()
-        r, wall = _run(case, group, made[case.inputs])
+        r, wall = _run(case, group, made.get(case.inputs))
         trace = getattr(r, "trace", None)
         results.append(dict(
-            name=case.name, rank=rank, outer_iters=int(r.outer_iters),
+            name=case.name, rank=rank,
+            outer_iters=int(getattr(r, "outer_iters", getattr(r, "rounds", 0))),
             converged=bool(r.converged), residual=float(r.residual),
             verifications=int(getattr(r, "verifications", 0)),
             trace=None if trace is None else trace.cpu().numpy(),
             x_digest=_digest(r.x), x=r.x.cpu().numpy() if rank == 0 else None,
-            wall_s=wall, runs=2 if case.kind == "api" else 1,
+            wall_s=wall, runs=2 if case.kind in ("api", "train") else 1,
             # a fresh group per case: its counters are this case's
             staged_bytes=group.staged_bytes, staged_s=group.staged_s,
             wait_s=group.wait_s,

@@ -176,6 +176,25 @@ class _ShardProblem(NamedTuple):
     # (None: no overlap)
     faces: Optional[Callable] = None
     ship: Optional[Callable] = None
+    # contributions from one launch over all the local shards, in place of
+    # the per-shard ``sweep_contrib`` / ``exact_contrib``:
+    # ``sweep_contribs(xs, ghosts) -> ({i: x_i'}, {i: contrib})`` and
+    # ``exact_contribs(xs, ghosts) -> {i: contrib}`` (None: per shard)
+    sweep_contribs: Optional[Callable] = None
+    exact_contribs: Optional[Callable] = None
+    # ``begin(k)`` is called at the start of outer step k (None: nothing)
+    begin: Optional[Callable] = None
+
+    def sweep_all(self, xs, ghosts):
+        if self.sweep_contribs is not None:
+            return self.sweep_contribs(xs, ghosts)
+        out = {i: self.sweep_contrib(i, xs[i], ghosts[i]) for i in xs}
+        return {i: o[0] for i, o in out.items()}, {i: o[1] for i, o in out.items()}
+
+    def exact_all(self, xs, ghosts):
+        if self.exact_contribs is not None:
+            return self.exact_contribs(xs, ghosts)
+        return {i: self.exact_contrib(i, xs[i], ghosts[i]) for i in xs}
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +290,8 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
         mon = detection.init_state(mon_cfg, device)
         k = 0
         while k < cfg.max_outer:
+            if prob.begin is not None:
+                prob.begin(k)
             ghosts = {i: _ring_read(gring, k - int(delay[i]))[i] for i in local}
             for i in local:
                 for _ in range(int(inner[i]) - (0 if blocking else 1)):
@@ -278,18 +299,18 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
             # overlap: the new faces are shipped while the full blocks sweep
             shipped = prob.ship({i: prob.faces(i, xs[i], ghosts[i]) for i in local}) \
                 if overlapped else None
-            contribs = {}
             if not blocking:
-                for i in local:
-                    xs[i], contribs[i] = prob.sweep_contrib(i, xs[i], ghosts[i])
+                news, contribs = prob.sweep_all(xs, ghosts)
+                xs.update(news)
             fresh = shipped.wait() if overlapped else prob.exchange(xs)
             _ring_write(gring, fresh, k + 1)
+            # barrier mode: detection pays a residual-only pass over the
+            # fresh post-exchange state, every check
+            if blocking:
+                contribs = prob.exact_all(xs, fresh)
             lanes = {}
             for i in local:
-                # barrier mode: detection pays a residual-only pass over the
-                # fresh post-exchange state, every check
-                c = prob.exact_contrib(i, xs[i], fresh[i]) if blocking else contribs[i]
-                _ring_write(crings[i], c, k)
+                _ring_write(crings[i], contribs[i], k)
                 lanes[i] = _ring_read(crings[i], k - int(lag[i]))
             if butterfly:
                 partial, visible = _butterfly_step(transport, lanes, partial, visible,
@@ -299,8 +320,7 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
                 reductions.launch(transport.reduce(lanes, ord_))
             mon = detection.decide(
                 mon_cfg, mon, reductions.consume(),
-                exact_residual_fn=lambda: transport.exact(
-                    {i: prob.exact_contrib(i, xs[i], fresh[i]) for i in local}, ord_))
+                exact_residual_fn=lambda: transport.exact(prob.exact_all(xs, fresh), ord_))
             k += 1
             if bool(mon.converged):  # the loop's one device→host sync
                 break

@@ -28,6 +28,9 @@ each taking and returning ``{shard: value}`` maps over the local shards:
   group as one ``batch_isend_irecv``.
 * ``all_gather(blocks) -> list`` — every shard's block, in rank order.
 
+``replica_mean`` averages equal-shaped blocks over the shards (the JAX
+package's ``pmean``) from an all-gather, on either transport.
+
 Every rank issues the same collectives in the same order; per-shard knobs
 change local work only.  Under gloo a CUDA tensor is staged through host
 memory explicitly: the producing stream is synchronised, the tensor copied
@@ -180,6 +183,14 @@ class GroupTransport:
         outs = [torch.empty_like(wire) for _ in range(self.p)]
         self._wait([dist.all_gather(outs, wire, async_op=True)])
         return [self._in(o) for o in outs]
+
+
+def replica_mean(transport, blocks: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The mean over all shards of their equal-shaped blocks, on every
+    shard: the JAX package's ``pmean``.  An all-gather and a local mean, so
+    a group's mean is bitwise its stacked twin's (an ``all_reduce`` would
+    sum in an order its backend picks)."""
+    return torch.stack(transport.all_gather(blocks)).mean(0)
 
 
 def make_transport(p, device: torch.device):

@@ -16,8 +16,9 @@ This is the port's own copy of the JAX package's data draw
 (``solvers/mlfixed.py``): the same ``np.random.default_rng(seed)`` calls in
 the same order, so the same seed gives the same ``A``, ``H``, ``c``, ``s``,
 ``L`` and ``γ``.  Only the device-facing part is here — the batched step of
-the detection lanes and the exact residual that scores them; the
-event-level interface (per-worker views and updates) is not.
+the detection lanes, the exact residual that scores them, and the data and
+objective the data-parallel training runtime (``runtime/train_async.py``)
+reads; the event-level interface (per-worker views and updates) is not.
 """
 from __future__ import annotations
 
@@ -113,6 +114,15 @@ class MLFixedPointProblem:
         margin = self.s * (self.A @ x)
         w = -self.s * _sigmoid(-margin)
         return self.A.T @ w / self.m + self.l2 * x
+
+    def objective(self, x: np.ndarray) -> float:
+        """F(x) (f64): the objective the training runtime minimises."""
+        if self.task == "lstsq":
+            r = self.A @ x - self.y
+            return float(r @ r / (2 * self.m) + self.l2 * (x @ x) / 2)
+        margin = self.s * (self.A @ x)
+        return float(np.logaddexp(0.0, -margin).sum() / self.m
+                     + self.l2 * (x @ x) / 2)
 
     def assemble(self, xs: Sequence[np.ndarray]) -> np.ndarray:
         return np.concatenate(list(xs))

@@ -28,7 +28,11 @@ iterations.  PageRank through ``runtime.api.run_shard`` on the card takes the
 CPU's iterations, with x within 1e-12 and the residual history within rtol
 5e-5; #5 in l1 at its PageRank blocks is held at 2e-5.  A world of ranks
 on the card (gloo sharing it, NCCL at world size 1) equals the stacked run
-on the card bitwise.
+on the card bitwise.  The data-parallel training runtime's #5 shapes (the
+[p, n] replica stacks at block n, a replica alone) and the elastic path's
+(an 8192-row PageRank block, the 30×150×150 block of one of 5 shards) are
+held at the same bars; a stacked training run and an elastic run on the
+card take the CPU's rounds and segments, with X within rtol 1e-10.
 """
 import numpy as np
 import pytest
@@ -759,3 +763,69 @@ def test_lane_graph_replay_is_bitwise_eager_with_refill(card, family, kw):
     assert made == {k: (per_step * (1 + 4 * 16) if k == kernel else 0) for k in made}
     with pytest.raises(ValueError, match="captured"):
         graph(X2, ops2, st2, *p)
+
+
+# ---------------------------------------------------------------------------
+# The training and elastic paths' #5 shapes, and the two drivers on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((4, 1024), 1024), ((1, 1024), 1024), ((1024,), 65536),
+                                         ((8192,), 65536), ((30, 150, 150), 65536)])
+@pytest.mark.parametrize("ord", ORDS)
+def test_diff_norm_train_and_elastic_shapes_on_card(card, shape, block, ord):
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+    b = a + 1e-9 * torch.rand(shape, generator=gen, device=card, dtype=torch.float64)
+    got = trk.diff_norm_partials(a, b, block=block, ord=ord)
+    want = trn_ref.diff_norm_partials_ref(a, b, block=block, ord=ord)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6 if np.isinf(ord) else 2e-5, atol=0)
+    assert torch.equal(got, trk.diff_norm_partials(a, b, block=block, ord=ord))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduction", ["blocking", "nonblocking"])
+def test_train_runtime_on_card_matches_cpu(card, reduction):
+    from repro_torch.runtime import train_async as tta
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+
+    prob = MLFixedPointProblem(n=64, p=4, m_rows=1024, task="lstsq", cond=10.0, seed=0)
+    gamma = tta.safe_gamma(prob, 4, 2, device=card)
+    assert gamma == pytest.approx(tta.safe_gamma(prob, 4, 2, device="cpu"), rel=1e-10)
+    mon = detection.for_mode("pfait", eps_tilde=1e-8, margin=10.0, staleness=2)
+    knobs = {} if reduction == "blocking" else dict(
+        inner_steps=(2, 4, 2, 4), view_delay=(0, 1, 0, 2), contrib_lag=(0, 1, 0, 1))
+    cfg = tta.TrainAsyncConfig(monitor=mon, reduction=reduction, num_batches=2,
+                               gamma=gamma, max_rounds=5000, trace_len=64,
+                               **({"inner_steps": 2} | knobs))
+    before = trk.LAUNCHES["diff_norm_partials"]
+    got = tta.make_train_runtime(prob, cfg, 4, device=card)(
+        tta.init_replicas(prob, 4), prob.A, prob.y)
+    assert trk.LAUNCHES["diff_norm_partials"] - before == got.rounds
+    want = tta.make_train_runtime(prob, cfg, 4, device="cpu")(
+        tta.init_replicas(prob, 4), prob.A, prob.y)
+    assert got.converged and want.converged and got.rounds == want.rounds
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_elastic_on_card_matches_cpu(card, tmp_path):
+    from repro_torch.runtime import elastic as tel
+
+    n = 24
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    b = make_rhs(n, seed=0)
+    mon = detection.for_mode("pfait", eps_tilde=1e-6, margin=10.0, staleness=2,
+                             persistence=4, ord=INF)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, inner_sweeps=2, halo_delay=1, contrib_lag=1)
+    plan = tel.FaultPlan(crash_at={1: 3}, join_at={1: 8})
+    kw = dict(stencil=st, slots=4, segment_len=10, ckpt_every=2, max_segments=60)
+    got = tel.run_elastic("convdiff", cfg, n, np.zeros_like(b), b, plan, str(tmp_path / "a"),
+                          device=card, **kw)
+    want = tel.run_elastic("convdiff", cfg, n, np.zeros_like(b), b, plan, str(tmp_path / "b"),
+                           device="cpu", **kw)
+    assert got.converged and got.events == want.events
+    assert got.mesh_history == want.mesh_history == [(0, 4), (6, 3), (9, 4)]
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-10, atol=0)

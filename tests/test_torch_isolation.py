@@ -34,7 +34,7 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 52, names
+    assert len(names) >= 57, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
@@ -43,6 +43,9 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.launch.worlds" in names, names
     assert "repro_torch.runtime.transport" in names, names
     assert "repro_torch.solvers.mlfixed" in names, names
+    for name in ("runtime.train_async", "runtime.elastic", "runtime.fault_tolerance",
+                 "checkpoint.checkpointer"):
+        assert "repro_torch." + name in names, names
     print("ISOLATED", len(names))
 """)
 
@@ -104,3 +107,31 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_train_and_elastic_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.runtime import elastic, train_async
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = MLFixedPointProblem(n=8, p=1, m_rows=16, seed=3)
+    mon = detection.MonitorConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_async.safe_gamma(prob, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_async.make_train_runtime(prob, train_async.TrainAsyncConfig(monitor=mon,
+                                                                          gamma=0.1), 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.run_train(prob, api.RuntimeConfig(monitor=mon, gamma=0.1), 1, np.zeros((1, 8)),
+                      prob.A, prob.y)
+    st = Stencil.for_contraction(4, 1.0, (1.0, 1.0, 1.0), 0.9)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.run_elastic("convdiff", api.RuntimeConfig(monitor=mon), 4, np.zeros((4, 4, 4)),
+                        np.ones((4, 4, 4)), elastic.FaultPlan(), str(tmp_path / "e"),
+                        stencil=st, slots=1)
+    ck = Checkpointer(str(tmp_path / "c"))
+    ck.save({"x": torch.ones(2)}, step=1, blocking=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ck.restore()
+    assert ck.restore(device="cpu")[0][0].device.type == "cpu"

@@ -10,6 +10,13 @@ the JAX package's.
 * ``core/termination.py``, ``core/residual.global_residual`` and the
   reduction registry's topology facts equal JAX's on the same inputs
   (``global_residual`` within rtol 1e-6: f32 sums in another order).
+* ``run_train`` / ``run_elastic`` and ``to_train_config``: JAX's
+  ``tests/test_runtime_api.py:117-158`` and ``:204-211`` cases against
+  JAX's entry points (rounds, detection, x within atol 1e-12 / 1e-10,
+  membership log), ``to_train_config`` field for field;
+  ``trace_from_train_run`` / ``trace_from_elastic_report`` write JAX's text
+  on one result, and a port train trace loads in JAX's ``Trace.loads`` and
+  ``replay``.
 * ``core/trace.py``: the schema cases of JAX's ``tests/test_trace.py``; a
   port trace's ``dumps()`` loads into JAX's ``Trace.loads``, validates and
   has JAX's fingerprint; ``trace_from_shard_run`` writes the same text as
@@ -435,3 +442,167 @@ def test_port_trace_replays_and_calibrates_in_jax(family):
     assert report["p_ref"] == 1 and "hop_s" in report["defaulted"]
     # the what-if grid runs on it too
     assert replay(tr, cost, WhatIf(p=4, topology="butterfly")).p == 4
+
+
+# ---------------------------------------------------------------------------
+# The training and elastic entry points
+# ---------------------------------------------------------------------------
+
+
+def _train_problem():
+    from repro.solvers.mlfixed import MLFixedPointProblem
+
+    return MLFixedPointProblem(n=8, p=1, m_rows=16, task="lstsq", seed=3)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(reduction="blocking", inner_sweeps=3, max_outer=123, trace_len=7, num_batches=2,
+         gamma=0.25),
+    dict(reduction="nonblocking", inner_sweeps=(1, 2), halo_delay=(0, 1),
+         contrib_lag=(1, 0), num_batches=3, record_trace=True, max_outer=100),
+    dict(reduction="rdoubling", halo_delay=2, contrib_lag=1),
+])
+def test_to_train_config_field_mapping(kw):
+    from repro_torch.runtime.train_async import TrainAsyncConfig
+
+    jcfg = japi.RuntimeConfig(monitor=_jmon(), **kw)
+    want = jcfg.to_train_config()
+    got = _tcfg(jcfg).to_train_config()
+    assert isinstance(got, TrainAsyncConfig)
+    for f in ("reduction", "inner_steps", "view_delay", "contrib_lag", "num_batches",
+              "gamma", "max_rounds", "trace_len"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.monitor == interop.monitor_from(want.monitor)
+    assert got.effective_monitor() == interop.monitor_from(want.effective_monitor())
+
+
+@pytest.mark.parametrize("record", [False, True])
+def test_run_train_matches_jax_run_train(record):
+    from repro.runtime import train_async as jta
+    from repro_torch.runtime import train_async as tta
+
+    prob = _train_problem()
+    jcfg = japi.RuntimeConfig(monitor=_jmon(staleness=1), reduction="nonblocking",
+                              inner_sweeps=2, max_outer=5000, record_trace=record)
+    X0 = jta.init_replicas(prob, 1)
+    want = japi.run_train(prob, jcfg, make_shard_mesh(1), X0, prob.A, prob.y)
+    got = tapi.run_train(prob, _tcfg(jcfg), 1, X0, prob.A, prob.y, device="cpu",
+                         timing_runs=1)
+    assert got.converged == want.converged and got.converged
+    assert got.outer_iters == want.outer_iters and got.detect_step == want.detect_step
+    assert got.detected_residual == pytest.approx(want.detected_residual, rel=5e-5)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(got.residual_history, want.residual_history, rtol=5e-5)
+    assert [nm for nm, _ in got.wall_segments] == ["build", "run", "rerun"]
+    assert got.membership_log == [] and isinstance(got.raw, tta.TrainRunResult)
+    legacy = tta.make_train_runtime(prob, _tcfg(jcfg).to_train_config(), 1,
+                                    device="cpu")(X0, prob.A, prob.y)
+    assert got.outer_iters == legacy.rounds and torch.equal(got.x, legacy.x)
+    if record:
+        got.trace.validate()
+        assert got.trace.source == "train" == want.trace.source
+        assert got.trace.meta["reduction"] == "nonblocking"
+        assert got.trace.meta["wall_s"] == dict(got.wall_segments)["run"]
+        _assert_same_events(got.trace, want.trace)
+    else:
+        assert got.trace is None
+
+
+def test_run_train_refuses_indivisible_rows():
+    prob = _train_problem()
+    cfg = tapi.RuntimeConfig(monitor=interop.monitor_from(_jmon()))
+    with pytest.raises(ValueError, match="not divisible"):
+        tapi.run_train(prob, cfg, 3, np.zeros((3, 8)), prob.A, prob.y, device="cpu")
+
+
+def test_run_elastic_matches_jax_run_elastic(tmp_path):
+    from repro.runtime import elastic as jel
+    from repro_torch.runtime import elastic as tel
+
+    n = 8
+    jst, st, b, x0 = _convdiff(n)
+    jcfg = japi.RuntimeConfig(monitor=_jmon(staleness=1), reduction="nonblocking",
+                              contrib_lag=1, record_trace=True)
+    knobs = dict(segment_len=25, max_segments=40)
+    want = japi.run_elastic("convdiff", jcfg, n, x0, b, jel.FaultPlan(), str(tmp_path / "a"),
+                            stencil=jst, p0=1, **knobs)
+    got = tapi.run_elastic("convdiff", _tcfg(jcfg), n, x0, b, tel.FaultPlan(),
+                           str(tmp_path / "b"), stencil=st, slots=1, device="cpu", **knobs)
+    assert got.converged == want.converged and got.converged
+    assert got.outer_iters == want.outer_iters and got.detect_step == want.detect_step
+    assert got.detected_residual == pytest.approx(want.detected_residual, rel=5e-5)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-10, rtol=0)
+    assert got.membership_log == [tuple(e) for e in want.membership_log]
+    assert [nm for nm, _ in got.wall_segments] == ["elastic"]
+    assert isinstance(got.raw, tel.ElasticReport)
+    got.trace.validate()
+    assert got.trace.source == "elastic"
+    assert len(got.trace.events_of("segment")) == got.raw.segments_run
+    # the same report gives JAX's text
+    j = jtrace.Trace.loads(got.trace.dumps())
+    assert j.dumps() == got.trace.dumps()
+    assert [(e["kind"], e["step"]) for e in j.events] == \
+        [(e["kind"], e["step"]) for e in want.trace.events]
+
+
+def test_train_adapter_writes_jax_text():
+    from repro.runtime import train_async as jta
+    from repro_torch.runtime import train_async as tta
+
+    prob = MLFixedPointProblemP4()
+    jcfg = japi.RuntimeConfig(monitor=_jmon(), reduction="rdoubling",
+                              inner_sweeps=(1, 2, 1, 3), halo_delay=(0, 1, 0, 2),
+                              contrib_lag=(0, 1, 0, 1), num_batches=1, max_outer=5000,
+                              trace_len=512)
+    tcfg = _tcfg(jcfg).to_train_config()
+    r = tta.make_train_runtime(prob, tcfg, 4, device="cpu")(
+        jta.init_replicas(prob, 4), prob.A, prob.y)
+    assert r.converged
+    got = ttrace.trace_from_train_run(r, tcfg, 4, 0.125)
+    want = jtrace.trace_from_train_run(r, jcfg.to_train_config(), 4, 0.125)
+    assert got.dumps() == want.dumps()
+    assert got.source == "train" and got.meta["inner_sweeps"] == [1, 2, 1, 3]
+
+
+def MLFixedPointProblemP4():
+    from repro.solvers.mlfixed import MLFixedPointProblem
+
+    return MLFixedPointProblem(n=16, p=4, m_rows=64, task="logistic", seed=3)
+
+
+@pytest.mark.parametrize("walls", [None, [0.5, 0.25, 0.125, 1.0, 2.0]])
+def test_elastic_adapter_writes_jax_text(tmp_path, walls):
+    from repro_torch.runtime import elastic as tel
+
+    n = 8
+    _, st, b, x0 = _convdiff(n)
+    jcfg = japi.RuntimeConfig(monitor=_jmon(staleness=1), contrib_lag=1)
+    scfg = _tcfg(jcfg).to_shard_config()
+    rep = tel.run_elastic("convdiff", scfg, n, x0, b, tel.FaultPlan(join_at={1: 1}),
+                          str(tmp_path), stencil=st, slots=1, segment_len=5,
+                          max_segments=40, device="cpu")
+    assert rep.converged and rep.segments_run >= 2
+    w = None if walls is None else (walls * 20)[:rep.segments_run]
+    got = ttrace.trace_from_elastic_report(rep, scfg, 1, segment_walls=w, meta={"k": 1})
+    want = jtrace.trace_from_elastic_report(rep, jcfg.to_shard_config(), 1,
+                                            segment_walls=w, meta={"k": 1})
+    assert got.dumps() == want.dumps()
+    assert [e["change"] for e in got.events_of("member")] == ["join"]
+
+
+def test_port_train_trace_replays_in_jax():
+    from repro.runtime import train_async as jta
+
+    prob = _train_problem()
+    # a run the default trace length (512 rounds) covers to its detection
+    jcfg = japi.RuntimeConfig(monitor=_jmon(eps_tilde=1e-4, staleness=1), inner_sweeps=2,
+                              max_outer=5000, record_trace=True)
+    rep = tapi.run_train(prob, _tcfg(jcfg), 1, jta.init_replicas(prob, 1), prob.A, prob.y,
+                         device="cpu")
+    tr = jtrace.Trace.loads(rep.trace.dumps())
+    tr.validate()
+    assert tr.source == "train"
+    cost, _ = fit_cost_model(tr)
+    v = replay(tr, cost)
+    assert v.converged
+    assert v.predicted_detect_step == rep.detect_step
