@@ -120,13 +120,36 @@ Phases, each of which must pass or the script exits non-zero:
    6 → 5 → 6 and 4 → 2 → 4 shards, converge with the exact residual of its
    result under ε̃ and write a valid trace; the convdiff restart must roll
    iterations back.  Prints the recovery accounting, the walls of saves
-   and restores and ms per segment.
+   and restores and ms per segment;
+14. dense-LM training through ``launch.train.train``: (a) qwen2-1.5b at full
+   width (28 layers, d_model 1536, vocab 151936 padded to 152064, bf16,
+   seed 0), TRAIN_4K's 4096 tokens a sequence at batch 4 (its global batch
+   of 256 cut to 4), remat "block", PFAIT K = 2 on the loss: one warm-up
+   step and 4 timed ones, the first loss within 1.0 of ln 151936, every
+   loss and grad_norm finite, the last loss below the first; then one
+   2-microbatch step whose loss must be the whole batch's within rtol
+   1e-3, and finite parameters.  Prints ms per step, tokens/s, the
+   model-FLOP share of the bf16 peak, peak memory, the device's busy share
+   and top kernels and operators over the timed steps (``torch.profiler``),
+   the synchronising CUDA calls inside one step (sync debug mode) and the
+   plain attention's share of a step.  (b) reduced qwen2 runs to loss 3.8:
+   sync and PFAIT K = 4 must fire, PFAIT exactly 4 steps after sync; sync,
+   PFAIT K = 3 and NFAIS2 K = 3 must fire where a host replay of the
+   detection rule on the run's loss series fires; a 30-step run
+   checkpointed every 10 steps must resume to 40, and a monitor state
+   restored from a checkpoint must be bitwise the saved one.  (c) a
+   reduced f32 state's 3 steps on the card must give the CPU's losses and
+   grad norms within rtol 1e-4.
 
-Phases 4 to 9 and 11 to 13 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 14 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
-capture recorded).  Needs
+capture recorded).  Phase 14 is the one main path that must launch none
+of the six: training runs the plain attention under autograd, as the JAX
+model does (its ``Model._ctx`` passes ``use_kernel=False``), and the flash
+kernel has no backward, so a launch there would put a kernel without a
+backward on an autograd path.  Needs
 CUDA: without a card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -2464,6 +2487,426 @@ def verify_elastic(out: dict) -> None:
     del out["pagerank"]["P"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: dense-LM training
+# ---------------------------------------------------------------------------
+
+# the LM training path: qwen2-1.5b at full width through launch.train.train,
+# TRAIN_4K's 4096 tokens a sequence at batch 4 (TRAIN_4K's global batch of
+# 256 cut to 4 for one card's step time; nothing else is cut), bf16, seed 0,
+# remat "block", PFAIT K = 2 on the loss; one warm-up step and 4 timed steps
+LM_ARCH, LM_BATCH, LM_STEPS, LM_K = "qwen2-1.5b", 4, 5, 2
+PEAK_BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16
+# the reduced runs: JAX's tests/test_system.py and test_train_loop.py settings
+LM_TARGET = 3.8
+LM_SMALL = dict(batch=4, seq=64, use_reduced=True, margin=1.0, log_every=1000)
+# a reduced f32 state's 3 steps on the card against the CPU: loss and
+# grad_norm within rtol 1e-4 (summation order in every product and norm,
+# through two Adam updates)
+LM_CPU_RTOL = 1e-4
+LM_CPU_STEPS = 3
+
+
+class LMTrainRun(NamedTuple):
+    """Phase 14's results: the full-width run and its probes, the reduced
+    runs, the ring check and the card-against-CPU steps."""
+
+    full: dict                  # launch.train.train's return at full width
+    metrics: list               # every full-width step's (loss, grad_norm) on the host
+    step_ms: list               # CUDA-event span of each step (0 = warm-up)
+    span_ms: float              # start of step 1 to the end of the last step
+    busy_ms: float              # kernel time the profiler saw over the timed steps
+    syncs: list                 # synchronising CUDA calls inside one timed step
+    peak_bytes: int
+    mb_loss: tuple              # (loss of the whole batch, of 2 microbatches)
+    attn_ms: tuple              # one layer's plain attention: forward, backward
+    small: dict                 # reduced runs by name
+    ring_equal: bool
+    cpu: tuple                  # ([(loss, gnorm)] on the card, on the CPU)
+
+
+class _StepProbe:
+    """Wraps the step function ``launch.train.train`` builds: CUDA events
+    around each step, the profiler advanced after it, the metrics kept, and
+    the synchronising CUDA calls inside step ``sync_step`` recorded
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+
+    def __init__(self, prof, sync_step: int):
+        self.prof, self.sync_step = prof, sync_step
+        self.events, self.metrics, self.syncs = [], [], []
+
+    def wrap(self, step):
+        import traceback
+        import warnings
+
+        import torch
+
+        def seen(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" in str(message):
+                # where in the repository the call came from
+                frames = [f for f in traceback.extract_stack()[:-1] if "/src/" in f.filename]
+                self.syncs.append(" <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                              for f in reversed(frames[-3:])) or
+                                  f"{filename}:{lineno}")
+
+        def probed(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            if len(self.events) == self.sync_step:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = seen
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = step(state, batch)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+            else:
+                out = step(state, batch)
+            end.record()
+            self.events.append((start, end))
+            self.metrics.append(out[1])
+            self.prof.step()
+            return out
+
+        return probed
+
+
+def _profile_rows(prof, top: int = 8):
+    """``(busy_us, kernels, ops)`` of a profile: the summed device time of
+    its kernels, memory copies and fills (one stream: they do not overlap),
+    and the top kernels, and the top operators by the device time of the
+    kernels each launched, as (ms, count, name).  Read from the raw trace
+    events: building the profiler's event tree for the thousands of
+    launches of a training step takes a minute."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    # the operators that launched each kernel, by correlation id
+    op_of = {e.correlation_id(): e.name() for e in events
+             if e.device_type() == DeviceType.CPU and e.name().startswith("aten::")}
+    kernels, ops = Counter(), Counter()
+    k_count, o_count = Counter(), Counter()
+    for e in events:
+        # the schedule's ProfilerStep ranges appear on the device too: they
+        # are annotations, not device work
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or e.name().startswith("ProfilerStep"):
+            continue
+        us = e.duration_ns() / 1e3
+        kernels[e.name()] += us
+        k_count[e.name()] += 1
+        op = op_of.get(e.linked_correlation_id())
+        if op is not None:
+            ops[op] += us
+            o_count[op] += 1
+    busy = sum(kernels.values())
+    return busy, [(t / 1e3, k_count[k], k) for k, t in kernels.most_common(top)], \
+        [(t / 1e3, o_count[k], k) for k, t in ops.most_common(top)]
+
+
+def _lm_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (PaLM's count): 6·N·tokens over the
+    parameters that enter a product (the layers' matrices and the LM head),
+    plus the attention's 12·L·H·d_head·S a token."""
+    from repro_torch.models.layers import ceil_to
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    n = cfg.num_layers * (attn + mlp) + ceil_to(cfg.vocab_size, 256) * d
+    tokens = batch * seq
+    return 6.0 * n * tokens + 12.0 * cfg.num_layers * cfg.num_heads * hd * seq * tokens
+
+
+def _time_attention(dev, cfg, batch: int, seq: int):
+    """(forward ms, backward ms) of one layer's plain attention
+    (``attention_fwd`` under autograd) at the step's shapes, CUDA events
+    over 3 calls after a warm-up."""
+    import torch
+
+    from repro_torch.models.attention import attention_fwd, plan_attention
+
+    ap = plan_attention(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, 1)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+
+    q = rand(batch, seq, ap.slots, ap.q_per_slot, ap.head_dim)
+    k, v = rand(batch, seq, ap.slots, ap.head_dim), rand(batch, seq, ap.slots, ap.head_dim)
+    ct = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    fwd = bwd = 0.0
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        out = attention_fwd(q, k, v, causal=True)
+        ev[1].record()
+        out.backward(ct)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if rep:
+            fwd += ev[0].elapsed_time(ev[1]) / 3
+            bwd += ev[1].elapsed_time(ev[2]) / 3
+        del out
+        q.grad = k.grad = v.grad = None
+    return fwd, bwd
+
+
+def run_lm_train(dev) -> LMTrainRun:
+    """Phase 14: dense-LM training through ``launch.train.train``: (a) at
+    full width, timed and profiled, then one 2-microbatch step; (b) the
+    reduced runs to the target loss and through a checkpoint; (c) a
+    reduced f32 state's steps on the card and on the CPU."""
+    import gc
+    import math
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import interop
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import TRAIN_4K, reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import detection
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import AdamW, constant_schedule, cosine_schedule
+
+    card = nvidia_smi()
+    seq = TRAIN_4K.seq_len
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"lm train: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated before "
+          f"the phase [{card}]")
+
+    # (a) full width: 1 warm-up + 4 timed steps, the timed ones profiled
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=LM_STEPS - 1, repeat=1))
+    probe = _StepProbe(prof, sync_step=LM_STEPS - 1)
+    built = model_mod.Model.make_train_step
+
+    def probed_build(self, *args, **kw):
+        step, mon = built(self, *args, **kw)
+        return probe.wrap(step), mon
+
+    model_mod.Model.make_train_step = probed_build
+    t0 = time.perf_counter()
+    try:
+        with prof:
+            full = train(LM_ARCH, steps=LM_STEPS, batch=LM_BATCH, seq=seq, use_reduced=False,
+                         monitor_mode="pfait", staleness=LM_K, seed=0, log_every=1,
+                         device=dev)
+            torch.cuda.synchronize()
+    finally:
+        model_mod.Model.make_train_step = built
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [s.elapsed_time(e) for s, e in probe.events]
+    span_ms = probe.events[1][0].elapsed_time(probe.events[-1][1])
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in probe.metrics]
+    t1 = time.perf_counter()
+    busy_us, kernels, ops = _profile_rows(prof)
+    t_table = time.perf_counter() - t1
+    timed = LM_STEPS - 1
+    tokens = LM_BATCH * seq
+    flops = _lm_flops(cfg, LM_BATCH, seq)
+    print(f"lm train (a) full width: {LM_ARCH} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, batch {LM_BATCH} × {seq}, bf16, remat block, PFAIT K = {LM_K}: "
+          f"train() {wall:.3f} s for {LM_STEPS} steps; warm-up step {step_ms[0]:.3f} ms, timed "
+          f"steps {', '.join(f'{t:.3f}' for t in step_ms[1:])} ms; {span_ms / timed:.3f} ms a "
+          f"step over steps 1–{timed} ({tokens * timed / (span_ms / 1e3):.1f} tokens/s); model "
+          f"FLOPs {flops:.4e} a step, {100 * flops / (span_ms / timed / 1e3) / PEAK_BF16_FLOPS:.2f}% "
+          f"of the bf16 dense peak; peak memory {peak / 2**30:.2f} GiB; device busy "
+          f"{100 * busy_us / 1e3 / span_ms:.1f}% ({busy_us / 1e3:.3f} ms of kernels over "
+          f"{span_ms:.3f} ms); {len(probe.syncs)} synchronising CUDA calls inside step "
+          f"{LM_STEPS - 1} [{card}]")
+    for site, n in Counter(probe.syncs).most_common(8):
+        print(f"  synchronising call: {n}× at {site}")
+    print("  losses " + ", ".join(f"{l:.4f}" for l, _ in metrics) + "; grad norms "
+          + ", ".join(f"{g:.4f}" for _, g in metrics) + f"; ln(vocab) {math.log(cfg.vocab_size):.4f}")
+    print(f"profile lm train, top kernels by device time over the timed steps ({t_table:.1f} s "
+          f"to tabulate) [{card}]:")
+    for t, c, k in kernels:
+        print(f"  {t:9.3f} ms  {c:6d}×  {k[:90]}")
+    print(f"profile lm train, top operators by the device time of their kernels [{card}]:")
+    for t, c, k in ops:
+        print(f"  {t:9.3f} ms  {c:6d}×  {k[:90]}")
+    del prof
+
+    # one 2-microbatch step from the trained state, against the loss of the
+    # whole batch on the same parameters (what a 1-microbatch step reports)
+    t1 = time.perf_counter()
+    model = model_mod.Model(cfg, device=dev)
+    state = full["state"]
+    host = synth_batch(DataConfig(seed=0, vocab_size=cfg.vocab_size), LM_STEPS, LM_BATCH, seq)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    with torch.no_grad():
+        loss1 = float(model.loss_fn(state.params, batch)[0])
+    opt = AdamW(cosine_schedule(3e-3, max(LM_STEPS // 20, 1), LM_STEPS))
+    step2, _ = model.make_train_step(opt, monitor=full["monitor"], microbatches=2)
+    state, met = step2(state, batch)
+    mb_loss = (loss1, float(met["loss"]))
+    finite = bool(torch.stack([torch.isfinite(p).all() for p in state.params.parameters()]).all())
+    _require(finite, "lm train (a): a parameter is not finite after the 2-microbatch step")
+    _require(math.isfinite(float(met["grad_norm"])) and float(met["grad_norm"]) > 0,
+             "lm train (a): the 2-microbatch step's grad_norm is not finite and positive")
+    print(f"lm train (a) 2 microbatches: loss {mb_loss[1]:.6f} against the whole batch's "
+          f"{mb_loss[0]:.6f} (rel {abs(mb_loss[1] - mb_loss[0]) / abs(mb_loss[0]):.3e}, bar "
+          f"1e-3); grad_norm {float(met['grad_norm']):.4f}; parameters finite; "
+          f"{time.perf_counter() - t1:.1f} s")
+    full = dict(full, state=None)
+    del state, model, met, batch, step2
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_ms = _time_attention(dev, cfg, LM_BATCH, seq)
+    attn_step = cfg.num_layers * (2 * attn_ms[0] + attn_ms[1])
+    print(f"lm train: one layer's plain attention at {LM_BATCH} × {seq}: forward "
+          f"{attn_ms[0]:.3f} ms, backward {attn_ms[1]:.3f} ms; × {cfg.num_layers} layers × "
+          f"(forward, recompute, backward) = {attn_step:.3f} ms, "
+          f"{100 * attn_step / (span_ms / timed):.1f}% of a timed step [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) reduced runs on the card: the target, PFAIT = sync + K, replay,
+    # a checkpointed run resumed
+    t1 = time.perf_counter()
+    small = {}
+    common = dict(LM_SMALL, target_loss=LM_TARGET, device=dev)
+    small["sync K=0 seed 1"] = train(LM_ARCH, steps=150, monitor_mode="sync", seed=1, **common)
+    small["pfait K=4 seed 1"] = train(LM_ARCH, steps=150, monitor_mode="pfait", staleness=4,
+                                      seed=1, **common)
+    for mode, k in (("sync", 0), ("pfait", 3), ("nfais2", 3)):
+        small[f"{mode} K={k}"] = train(LM_ARCH, steps=120, monitor_mode=mode, staleness=k,
+                                       **common)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ck = dict(LM_SMALL, ckpt_dir=d, ckpt_every=10, seed=2, device=dev)
+        small["ckpt 30"] = train(LM_ARCH, steps=30, **ck)
+        small["ckpt resume 40"] = train(LM_ARCH, steps=40, **ck)
+    for name, r in small.items():
+        print(f"lm train (b) {name}: state at step {r['steps_run']}, stop at "
+              f"{r['stop_step']}, {len(r['losses'])} losses read in {r['wall_s']:.3f} s (host "
+              f"clock), last {r['losses'][-1]:.4f}")
+
+    # the monitor ring through a checkpoint on the card, bitwise
+    rcfg = reduced(cfg)
+    m = model_mod.Model(rcfg, device=dev)
+    opt = AdamW(constant_schedule(1e-3))
+    mon = detection.for_mode("pfait", eps_tilde=LM_TARGET, staleness=3, persistence=4, ord=1.0)
+    fn, _ = m.make_train_step(opt, monitor=mon)
+    st = m.init_train_state(torch.Generator(device=dev).manual_seed(0), opt, monitor=mon)
+    dc = DataConfig(seed=0, vocab_size=rcfg.vocab_size)
+    for i in range(6):
+        st, _ = fn(st, {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(dc, i, 2, 32).items()})
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ckpt = Checkpointer(d)
+        ckpt.save(interop.train_state_tree(st), 6)
+        ckpt.wait()
+        tree, _ = ckpt.restore(like=interop.train_state_tree(st), device=dev)
+    back = interop.train_state_from(tree, m)
+    ring_equal = bool(torch.isfinite(st.monitor.ring).all()) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(back.monitor, st.monitor)) and torch.equal(back.step, st.step)
+    print(f"lm train (b) monitor ring through a checkpoint: {st.monitor.ring.tolist()} "
+          f"restored bitwise: {ring_equal}; (b) took {time.perf_counter() - t1:.1f} s")
+
+    # (c) the same reduced f32 state on the card and on the CPU
+    fcfg = reduced(cfg, dtype="float32")
+    on = {}
+    for where in ("cpu", dev):
+        mm = model_mod.Model(fcfg, device=where)
+        opt = AdamW(cosine_schedule(3e-3, 1, LM_CPU_STEPS))
+        if where == "cpu":
+            s0 = mm.init_train_state(torch.Generator().manual_seed(0), opt)
+            tree0 = interop.train_state_tree(s0)
+        else:
+            s0 = interop.train_state_from(tree0, mm)
+        fn, _ = mm.make_train_step(opt)
+        series = []
+        for i in range(LM_CPU_STEPS):
+            b = {k: torch.from_numpy(v).to(where)
+                 for k, v in synth_batch(DataConfig(vocab_size=fcfg.vocab_size), i, 4, 64).items()}
+            s0, met = fn(s0, b)
+            series.append((float(met["loss"]), float(met["grad_norm"])))
+        on[str(where)] = series
+    cpu = (on[str(dev)], on["cpu"])
+    print("lm train (c) reduced f32, card against CPU: " + "; ".join(
+        f"step {i} loss {a[0]:.7f} / {b[0]:.7f}, grad_norm {a[1]:.7f} / {b[1]:.7f}"
+        for i, (a, b) in enumerate(zip(*cpu))))
+    return LMTrainRun(full=full, metrics=metrics, step_ms=step_ms, span_ms=span_ms,
+                      busy_ms=busy_us / 1e3, syncs=probe.syncs, peak_bytes=peak,
+                      mb_loss=mb_loss, attn_ms=attn_ms, small=small, ring_equal=ring_equal,
+                      cpu=cpu)
+
+
+def _replay_fire_step(losses, eps, K, mode, m=4):
+    """Host replay of ``core/detection.step`` on a recorded loss series
+    (``tests/test_train_loop.py:21-38``): the step the monitor must fire
+    at, the visible value K steps stale."""
+    persist = 0
+    for k in range(len(losses)):
+        vis = losses[k - K] if k >= K else INF
+        below = vis < eps
+        if mode in ("sync", "pfait"):
+            if below:
+                return k
+        else:
+            persist = persist + 1 if below else 0
+            if persist >= m:
+                return k
+    return None
+
+
+def verify_lm_train(out: LMTrainRun) -> None:
+    import math
+
+    from repro_torch.configs.registry import get_arch
+
+    vocab = get_arch(LM_ARCH).vocab_size
+    ln_vocab = math.log(vocab)
+    losses = [l for l, _ in out.metrics]
+    _require(len(out.metrics) == LM_STEPS, "lm train (a): not every step reported metrics")
+    _require(all(math.isfinite(l) and math.isfinite(g) and g > 0 for l, g in out.metrics),
+             f"lm train (a): a loss or grad_norm is not finite and positive: {out.metrics}")
+    _require(abs(losses[0] - ln_vocab) <= 1.0,
+             f"lm train (a): first loss {losses[0]:.4f} not within 1.0 of ln {vocab}")
+    _require(losses[-1] < losses[0], f"lm train (a): the loss did not fall: {losses}")
+    _require(out.full["losses"] == losses[:len(out.full["losses"])],
+             "lm train (a): the losses train() read are not the steps' own")
+    _require(out.full["steps_run"] == LM_STEPS, "lm train (a): wrong step count")
+    _require(abs(out.mb_loss[1] - out.mb_loss[0]) <= 1e-3 * abs(out.mb_loss[0]),
+             f"lm train (a): 2 microbatches' loss {out.mb_loss[1]} is not the whole batch's "
+             f"{out.mb_loss[0]} within rtol 1e-3")
+    small = out.small
+    sync, pfait = small["sync K=0 seed 1"], small["pfait K=4 seed 1"]
+    _require(sync["stop_step"] is not None and pfait["stop_step"] is not None,
+             "lm train (b): sync or pfait K = 4 never fired")
+    _require(pfait["stop_step"] == sync["stop_step"] + 4,
+             f"lm train (b): pfait fired at {pfait['stop_step']}, not sync's "
+             f"{sync['stop_step']} + 4")
+    for mode, k in (("sync", 0), ("pfait", 3), ("nfais2", 3)):
+        r = small[f"{mode} K={k}"]
+        want = _replay_fire_step(r["losses"], LM_TARGET, k, mode, r["monitor"].persistence)
+        _require(r["stop_step"] is not None and r["stop_step"] == want,
+                 f"lm train (b): {mode} K={k} fired at {r['stop_step']}, the host replay at "
+                 f"{want}")
+    _require(small["ckpt 30"]["steps_run"] == 30 and small["ckpt resume 40"]["steps_run"] == 40,
+             "lm train (b): the checkpointed run did not resume to 40 steps")
+    _require(out.ring_equal, "lm train (b): the restored monitor state is not bitwise the saved")
+    for i, (a, b) in enumerate(zip(*out.cpu)):
+        for what, x, y in (("loss", a[0], b[0]), ("grad_norm", a[1], b[1])):
+            _require(abs(x - y) <= LM_CPU_RTOL * abs(y),
+                     f"lm train (c): step {i} {what} {x} on the card, {y} on the CPU")
+    print(f"lm train: checks passed — first loss {losses[0]:.4f} (ln {vocab} = {ln_vocab:.4f}), "
+          f"last {losses[-1]:.4f}; sync fired at {sync['stop_step']}, pfait K = 4 at "
+          f"{pfait['stop_step']}; fire steps equal the host replay; resumed 30 → 40; ring "
+          f"bitwise; card within rtol {LM_CPU_RTOL:g} of the CPU")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2591,6 +3034,17 @@ def main() -> int:
     verify_train(runs["training runtime"], nvidia_smi())
     verify_elastic(runs["elastic driver"])
     rank_launches(st, dev, shape_launches, times)
+    runs.clear()   # the card's memory goes to the full-width training step
+
+    # phase 14, the dense-LM training path, launches none of the kernels:
+    # its attention is the plain version under autograd
+    _reset_launches()
+    lm = run_lm_train(dev)
+    torch.cuda.synchronize()
+    used = _launches()
+    print("main-path launches, LM training:", json.dumps(used))
+    _require(not any(used.values()), f"the LM training path launched a kernel: {used}")
+    verify_lm_train(lm)
 
     rows = []
     for k, (source, replaces) in KERNELS.items():

@@ -10,8 +10,8 @@ file, so a checkpoint written by either package restores in the other)::
 
 A step is written into ``step_NNNNNN.tmp`` and renamed into place once
 committed.  ``save`` copies every leaf to the host synchronously (the
-producing stream is synchronised by the copy) and serialises on a
-background thread, so the caller does not wait for the filesystem; a
+producing stream is synchronised by the copy; a CPU tensor is copied too)
+and serialises on a background thread, so the caller does not wait for the filesystem; a
 failed write is re-raised from ``wait`` and from the next ``save``.
 ``restore`` places the leaves on a device: the checkpoint holds no layout,
 so any shard count can resume from it.
@@ -45,26 +45,29 @@ _BY_TORCH = {t: name for name, (t, _) in _VIEW_DTYPES.items()}
 
 
 def _encode(leaf) -> Tuple[np.ndarray, str]:
-    """A leaf as a host array ``np.save`` writes, and its logical type."""
+    """A leaf as a host array ``np.save`` writes, and its logical type.  A
+    tensor is copied (a CPU tensor too), so an update the caller makes in
+    place after ``save`` returns does not reach the checkpoint."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         name = _BY_TORCH.get(t.dtype)
         if name is not None:
             width = _VIEW_DTYPES[name][1]
-            return t.view(_SIGNED[width]).cpu().numpy().view(width), name
-        arr = t.cpu().numpy()
+            return t.view(_SIGNED[width]).to("cpu", copy=True).numpy().view(width), name
+        arr = t.to("cpu", copy=True).numpy()
         return arr, arr.dtype.name
     arr = np.asarray(leaf)
     return arr, arr.dtype.name
 
 
 def _decode(arr: np.ndarray, name: str) -> torch.Tensor:
+    # ``np.ascontiguousarray`` makes a 0-d array 1-d: the shape is restored
     if name in _VIEW_DTYPES:
         dtype, width = _VIEW_DTYPES[name]
         signed = torch.from_numpy(np.ascontiguousarray(arr).view(width).view(
             np.int16 if width is np.uint16 else np.uint8))
-        return signed.view(dtype)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return signed.view(dtype).reshape(arr.shape)
+    return torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
 
 
 def _flatten(tree) -> Tuple[List[Any], Any]:

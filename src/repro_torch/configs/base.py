@@ -3,13 +3,14 @@
 A copy of the JAX package's ``configs/base.py`` (the port imports nothing
 of it): every assigned architecture is a ``ModelConfig``, field for field
 the same, and the registry (``configs/registry.py``) resolves ``--arch``
-strings to these objects.  The shape, parallel and run configurations come
-with the training path.
+and ``--shape`` strings to these objects.  ``ShapeConfig``,
+``ParallelConfig`` and ``RunConfig`` are the JAX package's, field for
+field.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
@@ -166,6 +167,70 @@ class ModelConfig:
             * n_mlp_mats * d * f
         )
         return full - inactive
+
+
+# ---------------------------------------------------------------------------
+# Input-shape configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+# ---------------------------------------------------------------------------
+# Parallelism / run configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How a model is laid out on the mesh.
+
+    Axes: ``pod`` (optional outer DP), ``data`` (DP/FSDP), ``model`` (TP/EP).
+    The port runs one model per device: ``Model`` reads ``remat``,
+    ``attn_impl``, ``monitor_mode`` and ``monitor_staleness``.
+    """
+
+    fsdp: bool = True            # shard params over "data" too (ZeRO-3)
+    remat: str = "block"         # "block" | "save_mixer" — checkpoint policy
+    attn_impl: str = "blocked"   # "blocked" | "pairs" (causal block skipping)
+    tp_reduce_bf16: bool = False # explicit bf16 TP down-proj reductions
+    expert_axis: str = "model"   # EP placement for MoE
+    seq_shard_decode: bool = True  # shard long decode contexts over "model"
+    # PFAIT monitor defaults for training
+    monitor_mode: str = "pfait"
+    monitor_staleness: int = 2
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    seed: int = 0
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    microbatch: int = 0          # 0 => no grad accumulation
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

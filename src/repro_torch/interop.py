@@ -7,11 +7,16 @@ with the JAX classes' fields (they read attributes only, so this module
 imports nothing of the JAX package) and build the port's frozen
 dataclasses; ``tensor_from`` moves arrays and ``params_from`` a JAX
 parameter tree, as numpy arrays, into a port model's parameters.
+``train_state_from`` carries a JAX ``TrainState`` across (parameters,
+Adam moments and step, monitor); ``params_to_tree`` and
+``train_state_tree`` give the port's state back in JAX's tree layout
+(layers stacked ``[L, …]``), the layout ``launch/train.py`` checkpoints,
+so either package restores the other's training checkpoints.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Mapping
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +30,7 @@ from repro_torch.solvers.fixed_point import SolverConfig
 from repro_torch.solvers.partition import MeshPartition
 
 if TYPE_CHECKING:
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, TrainState
     from repro_torch.models.transformer import Transformer
 
 
@@ -91,7 +96,9 @@ def model_config_from(obj) -> ModelConfig:
 def _as_tensor(a) -> torch.Tensor:
     """A numpy array as a tensor.  bf16 arrives as an ``ml_dtypes`` array,
     which ``torch.as_tensor`` refuses: its bits are viewed as uint16 and
-    reinterpreted, which is exact."""
+    reinterpreted, which is exact.  A tensor is returned as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(
@@ -107,31 +114,110 @@ def _leaf_names(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{k}"
 
 
+def _named_from_tree(tree: Mapping[str, Any], names) -> Dict[str, torch.Tensor]:
+    """The leaves of a JAX parameter-shaped tree under the port's parameter
+    ``names`` (a ``Transformer``'s ``named_parameters()`` order), as
+    tensors.  The JAX layers are a tuple over the scan period of dicts
+    whose leaves are stacked ``[steps, …]``; layer ``i`` of the port takes
+    step ``i // period`` of entry ``i % period``."""
+    units = tree["layers"]
+    period = len(units)
+    per_layer: Dict[int, set] = {}
+    for name in names:
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            per_layer.setdefault(int(i), set()).add(rest)
+    for i, got in per_layer.items():
+        want = set(_leaf_names(units[i % period]))
+        if got != want:
+            raise ValueError(f"layer {i}: JAX leaves {sorted(want)} "
+                             f"!= port parameters {sorted(got)}")
+    out = {}
+    for name in names:
+        if not name.startswith("layers."):
+            out[name] = _as_tensor(tree[name])
+            continue
+        _, i, rest = name.split(".", 2)
+        leaf = units[int(i) % period]
+        for part in rest.split("."):
+            leaf = leaf[part]
+        step = int(i) // period
+        out[name] = leaf[step] if isinstance(leaf, torch.Tensor) else \
+            _as_tensor(np.asarray(leaf)[step])
+    return out
+
+
 def params_from(tree: Mapping[str, Any], model: "Model") -> "Transformer":
-    """A JAX parameter tree (``Model.init``'s, leaves as numpy arrays) as
-    the port model's parameters on ``model.device``.  The JAX layers are a
-    tuple over the scan period of dicts whose leaves are stacked
-    ``[steps, …]``; layer ``i`` of the port takes step ``i // period`` of
-    entry ``i % period``."""
+    """A JAX parameter tree (``Model.init``'s, leaves as numpy arrays or
+    tensors) as the port model's parameters on ``model.device``."""
     from repro_torch.models.transformer import Transformer
 
     params = Transformer(model.plan, model.device)
+    named = dict(params.named_parameters())
     with torch.no_grad():
-        for name in ("embed", "lm_head", "final_norm"):
-            if getattr(params, name) is not None:
-                getattr(params, name).copy_(_as_tensor(tree[name]))
-        units = tree["layers"]
-        period = len(units)
-        for i, blk in enumerate(params.layers):
-            unit = units[i % period]
-            step = i // period
-            names = dict(blk.named_parameters())
-            if set(names) != set(_leaf_names(unit)):
-                raise ValueError(f"layer {i}: JAX leaves {sorted(_leaf_names(unit))} "
-                                 f"!= port parameters {sorted(names)}")
-            for pname, t in names.items():
-                leaf = unit
-                for part in pname.split("."):
-                    leaf = leaf[part]
-                t.copy_(_as_tensor(np.asarray(leaf)[step]))
+        for name, leaf in _named_from_tree(tree, named).items():
+            named[name].copy_(leaf)
     return params
+
+
+def params_to_tree(params) -> Dict[str, Any]:
+    """The inverse of ``params_from``: JAX's parameter tree (one scan unit,
+    the dense family's period, its leaves stacked ``[L, …]``) of host
+    tensors, from a ``Transformer`` or a ``{name: tensor}`` dict under its
+    parameter names (moments, gradients)."""
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) \
+        else dict(params)
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Tuple[str, ...], list] = {}
+    for name, t in named.items():
+        t = t.detach().to("cpu", copy=True)   # a snapshot: training updates in place
+        if not name.startswith("layers."):
+            tree[name] = t
+            continue
+        _, i, rest = name.split(".", 2)
+        stacks.setdefault(tuple(rest.split(".")), []).append((int(i), t))
+    unit: Dict[str, Any] = {}
+    for path, items in stacks.items():
+        d = unit
+        for part in path[:-1]:
+            d = d.setdefault(part, {})
+        d[path[-1]] = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
+    tree["layers"] = (unit,)
+    return tree
+
+
+def train_state_tree(state: "TrainState") -> tuple:
+    """The port's ``TrainState`` in the JAX ``TrainState``'s tree layout:
+    ``(params, (step, m, v), monitor fields, step)``, the parameter and
+    moment trees from ``params_to_tree``.  Either package's checkpointer
+    flattens it into the JAX state's leaves, in the same order."""
+    return (params_to_tree(state.params),
+            (state.opt.step, params_to_tree(state.opt.m), params_to_tree(state.opt.v)),
+            tuple(state.monitor), state.step)
+
+
+def train_state_from(state, model: "Model") -> "TrainState":
+    """A JAX ``TrainState`` (leaves as arrays), or a tree in its layout
+    (``train_state_tree``'s, or what a checkpointer restores in it), as the
+    port's ``TrainState`` on ``model.device``: the parameters trainable,
+    the Adam step and moments (in their own dtypes) keyed by parameter
+    name, and the monitor state."""
+    from repro_torch.core.detection import MonitorState
+    from repro_torch.models.model import TrainState
+    from repro_torch.optim.adamw import AdamState
+
+    tree, (opt_step, m, v), monitor, step = state
+    params = params_from(tree, model).requires_grad_(True)
+    names = [n for n, _ in params.named_parameters()]
+    dev = model.device
+
+    def on_dev(a) -> torch.Tensor:
+        return _as_tensor(a).to(dev)
+
+    def moments(t):
+        return {n: leaf.to(dev) for n, leaf in _named_from_tree(t, names).items()}
+
+    return TrainState(params=params,
+                      opt=AdamState(step=on_dev(opt_step), m=moments(m), v=moments(v)),
+                      monitor=MonitorState(*(on_dev(x) for x in monitor)),
+                      step=on_dev(step))

@@ -10,7 +10,9 @@ JAX keep their shapes.
 
 ``attention_fwd`` is the plain blocked online-softmax over KV blocks and
 the plain version of the flash kernel on the model layout
-(``kernels/flash_attention/ops.py`` sends CPU tensors here).
+(``kernels/flash_attention/ops.py`` sends CPU tensors here); training runs
+it under autograd on the card too, as the JAX model does (the flash
+kernel has no backward).
 """
 from __future__ import annotations
 
@@ -169,8 +171,9 @@ def attention_fwd(
     Skv = k.shape[1]
     dev = q.device
     # q · scale in q's dtype, the scale rounded to it first — what JAX does
-    # with a weakly typed Python float
-    qf = (q * torch.tensor(1.0 / math.sqrt(H), dtype=q.dtype, device=dev)).float()
+    # with a weakly typed Python float; made by a fill kernel (a tensor
+    # copied from the host would wait for the card)
+    qf = (q * torch.full((), 1.0 / math.sqrt(H), dtype=q.dtype, device=dev)).float()
     block_kv = min(block_kv, Skv)
     nblk = (Skv + block_kv - 1) // block_kv
     pad = nblk * block_kv - Skv
@@ -274,6 +277,7 @@ def attn_apply(
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # decode: (k, v) caches
     cache_len: Optional[int] = None,
     ring: bool = False,
+    impl: str = "blocked",   # "blocked" | "pairs" (causal block skipping)
 ):
     """Returns (out [B,S,D], new_kv) where new_kv = (k, v) of this call.
 
@@ -307,6 +311,10 @@ def attn_apply(
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif impl == "pairs":
+        raise NotImplementedError(
+            "attn_impl='pairs' (attention_fwd_pairs, causal block skipping) is not "
+            "ported yet (ROADMAP queue 1 item 14); use attn_impl='blocked'")
     else:
         out = attention_fwd(q, k, v, causal=causal, window=window, block_kv=block_kv)
     return torch.einsum("bsnph,nphd->bsd", out, p.wo), (k, v)

@@ -6,6 +6,11 @@ a Python loop over them.  A dense block is
 
     [norm → attn → +res] [norm → mlp → +res]
 
+In train mode each block runs under the remat policy of ``LayerCtx.remat``
+(``torch.utils.checkpoint`` where JAX wraps the scan body in
+``jax.checkpoint``).  Parameters are made with ``requires_grad=False``,
+for serving; ``Model.init_train_state`` switches it on.
+
 The moe, ssm and hybrid families and the modality frontends are later
 slices of the port (ROADMAP queue 1 item 14): ``check_supported`` refuses
 them rather than running something else.
@@ -17,6 +22,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -114,14 +120,16 @@ class Transformer(nn.Module):
 
 class LayerCtx(NamedTuple):
     """Static context of a forward pass.  The JAX fields for meshes,
-    sharding constraints, remat and the TP reduction have no counterpart
-    on one device."""
+    sharding constraints and the TP reduction have no counterpart on one
+    device."""
     plan: ModelPlan
     mode: str                     # "train" | "prefill" | "decode"
     window: int
     use_kernel: bool
     block_kv: int = 1024
     ring: bool = False            # ring KV cache (long-context decode)
+    attn_impl: str = "blocked"    # "blocked" | "pairs" (causal block skip)
+    remat: str = "block"          # "block" | "save_mixer" | "none" (train mode)
 
 
 def _attn_sublayer(p: Block, x, ctx: LayerCtx, positions, cache, cache_len):
@@ -132,6 +140,7 @@ def _attn_sublayer(p: Block, x, ctx: LayerCtx, positions, cache, cache_len):
         p.attn, h, ctx.plan.attn, cfg.rope_theta, positions,
         causal=True, window=ctx.window, block_kv=ctx.block_kv,
         use_kernel=ctx.use_kernel, cache=kv_cache, cache_len=cache_len, ring=ctx.ring,
+        impl=ctx.attn_impl,
     )
     # decode: attn_apply already wrote the new token into the cache
     new_cache = {"k": k_new, "v": v_new} if ctx.mode in ("decode", "prefill") else None
@@ -142,6 +151,33 @@ def _ffn_sublayer(p: Block, x, ctx: LayerCtx):
     cfg = ctx.plan.cfg
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
     return x + L.mlp_apply(p.mlp, h, cfg.gated_mlp)
+
+
+REMATS = ("block", "save_mixer", "none")
+
+
+def _train_block(p: Block, x, ctx: LayerCtx, positions):
+    """One block under the remat policy: ``"block"`` keeps only the block's
+    input for the backward pass and recomputes the block
+    (``jax.checkpoint(unit_apply)``); ``"save_mixer"`` also keeps the
+    post-attention residual and recomputes each sub-layer from its own
+    input (JAX's ``save_only_these_names("mixer_out")``); ``"none"`` keeps
+    every activation."""
+
+    def mixer(h):
+        return _attn_sublayer(p, h, ctx, positions, None, None)[0]
+
+    def ffn(h):
+        return _ffn_sublayer(p, h, ctx)
+
+    if ctx.remat == "none":
+        return ffn(mixer(x))
+    if ctx.remat == "save_mixer":
+        h = checkpoint(mixer, x, use_reentrant=False)
+        return checkpoint(ffn, h, use_reentrant=False)
+    if ctx.remat == "block":
+        return checkpoint(lambda h: ffn(mixer(h)), x, use_reentrant=False)
+    raise ValueError(f"remat {ctx.remat!r} not in {REMATS}")
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +204,9 @@ def forward(
         positions = positions + cache_len
     new_cache: List[Any] = []
     for i, layer in enumerate(params.layers):
+        if ctx.mode == "train":
+            x = _train_block(layer, x, ctx, positions)
+            continue
         x, nc = _attn_sublayer(layer, x, ctx, positions,
                                cache[i] if cache is not None else None, cache_len)
         x = _ffn_sublayer(layer, x, ctx)

@@ -147,14 +147,43 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 def test_jax_checkpoint_restores_in_port(tmp_path):
     state = {"bf16": np.arange(6, dtype=ml_dtypes.bfloat16).reshape(2, 3),
              "fp8": np.linspace(-2, 2, 8).astype(ml_dtypes.float8_e4m3fn),
-             "x": np.linspace(0, 1, 5)}
+             "x": np.linspace(0, 1, 5),
+             # 0-d leaves (a train state's step, a monitor's counters)
+             "s0": np.asarray(3, np.int32), "b0": np.asarray(1.5, ml_dtypes.bfloat16)}
     JCheckpointer(str(tmp_path)).save(state, step=9, blocking=True)
     out, step = Checkpointer(str(tmp_path)).restore(like={k: 0 for k in state},
                                                     device="cpu")
     assert step == 9
     assert out["bf16"].dtype == torch.bfloat16 and out["fp8"].dtype == torch.float8_e4m3fn
     for k, v in state.items():
-        assert _as_np(out[k]).dtype == v.dtype
+        assert _as_np(out[k]).dtype == v.dtype and tuple(out[k].shape) == v.shape
         assert _as_np(out[k]).tobytes() == v.tobytes()
     leaves, _ = Checkpointer(str(tmp_path)).restore(device="cpu")
-    assert [tuple(t.shape) for t in leaves] == [(2, 3), (8,), (5,)]
+    assert [tuple(t.shape) for t in leaves] == [(), (2, 3), (8,), (), (5,)]
+
+
+def test_save_snapshots_cpu_tensors_before_returning(tmp_path, monkeypatch):
+    """A training loop updates its parameters in place right after an
+    async ``save`` returns: the checkpoint holds the values at the call."""
+    import threading
+
+    from repro_torch.checkpoint import checkpointer as tck
+
+    may_write = threading.Event()
+    np_save = tck.np.save
+
+    def held_save(*args, **kw):
+        assert may_write.wait(timeout=30)
+        return np_save(*args, **kw)
+
+    monkeypatch.setattr(tck.np, "save", held_save)
+    ck = Checkpointer(str(tmp_path))
+    state = {"w": torch.ones(4), "h": torch.ones(2, dtype=torch.bfloat16)}
+    ck.save(state, step=1)
+    for t in state.values():
+        t.add_(1.0)                  # in place, while the write is pending
+    may_write.set()
+    ck.wait()
+    out, _ = ck.restore(like=state, device="cpu")
+    assert torch.equal(out["w"], torch.ones(4))
+    assert torch.equal(out["h"], torch.ones(2, dtype=torch.bfloat16))

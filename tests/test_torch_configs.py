@@ -1,6 +1,7 @@
 """The port's model configurations against the JAX package's: every
 registered architecture, and its ``reduced`` form, equal field by field
-with equal derived properties (exact: these are pure data)."""
+with equal derived properties; the shapes, the parallel and run configs
+and the registry's shape and cell lookups (exact: these are pure data)."""
 import dataclasses
 
 import pytest
@@ -54,3 +55,44 @@ def test_model_config_from_jax(name):
     t = interop.model_config_from(j)
     assert isinstance(t, tbase.ModelConfig)
     _assert_same(t, j)
+
+
+def test_shapes_equal_jax():
+    assert list(tbase.SHAPES) == list(jbase.SHAPES)
+    for t, j in zip(tbase.ALL_SHAPES, jbase.ALL_SHAPES):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j) and t.is_decode == j.is_decode
+    for name in ("TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K"):
+        assert dataclasses.asdict(getattr(tbase, name)) == \
+            dataclasses.asdict(getattr(jbase, name))
+    for name in jbase.SHAPES:
+        assert dataclasses.asdict(treg.get_shape(name)) == \
+            dataclasses.asdict(jreg.get_shape(name))
+    with pytest.raises(KeyError) as te:
+        treg.get_shape("no-such-shape")
+    with pytest.raises(KeyError) as je:
+        jreg.get_shape("no-such-shape")
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("cls", ["ParallelConfig", "RunConfig"])
+def test_parallel_and_run_configs_equal_jax(cls):
+    t, j = getattr(tbase, cls), getattr(jbase, cls)
+    assert [(f.name, f.default) for f in dataclasses.fields(t)
+            if f.default is not dataclasses.MISSING] == \
+        [(f.name, f.default) for f in dataclasses.fields(j)
+         if f.default is not dataclasses.MISSING]
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    if cls == "RunConfig":
+        arch = "qwen2-1.5b"
+        tr = t(model=treg.get_arch(arch), shape=tbase.TRAIN_4K)
+        jr = j(model=jreg.get_arch(arch), shape=jbase.TRAIN_4K)
+        assert dataclasses.asdict(tr) == dataclasses.asdict(jr)
+
+
+@pytest.mark.parametrize("include_skipped", [False, True])
+def test_cells_equal_jax(include_skipped):
+    got = [(a.name, s.name, ok, why) for a, s, ok, why in treg.all_cells(include_skipped)]
+    want = [(a.name, s.name, ok, why) for a, s, ok, why in jreg.all_cells(include_skipped)]
+    assert got == want and len(got) == (40 if include_skipped else len(want))
+    for a, s, ok, why in treg.all_cells(True):
+        assert treg.cell_is_runnable(a, s) == (ok, why)

@@ -32,7 +32,10 @@ on the card bitwise.  The data-parallel training runtime's #5 shapes (the
 [p, n] replica stacks at block n, a replica alone) and the elastic path's
 (an 8192-row PageRank block, the 30×150×150 block of one of 5 shards) are
 held at the same bars; a stacked training run and an elastic run on the
-card take the CPU's rounds and segments, with X within rtol 1e-10.
+card take the CPU's rounds and segments, with X within rtol 1e-10.  A
+reduced f32 LM's train steps on the card give the CPU's losses and grad
+norms within rtol 1e-4, launch none of the kernels, and ``train`` on the
+card fires where the detection rule replayed on its loss series fires.
 """
 import numpy as np
 import pytest
@@ -829,3 +832,50 @@ def test_elastic_on_card_matches_cpu(card, tmp_path):
     assert got.converged and got.events == want.events
     assert got.mesh_history == want.mesh_history == [(0, 4), (6, 3), (9, 4)]
     torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_matches_cpu(card):
+    """A reduced f32 state's 3 train steps on the card and on the CPU: loss
+    and grad_norm within rtol 1e-4 (summation order through two Adam
+    updates); no kernel of #1–#6 launches on the training path."""
+    from repro_torch import interop
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = reduced(treg.get_arch("qwen2-1.5b"), dtype="float32")
+    before = {**tk.LAUNCHES, **trk.LAUNCHES, **tfk.LAUNCHES}
+    series = {}
+    tree = None
+    for where in ("cpu", card):
+        m = Model(cfg, device=where)
+        opt = AdamW(cosine_schedule(3e-3, 1, 3))
+        if tree is None:
+            st = m.init_train_state(torch.Generator().manual_seed(0), opt)
+            tree = interop.train_state_tree(st)
+        else:
+            st = interop.train_state_from(tree, m)
+        step, _ = m.make_train_step(opt)
+        out = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(where)
+                 for k, v in synth_batch(DataConfig(vocab_size=cfg.vocab_size), i, 4, 64).items()}
+            st, met = step(st, b)
+            out.append((float(met["loss"]), float(met["grad_norm"])))
+        series[str(where)] = out
+    np.testing.assert_allclose(series[str(card)], series["cpu"], rtol=1e-4)
+    assert {**tk.LAUNCHES, **trk.LAUNCHES, **tfk.LAUNCHES} == before
+
+
+@pytest.mark.cuda
+def test_lm_train_on_card_fires_at_the_replayed_step(card):
+    from repro_torch.launch.train import train
+
+    out = train("qwen2-1.5b", steps=120, batch=4, seq=64, target_loss=3.8,
+                monitor_mode="pfait", staleness=3, margin=1.0, log_every=1000, device=card)
+    losses, fire = out["losses"], None
+    for k in range(len(losses)):
+        if k >= 3 and losses[k - 3] < 3.8:
+            fire = k
+            break
+    assert out["stop_step"] is not None and out["stop_step"] == fire

@@ -34,7 +34,7 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 57, names
+    assert len(names) >= 67, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
@@ -44,7 +44,8 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.runtime.transport" in names, names
     assert "repro_torch.solvers.mlfixed" in names, names
     for name in ("runtime.train_async", "runtime.elastic", "runtime.fault_tolerance",
-                 "checkpoint.checkpointer"):
+                 "checkpoint.checkpointer", "optim.adamw", "optim.grad_compression",
+                 "data.pipeline", "launch.train"):
         assert "repro_torch." + name in names, names
     print("ISOLATED", len(names))
 """)
