@@ -18,7 +18,8 @@ Phases, each of which must pass or the script exits non-zero:
    kernel must be bitwise the block's face; count the tensor-core
    instructions in the flash library's SASS;
 3. time each kernel, its plain version, the nearest single PyTorch call and
-   the least time the card could take (CUDA events over 20 CUDA-graph replays,
+   the least time the card could take (#6 at phase 7's and phase 15's
+   prefill shapes; CUDA events over 20 CUDA-graph replays,
    so host launch overhead is left out; the eager per-call time is kept
    beside it), and the two shard-block sweeps also over six shards' worth
    of rotating inputs, more than the 50 MB L2, as the runtime finds them,
@@ -139,17 +140,40 @@ Phases, each of which must pass or the script exits non-zero:
    checkpointed every 10 steps must resume to 40, and a monitor state
    restored from a checkpoint must be bitwise the saved one.  (c) a
    reduced f32 state's 3 steps on the card must give the CPU's losses and
-   grad norms within rtol 1e-4.
+   grad norms within rtol 1e-4;
+15. the other model families, bf16, seed-0 weights: (a) hymba-1.5b at full
+   width (32 layers, d_model 1600, 25/5 heads of 64, window 2048, 50 SSD
+   heads of 64, N = 16) through ``launch.serve.serve`` at batch 4,
+   4096-token prompts, 64 new tokens: #6 once a layer in the prefill at
+   window 2048, finite logits; then, on the same weights in f32, the
+   prefill's logits with the kernel against the plain attention (phase 7's
+   1e-4 of the largest) and a prefill over S − 128 plus 128 decode steps
+   against the prefill over S (the JAX bar); (b) musicgen-medium at full
+   width (48 layers, MHA 24 heads of 64, the audio frontend stub) at batch
+   4, 2048-frame prompts: #6 once a layer, the same kernel check and one
+   decode step; (c) mamba2-130m at full width (24 layers, attention-free)
+   at batch 4, 4096-token prompts with (a)'s decode check, then trained
+   through ``launch.train.train`` at TRAIN_4K (batch 4 × 4096): one warm-up
+   and 4 timed steps, every loss and grad_norm finite, the first loss
+   within 1.0 of ln V, finite parameters; (d) llama4-maverick at full width
+   cut to one unit (a dense and a MoE layer, ≈ 37 GB) through
+   ``launch.serve.generate`` at batch 2, 512-token prompts: #6 twice a
+   prefill, finite logits, and the MoE layer's share of a prefill; (e)
+   every family, reduced and in f32, on the card against the CPU: the
+   prefill's logits and 3 train steps' losses and grad norms within rtol
+   1e-4.  Then every #6 shape a main path launched must be in
+   ``FLASH_CASES``.
 
-Phases 4 to 9 and 11 to 14 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 15 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
-capture recorded).  Phase 14 is the one main path that must launch none
-of the six: training runs the plain attention under autograd, as the JAX
-model does (its ``Model._ctx`` passes ``use_kernel=False``), and the flash
-kernel has no backward, so a launch there would put a kernel without a
-backward on an autograd path.  Needs
+capture recorded).  Phase 14 and phase 15's mamba2-130m runs are the main
+paths that must launch none of the six: training runs the plain attention
+under autograd, as the JAX model does (its ``Model._ctx`` passes
+``use_kernel=False``), and the flash kernel has no backward, so a launch
+there would put a kernel without a backward on an autograd path; mamba2
+has no attention.  Needs
 CUDA: without a card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -179,12 +203,21 @@ PEAK_BF16_FLOPS = 989e12             # H100 SXM data sheet, dense bf16 on the te
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "qwen2-1.5b", 4, 2048, 64
 # flash attention cases (BH, BN, S, H, causal, window, dtype): the serving
 # path's prefill shape (B·N·P = 4·2·6 rows, B·N = 8 kv rows), a ragged S, a
-# window, the non-causal case and H = 64, in bf16 and f32
-FLASH_CASES = [(48, 8, 2048, 128, True, 0, "bf16"), (48, 8, 2048, 128, True, 0, "f32"),
+# window, the non-causal case and H = 64, in bf16 and f32; then phase 15's
+# prefill shapes: hymba-1.5b (4·5·5 rows of 64 over 4·5 kv rows, S 4096,
+# window 2048), musicgen-medium (MHA, 4·24 rows of 64, S 2048) and the cut
+# llama4-maverick (2·8·5 rows of 128 over 2·8 kv rows, S 512).  main() fails
+# if a main path launches #6 at a shape not listed here
+SERVE_FLASH = (48, 8, 2048, 128, True, 0, "bf16")
+HYMBA_FLASH = (100, 20, 4096, 64, True, 2048, "bf16")
+MUSICGEN_FLASH = (96, 96, 2048, 64, True, 0, "bf16")
+LLAMA4_FLASH = (80, 16, 512, 128, True, 0, "bf16")
+FLASH_CASES = [SERVE_FLASH, (48, 8, 2048, 128, True, 0, "f32"),
                (48, 8, 1000, 128, True, 0, "bf16"), (48, 8, 1000, 128, True, 0, "f32"),
                (48, 8, 2048, 128, True, 256, "bf16"), (48, 8, 1000, 128, False, 0, "bf16"),
                (48, 8, 1000, 128, False, 0, "f32"), (48, 8, 2048, 64, True, 0, "bf16"),
-               (48, 8, 1000, 64, True, 256, "f32")]
+               (48, 8, 1000, 64, True, 256, "f32"),
+               HYMBA_FLASH, MUSICGEN_FLASH, LLAMA4_FLASH]
 
 # the PageRank path: n = 16384 nodes (a 2 GiB f64 operator), p = 4 row
 # blocks of 4096, ε̃ = 1e-9 in l1, and the heterogeneous knobs of run (b)
@@ -609,12 +642,35 @@ def check_nan_and_slabs(st, dev, rand) -> None:
                      f"block's face")
 
 
+def _flash_ref_and_bar(q, k, v, causal, window, bf16):
+    """``flash_attention_ref`` and, for bf16, ``bf16_output_bar`` over
+    slices of the kv rows (and their q rows), so that no slice holds more
+    than 2^28 scores: at hymba's shape the whole f64 bar would hold 13 GB a
+    tensor."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import bf16_output_bar, flash_attention_ref
+
+    BH, S, _ = q.shape
+    BN, Skv, _ = k.shape
+    rep = BH // BN
+    per = max(1, (1 << 28) // (rep * S * Skv))
+    wants, bars = [], []
+    for n0 in range(0, BN, per):
+        n1 = min(BN, n0 + per)
+        qs, ks, vs = q[n0 * rep:n1 * rep], k[n0:n1], v[n0:n1]
+        wants.append(flash_attention_ref(qs, ks, vs, causal=causal, window=window))
+        if bf16:
+            bars.append(bf16_output_bar(wants[-1], qs, ks, vs, causal=causal, window=window))
+    return torch.cat(wants), (torch.cat(bars) if bf16 else None)
+
+
 def check_flash(dev, check: Checker) -> None:
     """#6 against its plain version (``flash_attention_ref``) on the card."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
-    from repro_torch.kernels.flash_attention.ref import bf16_output_bar, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -623,12 +679,10 @@ def check_flash(dev, check: Checker) -> None:
         q, k, v = (torch.randn((n, S, H), generator=gen, device=dev).to(dtypes[dt])
                    for n in (BH, BN, BN))
         tag = f"{BH}x{S}x{H} kv {BN} {dt} causal={causal} window={window}"
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        bar = (bf16_output_bar(want, q, k, v, causal=causal, window=window)
-               if dt == "bf16" else None)
+        want, bar = _flash_ref_and_bar(q, k, v, causal, window, dt == "bf16")
         check("flash_attention_flat", tag, "attn", dt,
               fk.flash_attention_flat(q, k, v, causal=causal, window=window), want, bar)
-        if case == FLASH_CASES[0]:
+        if case == SERVE_FLASH:
             # the bars' power: the plain version with kv tile 0 dropped for
             # the last row (and part of it for the 63 rows before)
             bad = flash_attention_ref(q, k, v, causal=causal, window=S - 64).double()
@@ -665,39 +719,61 @@ def tensor_core_sass():
     return {op: sum(op in ln for ln in lines) for op in ("HGMMA", "HMMA")}
 
 
+def flash_band(S: int, window: int) -> int:
+    """The (q, kv) pairs inside the causal band, or the causal window band:
+    Σ_q min(q + 1, window)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def time_flash(dev) -> dict:
-    """#6 at the serving path's prefill shape (bf16, causal), beside its
-    plain version and ``F.scaled_dot_product_attention`` on the
-    ``[B, N·P, S, H]`` layout."""
+    """#6 at each main-path prefill shape of ``FLASH_TIMED`` (bf16,
+    causal), beside its plain version and ``F.scaled_dot_product_attention``
+    on the ``[B, N·P, S, H]`` layout (with a window, SDPA takes the band as
+    a boolean mask).  The plain version runs 2 calls a replay at the shapes
+    past 2048 (its f32 scores take 6.7 GB at hymba's).  Returns the rows by
+    case."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    BH, BN, S, H = FLASH_CASES[0][:4]
-    B, NP = SERVE_BATCH, BH // SERVE_BATCH
+    rows = {}
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn((n, S, H), generator=gen, device=dev).to(torch.bfloat16)
-               for n in (BH, BN, BN))
-    qs, ks, vs = q.view(B, NP, S, H), k.view(B, BN // B, S, H), v.view(B, BN // B, S, H)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v in, o out
-    flops = 4 * H * BH * S * (S + 1) / 2                     # the causal band
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    ms, call_ms = _time_ms(lambda: fk.flash_attention_flat(q, k, v))
-    plain_ms, _ = _time_ms(lambda: flash_attention_ref(q, k, v))
-    library_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True))
-    row = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"time flash_attention_flat at {BH}x{S}x{H} kv {BN} bf16 causal: kernel {ms:.4f} ms "
-          f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library (SDPA) "
-          f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    del q, k, v
-    torch.cuda.empty_cache()
-    return row
+    for case, B in FLASH_TIMED:
+        BH, BN, S, H, causal, window, _ = case
+        NP = BH // B
+        q, k, v = (torch.randn((n, S, H), generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (BH, BN, BN))
+        qs, ks, vs = q.view(B, NP, S, H), k.view(B, BN // B, S, H), v.view(B, BN // B, S, H)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v in, o out
+        flops = 4 * H * BH * flash_band(S, window)               # the causal (window) band
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        ms, call_ms = _time_ms(lambda: fk.flash_attention_flat(q, k, v, window=window))
+        big = dict(calls=2, reps=5) if S > 2048 else {}
+        plain_ms, _ = _time_ms(lambda: flash_attention_ref(q, k, v, window=window), **big)
+        if window:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs, ks, vs, attn_mask=band, enable_gqa=True)
+        else:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+        library_ms, _ = _time_ms(library)
+        rows[case] = row = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                                bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"time flash_attention_flat at {BH}x{S}x{H} kv {BN} bf16 causal window={window}: "
+              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"library (SDPA{', boolean band mask' if window else ''}) {library_ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)")
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
 
 
 HALO_KERNELS = ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")
@@ -2907,6 +2983,381 @@ def verify_lm_train(out: LMTrainRun) -> None:
           f"bitwise; card within rtol {LM_CPU_RTOL:g} of the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the other model families
+# ---------------------------------------------------------------------------
+
+# (a) hymba-1.5b (hybrid, window 2048: the slice's main path), (b)
+# musicgen-medium (audio frontend) and (c) mamba2-130m (attention-free) at
+# full width through launch.serve.serve, bf16, seed-0 weights: (batch,
+# prompt length, new tokens).  Nothing is cut; prompts past hymba's window
+# make #6 skip tiles
+FAMILY_SERVE = {"hymba-1.5b": (4, 4096, 64), "musicgen-medium": (4, 2048, 64),
+                "mamba2-130m": (4, 4096, 64)}
+# the decode checks: a prefill over S − n positions plus n decode steps fed
+# the prompt's last n positions against the prefill over S; with an SSM,
+# S − n must be a multiple of the SSD chunk (128), as JAX asserts
+FAMILY_DECODE = {"hymba-1.5b": 128, "musicgen-medium": 1, "mamba2-130m": 128}
+# (d) llama4-maverick at full width with its depth cut to one unit of its
+# scan period (a dense layer, then a MoE layer of 128 experts), ≈ 37 GB in
+# bf16, through launch.serve.generate at batch 2, 512-token prompts
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_NEW = \
+    "llama4-maverick-400b-a17b", 2, 2, 512, 8
+# (c) mamba2-130m training through launch.train.train at TRAIN_4K's 4096
+# tokens a sequence, batch 4 (its global batch of 256 cut for one card's
+# step time), PFAIT K = 2 on the loss: one warm-up step, 4 timed
+SSM_TRAIN_BATCH = 4
+# the #6 shape each served family must launch at, once a layer
+FAMILY_FLASH = {"hymba-1.5b": HYMBA_FLASH, "musicgen-medium": MUSICGEN_FLASH,
+                MOE_ARCH: LLAMA4_FLASH}
+# the main paths' prefill shapes phase 3 times, each with its batch (the
+# SDPA layout [B, N·P, S, H]): phase 7's and phase 15's
+FLASH_TIMED = ((SERVE_FLASH, SERVE_BATCH),
+               *((case, FAMILY_SERVE[arch][0]) for arch, case in FAMILY_FLASH.items()
+                 if arch != MOE_ARCH),
+               (LLAMA4_FLASH, MOE_BATCH))
+# (e) every family, reduced and in f32, on the card against the CPU
+FAMILY_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m", "hymba-1.5b",
+                "musicgen-medium", "llava-next-34b")
+FAMILY_CPU_RTOL = 1e-4
+
+
+def _flash_key(case) -> tuple:
+    """A ``FLASH_CASES`` entry as the key ``flash_attention.LAUNCH_SHAPES``
+    counts a launch under (Sq = Skv)."""
+    BH, BN, S, H, causal, window, dt = case
+    return (BH, BN, S, S, H, causal, window, dt)
+
+
+def _family_prompts(cfg, batch, S, dev):
+    """The serve path's prompts (``make_prompts``: token ids, or a
+    frontend's normal embeddings) on ``dev``."""
+    import torch
+
+    from repro_torch.launch.serve import make_prompts
+
+    F = cfg.frontend_dim if cfg.frontend else 0
+    return torch.as_tensor(make_prompts(cfg.vocab_size, batch, S, 0, F), device=dev)
+
+
+def _serve_family(arch: str, dev, card: str) -> dict:
+    """``serve`` of ``arch`` at full width: one short serve first (its
+    launches are not counted), then the counted serve.  #6 must launch once
+    a layer in the one prefill (none for an attention-free model), #1–#5
+    never; the logits must be finite."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.launch.serve import serve
+
+    cfg = get_arch(arch)
+    batch, S, new = FAMILY_SERVE[arch]
+    serve(arch, batch=batch, prompt_len=S, max_new=2, use_reduced=False, seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    out = serve(arch, batch=batch, prompt_len=S, max_new=new, use_reduced=False, seed=0,
+                device=dev)
+    torch.cuda.synchronize()
+    used, shapes = _launches(), Counter(fk.LAUNCH_SHAPES)
+    steps = out["steps"]
+    want = cfg.num_layers if cfg.has_attention else 0
+    print(f"families: serve {arch} full width (bf16, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}), batch {batch}, prompt {S}, max_new {new}: tokens "
+          f"{out['tokens'].shape}, steps {steps}, stopped_by {out['stopped_by']}, prefill "
+          f"{1e3 * out['prefill_s']:.3f} ms, decode {1e3 * out['decode_s'] / steps:.3f} ms/step "
+          f"({batch * steps / out['decode_s']:.1f} tok/s in the decode loop), peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+          f"{json.dumps(used)}; #6 shapes {dict(shapes)} [{card}]")
+    _require(used["flash_attention_flat"] == want,
+             f"families {arch}: {used['flash_attention_flat']} flash launches, want {want} "
+             f"(one a layer in the prefill)")
+    key = _flash_key(FAMILY_FLASH[arch]) if want else None
+    _require(not want or shapes == {key: want},
+             f"families {arch}: #6 launched at {dict(shapes)}, want {key} only")
+    _require(sum(used.values()) == want, f"families {arch}: a stencil kernel launched: {used}")
+    _require(out["logits_finite"], f"families {arch}: NaN or inf in the logits")
+    _require(out["tokens"].shape[0] == batch and 1 <= out["tokens"].shape[1] <= new
+             and out["stopped_by"] in ("budget", "detector"), f"families {arch}: {out}")
+    return dict(out=out, used=used, shapes=shapes)
+
+
+def _in_model_f32(arch: str, dev) -> dict:
+    """The serve run's weights in f32 (the bf16 draw cast, every op in
+    f32): the prefill logits with #6 against the plain attention, max|Δ| ≤
+    1e-4 × max|logit| (phase 7's bar), and a prefill over S − n plus n
+    decode steps fed the prompt's last n positions against the prefill
+    over S at the JAX bar (``FAMILY_DECODE``)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import forward
+
+    cfg = get_arch(arch)
+    batch, S, _ = FAMILY_SERVE[arch]
+    n = FAMILY_DECODE[arch]
+    params = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0)).float()
+    m = Model(dc.replace(cfg, dtype="float32"), device=dev)
+    prompts = _family_prompts(cfg, batch, S, dev)
+    prefill, decode = m.make_prefill(), m.make_decode_step()
+    res = {}
+    with torch.inference_mode():
+        kern, _ = prefill(params, prompts)
+        if cfg.has_attention:
+            x, head, _, _ = forward(params, prompts, m.plan,
+                                    m._ctx("prefill")._replace(use_kernel=False))
+            plain = L.lm_head(x[:, -1:], head)
+            del x
+            res["kernel"] = (_maxdiff(kern, plain), float(plain.abs().max()))
+        _, cache = prefill(params, prompts[:, :S - n], max_len=S)
+        for i in range(S - n, S):
+            logits, cache = decode(params, cache, prompts[:, i:i + 1], i)
+        res["decode"] = _jax_bar(logits, kern)
+        res["finite"] = bool(kern.isfinite().all()) and bool(logits.isfinite().all())
+    del params, cache
+    torch.cuda.empty_cache()
+    line = f"families: {arch} in-model, f32:"
+    if "kernel" in res:
+        err, scale = res["kernel"]
+        line += (f" prefill logits flash kernel vs plain attention max|Δ| {err:.3e} over "
+                 f"logits up to {scale:.3e} ({err / scale:.2e} of the largest; tolerance 1e-4);")
+    print(f"{line} prefill over {S - n} + {n} decode steps vs prefill over {S}: worst "
+          f"element at {res['decode']:.4f} of the JAX bar (atol 5e-2 + rtol 1e-2)")
+    _require(res["finite"], f"families {arch}: non-finite f32 logits")
+    if "kernel" in res:
+        _require(res["kernel"][0] <= 1e-4 * res["kernel"][1],
+                 f"families {arch}: f32 in-model, the flash kernel departs from the plain "
+                 f"attention")
+    _require(res["decode"] <= 1.0, f"families {arch}: f32 decode departs from prefill")
+    return res
+
+
+def _train_ssm(dev, card: str) -> dict:
+    """(c) mamba2-130m trained at full width through ``train``, timed with
+    phase 14's probe: every loss and grad_norm finite, the first loss
+    within 1.0 of ln V, finite parameters, no kernel launched."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as model_mod
+
+    arch, seq = "mamba2-130m", TRAIN_4K.seq_len
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=LM_STEPS - 1, repeat=1))
+    probe = _StepProbe(prof, sync_step=LM_STEPS - 1)
+    built = model_mod.Model.make_train_step
+
+    def probed_build(self, *args, **kw):
+        step, mon = built(self, *args, **kw)
+        return probe.wrap(step), mon
+
+    model_mod.Model.make_train_step = probed_build
+    _reset_launches()
+    try:
+        with prof:
+            out = train(arch, steps=LM_STEPS, batch=SSM_TRAIN_BATCH, seq=seq,
+                        use_reduced=False, monitor_mode="pfait", staleness=LM_K, seed=0,
+                        log_every=1, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        model_mod.Model.make_train_step = built
+    used = _launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    metrics = [(float(m["loss"]), float(m["grad_norm"])) for m in probe.metrics]
+    step_ms = [a.elapsed_time(b) for a, b in probe.events]
+    span_ms = probe.events[1][0].elapsed_time(probe.events[-1][1])
+    busy_us, kernels, _ = _profile_rows(prof, top=6)
+    finite = bool(torch.stack([torch.isfinite(p).all()
+                               for p in out["state"].params.parameters()]).all())
+    timed = LM_STEPS - 1
+    ln_v = math.log(cfg.vocab_size)
+    print(f"families: train {arch} full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"SSD chunk 128), batch {SSM_TRAIN_BATCH} × {seq}, bf16, remat block, PFAIT K = "
+          f"{LM_K}: warm-up step {step_ms[0]:.3f} ms, timed steps "
+          f"{', '.join(f'{t:.3f}' for t in step_ms[1:])} ms; {span_ms / timed:.3f} ms a step "
+          f"({SSM_TRAIN_BATCH * seq * timed / (span_ms / 1e3):.1f} tokens/s); peak memory "
+          f"{peak / 2**30:.2f} GiB; device busy {100 * busy_us / 1e3 / span_ms:.1f}%; "
+          f"{len(probe.syncs)} synchronising CUDA calls inside step {LM_STEPS - 1}; losses "
+          + ", ".join(f"{l:.4f}" for l, _ in metrics) + "; grad norms "
+          + ", ".join(f"{g:.4f}" for _, g in metrics) + f"; ln(vocab) {ln_v:.4f}; launches "
+          f"{json.dumps(used)} [{card}]")
+    for t, c, k in kernels:
+        print(f"  {t:9.3f} ms  {c:6d}×  {k[:90]}")
+    _require(not any(used.values()), f"families: mamba2 training launched a kernel: {used}")
+    _require(len(metrics) == LM_STEPS and all(math.isfinite(l) and math.isfinite(g) and g > 0
+                                              for l, g in metrics),
+             f"families: mamba2 training, a loss or grad_norm is not finite: {metrics}")
+    _require(abs(metrics[0][0] - ln_v) <= 1.0,
+             f"families: mamba2 first loss {metrics[0][0]:.4f} not within 1.0 of ln V")
+    _require(finite, "families: a mamba2 parameter is not finite after training")
+    del out, prof, probe
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, step_ms=step_ms, span_ms=span_ms, peak=peak)
+
+
+def _serve_moe(dev, card: str) -> dict:
+    """(d) the cut llama4-maverick through ``generate``: one short run
+    first (uncounted), then the counted one; #6 twice a prefill, finite
+    logits; then the MoE sub-layer's share of a prefill (CUDA events, 3
+    calls each after the runs above)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import _ffn_sublayer
+
+    cfg = dc.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompts = _family_prompts(cfg, MOE_BATCH, MOE_PROMPT, dev)
+    generate(m, params, prompts, 2)
+    torch.cuda.synchronize()
+    _reset_launches()
+    out = generate(m, params, prompts, MOE_NEW)
+    torch.cuda.synchronize()
+    used, shapes = _launches(), Counter(fk.LAUNCH_SHAPES)
+    prefill = m.make_prefill()
+    ctx = m._ctx("prefill")
+    h = torch.randn((MOE_BATCH, MOE_PROMPT, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+
+    def events(fn, reps=3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.inference_mode():
+            fn()
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    prefill_ms = events(lambda: prefill(params, prompts))
+    moe_ms = events(lambda: _ffn_sublayer(params.layers[1], h, ctx))
+    plan = m.plan.moe
+    flops = 2 * MOE_BATCH * MOE_PROMPT * cfg.d_model * plan.d_ff_virtual \
+        * plan.virtual_experts * (3 if cfg.gated_mlp else 2)
+    steps = out["steps"]
+    print(f"families: serve {MOE_ARCH} full width cut to {MOE_LAYERS} layers (a dense and a "
+          f"MoE layer, {plan.num_experts} experts of {cfg.d_ff}, top-{plan.top_k}, shared "
+          f"expert; {nbytes / 1e9:.2f} GB of bf16 parameters drawn in {t_init:.1f} s), batch "
+          f"{MOE_BATCH}, prompt {MOE_PROMPT}, max_new {MOE_NEW}: tokens {out['tokens'].shape}, "
+          f"steps {steps}, prefill {1e3 * out['prefill_s']:.3f} ms in the run, "
+          f"{prefill_ms:.3f} ms warm (CUDA events), decode {1e3 * out['decode_s'] / steps:.3f} "
+          f"ms/step; the MoE sub-layer (dense one-hot reference, every expert on every token, "
+          f"{flops:.3e} FLOPs) {moe_ms:.3f} ms, {100 * moe_ms / prefill_ms:.1f}% of the prefill, "
+          f"{flops / (moe_ms / 1e3) / 1e12:.1f} TFLOP/s; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {json.dumps(used)}; "
+          f"#6 shapes {dict(shapes)} [{card}]")
+    _require(used["flash_attention_flat"] == MOE_LAYERS and sum(used.values()) == MOE_LAYERS
+             and shapes == {_flash_key(FAMILY_FLASH[MOE_ARCH]): MOE_LAYERS},
+             f"families {MOE_ARCH}: launches {used} at {dict(shapes)}, want #6 once a layer "
+             f"in the prefill at {_flash_key(FAMILY_FLASH[MOE_ARCH])}")
+    _require(out["logits_finite"], f"families {MOE_ARCH}: NaN or inf in the logits")
+    del params, h
+    torch.cuda.empty_cache()
+    return dict(out=out, used=used, shapes=shapes, moe_ms=moe_ms, prefill_ms=prefill_ms)
+
+
+def _card_vs_cpu(dev) -> list:
+    """(e) every family, reduced and in f32, from one CPU-drawn state: the
+    prefill's logits and 3 train steps' losses and grad norms on the card
+    against the CPU, within rtol 1e-4 (phase 14(c)'s bar; the logits
+    against the largest)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    rows = []
+    for arch in FAMILY_ARCHS:
+        cfg = reduced(get_arch(arch), dtype="float32")
+        F = cfg.frontend_dim if cfg.frontend else 0
+        on = {}
+        for where in ("cpu", dev):
+            mm = Model(cfg, device=where)
+            opt = AdamW(cosine_schedule(3e-3, 1, LM_CPU_STEPS))
+            if where == "cpu":
+                s0 = mm.init_train_state(torch.Generator().manual_seed(0), opt)
+                tree0 = interop.train_state_tree(s0)
+            else:
+                s0 = interop.train_state_from(tree0, mm)
+            logits, _ = mm.make_prefill()(s0.params, _family_prompts(cfg, 2, 64, where))
+            fn, _ = mm.make_train_step(opt)
+            series = []
+            for i in range(LM_CPU_STEPS):
+                b = {k: torch.from_numpy(v).to(where) for k, v in synth_batch(
+                    DataConfig(vocab_size=cfg.vocab_size, frontend_dim=F), i, 4, 64).items()}
+                s0, met = fn(s0, b)
+                series.append((float(met["loss"]), float(met["grad_norm"])))
+            on[str(where)] = (logits.cpu(), series)
+        (lg, card), (lc, cpu) = on[str(dev)], on["cpu"]
+        err = _maxdiff(lg, lc) / float(lc.abs().max())
+        worst = max(abs(a - b) / abs(b) for x, y in zip(card, cpu) for a, b in zip(x, y))
+        rows.append((arch, err, worst))
+        print(f"families (e) {arch} reduced f32, card against CPU: prefill logits max|Δ| "
+              f"{err:.2e} of the largest; 3 steps' losses and grad norms within {worst:.2e} "
+              f"relative (losses {', '.join(f'{a[0]:.6f}' for a in card)})")
+        _require(err <= FAMILY_CPU_RTOL and worst <= FAMILY_CPU_RTOL,
+                 f"families (e) {arch}: the card departs from the CPU")
+    return rows
+
+
+def run_families(dev) -> dict:
+    """Phase 15: (a) hymba-1.5b, (b) musicgen-medium and (c) mamba2-130m
+    served at full width, each with its f32 in-model checks, (c) trained at
+    full width, (d) the cut llama4-maverick served, (e) every family on
+    the card against the CPU.  Each counted run sets the launch counters
+    to 0 just before it and reads them just after."""
+    import gc
+
+    import torch
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    out = {}
+    for arch in FAMILY_SERVE:
+        out[arch] = _serve_family(arch, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]["f32"] = _in_model_f32(arch, dev)
+    out["train"] = _train_ssm(dev, card)
+    gc.collect()
+    out[MOE_ARCH] = _serve_moe(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cpu"] = _card_vs_cpu(dev)
+    print(f"families: phase 15 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2992,8 +3443,11 @@ def main() -> int:
     # the main paths: launch counters from 0 just before each, read just after
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
 
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+
     runs, used_by, launches = {}, {}, dict.fromkeys(KERNELS, 0)
     shape_launches = Counter()   # (stencil kernel, block shape) -> main-path launches
+    flash_shapes = Counter()     # #6's (BH, BN, Sq, Skv, H, causal, window, dtype) -> launches
     warm_serve(dev)
     for path, fn, kernels in PATHS:
         _reset_launches()
@@ -3002,6 +3456,7 @@ def main() -> int:
         used_by[path] = used = _launches()
         print(f"main-path launches, {path}:", json.dumps(used))
         shape_launches.update(jk.LAUNCH_SHAPES)
+        flash_shapes.update(fk.LAUNCH_SHAPES)
         need = used
         if hasattr(runs[path], "world_launches"):
             # required of the ranks' own launches, not of the stacked twins
@@ -3045,11 +3500,27 @@ def main() -> int:
     print("main-path launches, LM training:", json.dumps(used))
     _require(not any(used.values()), f"the LM training path launched a kernel: {used}")
     verify_lm_train(lm)
+    del lm
+
+    # phase 15, the other model families: each counted run sets the
+    # counters to 0 just before it and reads them just after
+    fam = run_families(dev)
+    for key in (*FAMILY_SERVE, MOE_ARCH):
+        for k in launches:
+            launches[k] += fam[key]["used"][k]
+        flash_shapes.update(fam[key]["shapes"])
+    # phase 2 held #6 at every shape of FLASH_CASES
+    held = {_flash_key(case) for case in FLASH_CASES}
+    unheld = sorted(map(str, set(flash_shapes) - held))
+    _require(not unheld, f"#6 launched on a main path at shapes never held against the "
+                         f"plain version: {unheld}")
+    print(f"every #6 shape the main paths launched ({len(flash_shapes)}: "
+          f"{dict(flash_shapes)}) was held against its plain version in phase 2")
 
     rows = []
     for k, (source, replaces) in KERNELS.items():
         if k == "flash_attention_flat":
-            t, shape, out = flash_time, "48x2048x128 kv 8 bf16 causal", "block"
+            t, shape, out = flash_time[SERVE_FLASH], "48x2048x128 kv 8 bf16 causal", "block"
         elif k == "diff_norm_partials":
             # its main-path shape, the 1-D shard block; 185³ is on a "time" line
             t, shape, out = times[k, SHAPES["shard"]], "25x150x150 f64", "partials"

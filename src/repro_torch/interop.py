@@ -160,29 +160,33 @@ def params_from(tree: Mapping[str, Any], model: "Model") -> "Transformer":
     return params
 
 
-def params_to_tree(params) -> Dict[str, Any]:
-    """The inverse of ``params_from``: JAX's parameter tree (one scan unit,
-    the dense family's period, its leaves stacked ``[L, …]``) of host
-    tensors, from a ``Transformer`` or a ``{name: tensor}`` dict under its
-    parameter names (moments, gradients)."""
-    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) \
-        else dict(params)
+def params_to_tree(params, period: int = 1) -> Dict[str, Any]:
+    """The inverse of ``params_from``: JAX's parameter tree of host tensors
+    (``layers`` a tuple of ``period`` unit entries, entry j holding layers
+    j, j + period, … stacked ``[L / period, …]``), from a ``Transformer``
+    (its own period) or a ``{name: tensor}`` dict under its parameter names
+    (moments, gradients) with the given ``period``."""
+    if isinstance(params, torch.nn.Module):
+        period = params.period
+        named = dict(params.named_parameters())
+    else:
+        named = dict(params)
     tree: Dict[str, Any] = {}
-    stacks: Dict[Tuple[str, ...], list] = {}
+    stacks: Dict[Tuple[int, Tuple[str, ...]], list] = {}
     for name, t in named.items():
         t = t.detach().to("cpu", copy=True)   # a snapshot: training updates in place
         if not name.startswith("layers."):
             tree[name] = t
             continue
         _, i, rest = name.split(".", 2)
-        stacks.setdefault(tuple(rest.split(".")), []).append((int(i), t))
-    unit: Dict[str, Any] = {}
-    for path, items in stacks.items():
-        d = unit
+        stacks.setdefault((int(i) % period, tuple(rest.split("."))), []).append((int(i), t))
+    units: Tuple[Dict[str, Any], ...] = tuple({} for _ in range(period))
+    for (j, path), items in stacks.items():
+        d = units[j]
         for part in path[:-1]:
             d = d.setdefault(part, {})
         d[path[-1]] = torch.stack([t for _, t in sorted(items, key=lambda it: it[0])])
-    tree["layers"] = (unit,)
+    tree["layers"] = units
     return tree
 
 
@@ -191,8 +195,10 @@ def train_state_tree(state: "TrainState") -> tuple:
     ``(params, (step, m, v), monitor fields, step)``, the parameter and
     moment trees from ``params_to_tree``.  Either package's checkpointer
     flattens it into the JAX state's leaves, in the same order."""
+    period = state.params.period
     return (params_to_tree(state.params),
-            (state.opt.step, params_to_tree(state.opt.m), params_to_tree(state.opt.v)),
+            (state.opt.step, params_to_tree(state.opt.m, period),
+             params_to_tree(state.opt.v, period)),
             tuple(state.monitor), state.step)
 
 

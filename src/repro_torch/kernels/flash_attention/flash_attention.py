@@ -3,10 +3,12 @@ the port of ``kernels/flash_attention/flash_attention.py::flash_attention_flat``
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches the kernel or raises: bf16 inputs the tensor-core kernel, f32
-inputs the f32 (CUDA-core) kernel.  ``LAUNCHES`` counts launches of both.
+inputs the f32 (CUDA-core) kernel.  ``LAUNCHES`` counts launches of both;
+``LAUNCH_SHAPES`` counts the same launches by shape.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict
 
 import torch
@@ -16,6 +18,8 @@ from repro_torch.kernels._build import INT, PTR
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention_flat": 0}
+# (BH, BN, Sq, Skv, H, causal, window, "bf16"/"f32") -> launches
+LAUNCH_SHAPES: Counter = Counter()
 
 HEAD_DIMS = (16, 32, 64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -23,12 +27,13 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SIGNATURES = {f"flash_attention_{s}": (PTR,) * 4 + (INT,) * 7 + (PTR,)
                for s in _SUFFIX.values()}
 
-_build.register_counters(LAUNCHES)
+_build.register_counters(LAUNCHES, LAUNCH_SHAPES)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,4 +69,5 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_flat")
     LAUNCHES["flash_attention_flat"] += 1
+    LAUNCH_SHAPES[BH, BN, Sq, Skv, H, bool(causal), int(window), _SUFFIX[q.dtype]] += 1
     return out

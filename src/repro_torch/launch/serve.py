@@ -605,10 +605,25 @@ def serve_detection(requests: Sequence[Tuple[TenantSpec, int]],
 # ---------------------------------------------------------------------------
 
 
-def make_prompts(vocab_size: int, batch: int, prompt_len: int, seed: int) -> np.ndarray:
-    """The JAX server's prompts: ``default_rng(seed).integers(3, vocab)``."""
+def make_prompts(vocab_size: int, batch: int, prompt_len: int, seed: int,
+                 frontend_dim: int = 0) -> np.ndarray:
+    """The JAX server's prompts: ``default_rng(seed).integers(3, vocab)``
+    token ids [B, S], or with a frontend (``frontend_dim`` > 0) its
+    ``standard_normal`` embeddings [B, S, F] in f32."""
     rng = np.random.default_rng(seed)
+    if frontend_dim:
+        return rng.standard_normal((batch, prompt_len, frontend_dim)).astype(np.float32)
     return rng.integers(3, vocab_size, (batch, prompt_len)).astype(np.int32)
+
+
+def _decode_input(tok: torch.Tensor, frontend_dim: int) -> torch.Tensor:
+    """The next decode step's input: the tokens [B, 1], or with a frontend
+    ``one_hot(tok, frontend_dim)`` [B, 1, F] in f32, a zero row for a token
+    ≥ ``frontend_dim`` (as ``jax.nn.one_hot``)."""
+    if not frontend_dim:
+        return tok[:, None]
+    ids = torch.arange(frontend_dim, device=tok.device)
+    return (tok[:, None, None] == ids).to(torch.float32)
 
 
 def _sync(device: torch.device) -> None:
@@ -618,9 +633,11 @@ def _sync(device: torch.device) -> None:
 
 def generate(model: Model, params: Transformer, prompts, max_new: int, eos_id: int = 2,
              staleness: int = 4) -> Dict[str, Any]:
-    """Prefill ``prompts`` [B, S], then greedy-decode up to ``max_new``
-    tokens, stopping when the PFAIT monitor sees the K-stale indicator
-    g = 1 − [all finished] under ε = 0.5.
+    """Prefill ``prompts`` (token ids [B, S], or embeddings [B, S, F] for a
+    frontend model), then greedy-decode up to ``max_new`` tokens, stopping
+    when the PFAIT monitor sees the K-stale indicator g = 1 − [all
+    finished] under ε = 0.5.  A frontend model decodes from
+    ``one_hot(token, F)``, as the JAX server feeds it.
 
     Returns the JAX ``serve`` dict — ``tokens`` [B, ≤ max_new] with the
     tokens past each sequence's first EOS drained to ``eos_id``,
@@ -632,8 +649,10 @@ def generate(model: Model, params: Transformer, prompts, max_new: int, eos_id: i
     allocated once at S + ``max_new`` and written in place.
     """
     dev = model.device
-    prompts = torch.as_tensor(np.asarray(prompts)).long().to(dev)
-    batch, prompt_len = prompts.shape
+    frontend_dim = model.cfg.frontend_dim if model.cfg.frontend else 0
+    prompts = torch.as_tensor(prompts)
+    prompts = (prompts.float() if frontend_dim else prompts.long()).to(dev)
+    batch, prompt_len = prompts.shape[:2]
     prefill = model.make_prefill()
     decode = model.make_decode_step()
 
@@ -655,7 +674,8 @@ def generate(model: Model, params: Transformer, prompts, max_new: int, eos_id: i
     steps_done = 0
     stopped_by = "budget"
     for i in range(max_new - 1):
-        logits, cache = decode(params, cache, tok[:, None], prompt_len + i)
+        logits, cache = decode(params, cache, _decode_input(tok, frontend_dim),
+                               prompt_len + i)
         tok = logits[:, -1].argmax(dim=-1)
         finite = finite & logits.isfinite().all()
         finished = finished | (tok == eos_id)
@@ -711,7 +731,8 @@ def serve(
     model = Model(cfg, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen)
-    prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
+    prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed,
+                           cfg.frontend_dim if cfg.frontend else 0)
     return generate(model, params, prompts, max_new, eos_id=eos_id, staleness=staleness)
 
 

@@ -12,7 +12,9 @@ JAX keep their shapes.
 the plain version of the flash kernel on the model layout
 (``kernels/flash_attention/ops.py`` sends CPU tensors here); training runs
 it under autograd on the card too, as the JAX model does (the flash
-kernel has no backward).
+kernel has no backward).  ``attention_fwd_pairs`` (``attn_impl="pairs"``)
+is the same softmax over only the (q-block, kv-block) pairs inside the
+causal/window band, also plain PyTorch.
 """
 from __future__ import annotations
 
@@ -207,6 +209,77 @@ def attention_fwd(
     return out.movedim(3, 1).to(q.dtype)  # [B,Sq,N,P,H]
 
 
+def attention_fwd_pairs(
+    q: torch.Tensor,              # [B, Sq, N, P, H]
+    k: torch.Tensor,              # [B, Skv, N, H]
+    v: torch.Tensor,              # [B, Skv, N, H]
+    causal: bool = True,
+    window: int = 0,
+    block_q: int = 512,
+    block_kv: int = 512,
+) -> torch.Tensor:
+    """Causal **block-skipping** online softmax: a loop over the static
+    list of (q-block, kv-block) pairs inside the causal/window band, each
+    updating its q-block's (m, l, acc).  ``attention_fwd`` streams every
+    kv block for every q position; here the blocks wholly above the
+    diagonal or outside the window are never computed.  Differentiable:
+    each q-block's accumulators are tensors of their own, replaced at each
+    of its pairs (JAX updates slices of one carry in place)."""
+    B, Sq, N, P, H = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(H)
+    block_q = min(block_q, Sq)
+    block_kv = min(block_kv, Skv)
+    if Sq % block_q or Skv % block_kv:
+        raise ValueError(f"block_q {block_q} / block_kv {block_kv} must divide "
+                         f"Sq {Sq} / Skv {Skv}")
+    nq, nk = Sq // block_q, Skv // block_kv
+
+    pairs = []
+    for i in range(nq):
+        q_lo = i * block_q
+        q_hi = q_lo + block_q - 1
+        for j in range(nk):
+            kv_lo, kv_hi = j * block_kv, (j + 1) * block_kv - 1
+            if causal and kv_lo > q_hi:
+                continue  # entirely above the diagonal
+            if window > 0 and kv_hi <= q_lo - window:
+                continue  # entirely outside the window band
+            pairs.append((i, j))
+
+    qf = q.movedim(1, 3).float() * scale          # [B,N,P,Sq,H]
+    kf = k.movedim(1, 2).float()                  # [B,N,Skv,H]
+    vf = v.movedim(1, 2).float()
+    m = [torch.full((B, N, P, block_q), NEG_INF, dtype=torch.float32, device=dev)
+         for _ in range(nq)]
+    lsum = [torch.zeros((B, N, P, block_q), dtype=torch.float32, device=dev)
+            for _ in range(nq)]
+    acc = [torch.zeros((B, N, P, block_q, H), dtype=torch.float32, device=dev)
+           for _ in range(nq)]
+    for i, j in pairs:
+        qb = qf[:, :, :, i * block_q:(i + 1) * block_q]
+        kb = kf[:, :, j * block_kv:(j + 1) * block_kv]
+        vb = vf[:, :, j * block_kv:(j + 1) * block_kv]
+        s = torch.einsum("bnpqh,bnkh->bnpqk", qb, kb)
+        q_pos = i * block_q + torch.arange(block_q, device=dev)
+        kv_pos = j * block_kv + torch.arange(block_kv, device=dev)
+        mask = torch.ones((block_q, block_kv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & (kv_pos[None, :] > (q_pos[:, None] - window))
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m[i], s.amax(dim=-1))
+        alpha = torch.exp(m[i] - m_new)
+        pexp = torch.exp(s - m_new[..., None])
+        lsum[i] = lsum[i] * alpha + pexp.sum(dim=-1)
+        acc[i] = acc[i] * alpha[..., None] + torch.einsum("bnpqk,bnkh->bnpqh", pexp, vb)
+        m[i] = m_new
+    out = torch.cat(acc, dim=3) / torch.clamp_min(torch.cat(lsum, dim=3)[..., None], 1e-30)
+    return out.movedim(3, 1).to(q.dtype)
+
+
 def mha_reference(q, k, v, causal=True, window=0, q_offset=0):
     """Naive reference (small shapes only)."""
     B, Sq, N, P, H = q.shape
@@ -312,9 +385,7 @@ def attn_apply(
 
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif impl == "pairs":
-        raise NotImplementedError(
-            "attn_impl='pairs' (attention_fwd_pairs, causal block skipping) is not "
-            "ported yet (ROADMAP queue 1 item 14); use attn_impl='blocked'")
+        out = attention_fwd_pairs(q, k, v, causal=causal, window=window)
     else:
         out = attention_fwd(q, k, v, causal=causal, window=window, block_kv=block_kv)
     return torch.einsum("bsnph,nphd->bsd", out, p.wo), (k, v)

@@ -4,12 +4,17 @@ train, prefill, decode.
 ``Model`` ties the backbone (``models/transformer.py``) to its plan, its
 ``ParallelConfig`` and its device.  ``make_prefill`` / ``make_decode_step``
 return functions of ``(params, …)`` as in the JAX package, run under
-``torch.inference_mode``.  The decode cache is one ``{"k", "v"}`` dict of
-``[B, S_max, slots, H]`` tensors per layer, written in place by each decode
-step (the JAX step donates its cache buffer to the same effect).
+``torch.inference_mode``.  The decode cache holds one entry per layer, as
+JAX's: ``{"kv": {"k", "v"}}`` with attention (``[B, S_max, slots, H]``
+tensors, written in place by each decode step; the JAX step donates its
+cache buffer to the same effect) and ``{"ssm": SSMCache}`` with an SSM (the
+recurrent state and the convolutions' tails, new tensors each step).  A
+frontend model takes embeddings [B, S, F] in f32 where a token model takes
+token ids [B, S].
 
-Training: ``loss_fn`` is the chunked cross-entropy, ``apply_grad_fixups``
-ties the kv-replica gradients and masks the padded heads and vocab rows,
+Training: ``loss_fn`` is the chunked cross-entropy (plus 0.01 · aux /
+layers for MoE), ``apply_grad_fixups`` ties the kv-replica gradients and
+masks the padded q heads, SSD heads and vocab rows,
 and ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``.  The step carries a ``core.detection.MonitorState``: the
 training loss is pushed through the K-stale ring exactly like a solver's
@@ -22,7 +27,7 @@ names (``Transformer.named_parameters()``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,10 +37,10 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import detection
 from repro_torch.models import layers as L
 from repro_torch.models.attention import q_valid_mask
-from repro_torch.models.transformer import LayerCtx, Transformer, forward, make_plan
+from repro_torch.models.ssm import head_valid_mask, ssm_cache_init
+from repro_torch.models.transformer import Cache, LayerCtx, Transformer, forward, make_plan
 from repro_torch.optim.adamw import AdamState, AdamW, apply_updates, global_norm
 
-Cache = List[Dict[str, torch.Tensor]]
 Grads = Dict[str, torch.Tensor]
 
 MONITOR_METRICS = ("loss", "update_norm", "grad_norm")
@@ -53,9 +58,9 @@ class Model:
                  device: DeviceLike = None):
         self.cfg = cfg
         self.parallel = parallel
-        self.plan = make_plan(cfg, 1)      # raises for the families not ported yet
+        self.plan = make_plan(cfg, 1)
         self.device = resolve_device(device)
-        self._qmasks: Dict[tuple, torch.Tensor] = {}
+        self._masks: Dict[tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
     # Params
@@ -88,33 +93,39 @@ class Model:
     # ------------------------------------------------------------------
     # Gradient fix-ups: tie kv replicas, mask padded heads/vocab
     # ------------------------------------------------------------------
-    def _q_valid_mask(self, device) -> torch.Tensor:
-        """``q_valid_mask`` of the plan on ``device``, made once per (plan,
+    def _mask(self, kind: str, device) -> torch.Tensor:
+        """The plan's ``q_valid_mask`` (kind "q") or per-channel SSD
+        ``head_valid_mask`` (kind "ssm") on ``device``, made once per (plan,
         device): the mask is built on the host, and its copy to the card
         would wait for the card at every step."""
-        key = (self.plan.attn, torch.device(device))
-        if key not in self._qmasks:
-            self._qmasks[key] = q_valid_mask(self.plan.attn, device)
-        return self._qmasks[key]
+        key = (kind, self.plan, torch.device(device))
+        if key not in self._masks:
+            if kind == "q":
+                self._masks[key] = q_valid_mask(self.plan.attn, device)
+            else:
+                sp = self.plan.ssm
+                self._masks[key] = head_valid_mask(sp, device).repeat_interleave(sp.head_dim)
+        return self._masks[key]
 
     def apply_grad_fixups(self, grads: Mapping[str, torch.Tensor]) -> Grads:
         """The JAX fix-ups on a ``{parameter name: gradient}`` dict: each
-        group's kv replicas get the sum of their gradients, the ``wo`` rows
-        of padded q heads and the padded vocab rows of ``embed`` /
-        ``lm_head`` get zero."""
+        group's kv replicas get the sum of their gradients; the ``wo`` rows
+        of padded q heads, the ``out_proj`` rows of padded SSD heads and the
+        padded vocab rows of ``embed`` / ``lm_head`` get zero."""
         ap = self.plan.attn
         grads = dict(grads)
-        qmask = vmask = None
+        vmask = None
         for name, g in grads.items():
-            leaf = name.rsplit(".", 1)[-1]
-            if ap.kv_repl > 1 and leaf in ("wk", "wv", "bk", "bv"):
+            path = name.rsplit(".", 2)
+            leaf, owner = path[-1], (path[-2] if len(path) > 1 else "")
+            if owner == "attn" and ap.kv_repl > 1 and leaf in ("wk", "wv", "bk", "bv"):
                 s = g.shape                   # [D, slots, H] or [slots, H]
                 gg = g.reshape(*s[:-2], ap.groups, ap.kv_repl, s[-1])
                 grads[name] = gg.sum(-2, keepdim=True).expand(gg.shape).reshape(s)
-            elif leaf == "wo":                # [slots, qps, H, D]
-                if qmask is None:
-                    qmask = self._q_valid_mask(g.device).to(g.dtype)
-                grads[name] = g * qmask[:, :, None, None]
+            elif owner == "attn" and leaf == "wo":     # [slots, qps, H, D]
+                grads[name] = g * self._mask("q", g.device).to(g.dtype)[:, :, None, None]
+            elif owner == "ssm" and leaf == "out_proj":   # [di, D]
+                grads[name] = g * self._mask("ssm", g.device).to(g.dtype)[:, None]
             elif name in ("embed", "lm_head"):
                 if vmask is None:
                     vmask = torch.arange(self.plan.vocab_padded, device=g.device) \
@@ -158,8 +169,11 @@ class Model:
             nll, n = checkpoint(self._chunk_nll, x[:, c:c + seq_chunk],
                                 labels[:, c:c + seq_chunk], head, use_reentrant=False)
             total, ntok = total + nll, ntok + n
-        loss = total / torch.clamp(ntok, min=1.0)
-        return loss, {"nll": loss, "aux": aux}
+        nll = total / torch.clamp(ntok, min=1.0)
+        loss = nll
+        if self.cfg.is_moe:
+            loss = loss + 0.01 * aux / max(self.cfg.num_layers, 1)
+        return loss, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------
     # Train step
@@ -256,20 +270,30 @@ class Model:
     # Serving
     # ------------------------------------------------------------------
     def cache_struct(self, batch: int, max_len: int, ring: bool = False) -> Cache:
-        """Zeroed decode caches, one ``{"k", "v"}`` per layer."""
-        cfg, ap = self.cfg, self.plan.attn
+        """Zeroed decode caches, one entry per layer: ``{"kv": {"k", "v"}}``
+        with attention, ``{"ssm": SSMCache}`` with an SSM."""
+        cfg, plan = self.cfg, self.plan
         S_kv = min(max_len, cfg.attn_window) if (ring and cfg.attn_window) else max_len
-        shape = (batch, S_kv, ap.slots, ap.head_dim)
         dtype = L.dtype_of(cfg.dtype)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-                for _ in range(cfg.num_layers)]
+        cache: Cache = []
+        for _ in range(cfg.num_layers):
+            entry = {}
+            if plan.attn is not None:
+                shape = (batch, S_kv, plan.attn.slots, plan.attn.head_dim)
+                entry["kv"] = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                               "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            if plan.ssm is not None:
+                entry["ssm"] = ssm_cache_init(plan.ssm, batch, dtype, self.device)
+            cache.append(entry)
+        return cache
 
     def make_prefill(self):
-        """prefill(params, inputs [B, S], max_len=None) → (last-position
-        logits [B, 1, Vpad] f32, cache).  The cache holds the S prompt
+        """prefill(params, inputs, max_len=None) → (last-position logits
+        [B, 1, Vpad] f32, cache); inputs are tokens [B, S] or, with a
+        frontend, embeddings [B, S, F].  The kv cache holds the S prompt
         positions, or ``max_len`` positions with the rest zero (room for
-        decoding, as the JAX server pads it)."""
+        decoding, as the JAX server pads it); the SSM cache is carried as
+        the prefill leaves it."""
 
         @torch.inference_mode()
         def prefill(params: Transformer, inputs: torch.Tensor,
@@ -277,20 +301,21 @@ class Model:
             inputs = inputs.to(self.device)
             x, head, cache, _ = forward(params, inputs, self.plan, self._ctx("prefill"))
             logits = L.lm_head(x[:, -1:], head)
-            if max_len is not None:
-                B, S = inputs.shape
-                full = self.cache_struct(B, max_len)
-                for dst, src in zip(full, cache):
+            if max_len is not None and self.plan.attn is not None:
+                B, S = inputs.shape[:2]
+                for entry, full in zip(cache, self.cache_struct(B, max_len)):
                     for name in ("k", "v"):
-                        dst[name][:, :S] = src[name]
-                cache = full
+                        full["kv"][name][:, :S] = entry["kv"][name]
+                    entry["kv"] = full["kv"]
             return logits, cache
 
         return prefill
 
     def make_decode_step(self, ring: bool = False):
-        """decode(params, cache, tokens [B, 1], cache_len: int) →
-        (logits [B, 1, Vpad] f32, cache written in place)."""
+        """decode(params, cache, inputs, cache_len: int) → (logits
+        [B, 1, Vpad] f32, cache); inputs are tokens [B, 1] or embeddings
+        [B, 1, F].  The kv cache is written in place, the SSM entries are
+        new."""
 
         @torch.inference_mode()
         def decode(params: Transformer, cache: Cache, tokens: torch.Tensor, cache_len: int):

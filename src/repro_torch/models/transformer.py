@@ -1,19 +1,23 @@
-"""Decoder backbone (port of ``models/transformer.py``): the dense family.
+"""Decoder backbone (port of ``models/transformer.py``): every block family.
 
-The JAX package scans over layers with ``[steps, …]`` stacked parameters;
-here the parameters are one ``nn.Module`` per layer and the forward pass is
-a Python loop over them.  A dense block is
+The JAX package scans over units of ``moe_layer_period`` layers with
+``[steps, …]`` stacked parameters; here the parameters are one
+``nn.Module`` per layer and the forward pass is a Python loop over units
+of ``period`` layers.  Block families:
 
-    [norm → attn → +res] [norm → mlp → +res]
+    dense/audio/vlm : [norm → attn → +res] [norm → mlp → +res]
+    moe             : same, MLP replaced by MoE (+ optional shared expert)
+    ssm             : [norm → mamba2 → +res]
+    hybrid (hymba)  : [norm → attn ∥ mamba2 → mean → +res] [norm → mlp → +res]
 
-In train mode each block runs under the remat policy of ``LayerCtx.remat``
+With a modality frontend the inputs are embeddings [B, S, F] that enter
+through ``frontend_proj`` [F, D], and the model always has an ``lm_head``.
+In train mode each unit runs under the remat policy of ``LayerCtx.remat``
 (``torch.utils.checkpoint`` where JAX wraps the scan body in
 ``jax.checkpoint``).  Parameters are made with ``requires_grad=False``,
-for serving; ``Model.init_train_state`` switches it on.
-
-The moe, ssm and hybrid families and the modality frontends are later
-slices of the port (ROADMAP queue 1 item 14): ``check_supported`` refuses
-them rather than running something else.
+for serving; ``Model.init_train_state`` switches it on.  On one device the
+MoE layer is ``moe_local_reference``, JAX's dense one-hot path without a
+mesh.
 """
 from __future__ import annotations
 
@@ -21,41 +25,43 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttentionPlan, plan_attention
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration outside the dense
-    family without frontend, the only one this slice of the port runs."""
-    missing = [what for what, has in (("moe", cfg.is_moe), ("ssm", cfg.has_ssm),
-                                      ("hybrid", cfg.hybrid),
-                                      ("frontend", cfg.frontend is not None),
-                                      ("attention-free", not cfg.has_attention),
-                                      ("MLP-free", cfg.d_ff == 0)) if has]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the {'/'.join(missing)} model path is not ported yet "
-            f"(ROADMAP queue 1 item 14); only dense configs without a frontend run")
+from repro_torch.models.moe import MoE, MoEPlan, plan_moe
+from repro_torch.models.ssm import SSM, SSMPlan, plan_ssm
 
 
 @dataclass(frozen=True)
 class ModelPlan:
     cfg: ModelConfig
     tp: int
-    attn: AttentionPlan
+    attn: Optional[AttentionPlan]
+    moe: Optional[MoEPlan]
+    ssm: Optional[SSMPlan]
     vocab_padded: int
+
+    @property
+    def period(self) -> int:
+        return self.cfg.moe_layer_period if self.cfg.is_moe else 1
+
+    @property
+    def scan_steps(self) -> int:
+        return self.cfg.num_layers // self.period
 
 
 def make_plan(cfg: ModelConfig, tp: int = 1) -> ModelPlan:
-    check_supported(cfg)
-    attn = plan_attention(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, tp)
-    return ModelPlan(cfg=cfg, tp=tp, attn=attn,
+    attn = (plan_attention(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, tp)
+            if cfg.has_attention else None)
+    moe = plan_moe(cfg, tp) if cfg.is_moe else None
+    ssm = plan_ssm(cfg, tp) if cfg.has_ssm else None
+    return ModelPlan(cfg=cfg, tp=tp, attn=attn, moe=moe, ssm=ssm,
                      vocab_padded=L.ceil_to(cfg.vocab_size, max(256, tp)))
 
 
@@ -69,47 +75,73 @@ def _ones(d: int, dtype: torch.dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer's parameters, named as the JAX sub-layer dict: ``ln1``,
-    ``attn``, ``ln2``, ``mlp``."""
+    """One layer's parameters, named as the JAX sub-layer dict
+    (``_sublayer_init``): ``ln1``, ``attn`` (with attention), ``ssm`` (with
+    an SSM), and with an MLP width ``ln2`` and either ``moe`` (+ ``shared``)
+    on a MoE layer or ``mlp``.  Absent sub-layers are None."""
 
-    def __init__(self, plan: ModelPlan, dtype: torch.dtype, device=None):
+    def __init__(self, plan: ModelPlan, is_moe_layer: bool, dtype: torch.dtype, device=None):
         super().__init__()
         cfg = plan.cfg
         self.ln1 = _ones(cfg.d_model, dtype, device)
-        self.attn = attn_mod.Attention(cfg.d_model, plan.attn, cfg.qkv_bias, dtype, device)
-        self.ln2 = _ones(cfg.d_model, dtype, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
+        self.attn = (attn_mod.Attention(cfg.d_model, plan.attn, cfg.qkv_bias, dtype, device)
+                     if cfg.has_attention else None)
+        self.ssm = SSM(plan.ssm, dtype, device) if cfg.has_ssm else None
+        self.ln2 = self.moe = self.shared = self.mlp = None
+        if cfg.d_ff > 0:
+            self.ln2 = _ones(cfg.d_model, dtype, device)
+            if is_moe_layer:
+                self.moe = MoE(plan.moe, cfg.gated_mlp, dtype, device)
+                if cfg.shared_expert:
+                    self.shared = L.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
+            else:
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, device)
 
 
 class Transformer(nn.Module):
-    """The model's parameters: ``embed`` [Vpad, D], ``lm_head`` [Vpad, D]
-    (absent when tied), ``final_norm`` [D] and one ``Block`` per layer."""
+    """The model's parameters: ``embed`` [Vpad, D] (``frontend_proj``
+    [F, D] instead with a frontend), ``lm_head`` [Vpad, D] (absent when
+    tied, always there with a frontend), ``final_norm`` [D] and one
+    ``Block`` per layer.  ``period`` is the plan's: layer i is entry
+    ``i % period`` of JAX's scan unit ``i // period``."""
 
     def __init__(self, plan: ModelPlan, device=None):
         super().__init__()
         cfg = plan.cfg
         dtype = L.dtype_of(cfg.dtype)
+        self.period = plan.period
 
-        def table():
-            return nn.Parameter(torch.empty((plan.vocab_padded, cfg.d_model), dtype=dtype,
-                                            device=device), requires_grad=False)
+        def table(rows):
+            return nn.Parameter(torch.empty((rows, cfg.d_model), dtype=dtype, device=device),
+                                requires_grad=False)
 
         self.final_norm = _ones(cfg.d_model, dtype, device)
-        self.embed = table()
-        self.lm_head = None if cfg.tie_embeddings else table()
-        self.layers = nn.ModuleList(Block(plan, dtype, device) for _ in range(cfg.num_layers))
+        self.embed = table(plan.vocab_padded) if cfg.frontend is None else None
+        self.frontend_proj = table(cfg.frontend_dim) if cfg.frontend is not None else None
+        self.lm_head = (table(plan.vocab_padded)
+                        if not cfg.tie_embeddings or cfg.frontend is not None else None)
+        mask = cfg.moe_layer_mask()
+        self.layers = nn.ModuleList(Block(plan, mask[i], dtype, device)
+                                    for i in range(cfg.num_layers))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "Transformer":
         """The JAX ``init_params``: N(0, 0.02²) embedding and head (the
-        padded vocab rows too), ones for the norms, ``attn_init`` and
-        ``mlp_init`` per layer."""
-        for t in (self.embed, self.lm_head):
-            if t is not None:
-                t.copy_(L.embed_init(*t.shape, gen, t.dtype))
+        padded vocab rows too), N(0, 1/F) ``frontend_proj``, ones for the
+        norms, and per layer ``attn_init``, ``ssm_init``, ``moe_init`` and
+        ``mlp_init``."""
+        if self.embed is not None:
+            self.embed.copy_(L.embed_init(*self.embed.shape, gen, self.embed.dtype))
+        if self.frontend_proj is not None:
+            F_, D = self.frontend_proj.shape
+            self.frontend_proj.copy_(L.normal((F_, D), F_ ** -0.5, gen,
+                                              self.frontend_proj.dtype))
+        if self.lm_head is not None:
+            self.lm_head.copy_(L.embed_init(*self.lm_head.shape, gen, self.lm_head.dtype))
         for blk in self.layers:
-            blk.attn.init_(gen)
-            blk.mlp.init_(gen)
+            for sub in (blk.attn, blk.ssm, blk.moe, blk.shared, blk.mlp):
+                if sub is not None:
+                    sub.init_(gen)
         return self
 
 
@@ -127,14 +159,16 @@ class LayerCtx(NamedTuple):
     window: int
     use_kernel: bool
     block_kv: int = 1024
+    ssd_chunk: int = 128
     ring: bool = False            # ring KV cache (long-context decode)
     attn_impl: str = "blocked"    # "blocked" | "pairs" (causal block skip)
     remat: str = "block"          # "block" | "save_mixer" | "none" (train mode)
 
 
-def _attn_sublayer(p: Block, x, ctx: LayerCtx, positions, cache, cache_len):
+def _attn_sublayer(p: Block, h, ctx: LayerCtx, positions, cache, cache_len):
+    """The attention's output (no residual) on the normed input ``h``, and
+    its kv cache."""
     cfg = ctx.plan.cfg
-    h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
     kv_cache = (cache["k"], cache["v"]) if ctx.mode == "decode" else None
     y, (k_new, v_new) = attn_mod.attn_apply(
         p.attn, h, ctx.plan.attn, cfg.rope_theta, positions,
@@ -144,39 +178,122 @@ def _attn_sublayer(p: Block, x, ctx: LayerCtx, positions, cache, cache_len):
     )
     # decode: attn_apply already wrote the new token into the cache
     new_cache = {"k": k_new, "v": v_new} if ctx.mode in ("decode", "prefill") else None
-    return x + y, new_cache
+    return y, new_cache
+
+
+def _ssm_sublayer(p: Block, x, ctx: LayerCtx, cache):
+    y, new_cache = ssm_mod.ssm_apply(p.ssm, x, ctx.plan.ssm, chunk=ctx.ssd_chunk,
+                                     cache=cache, norm_eps=ctx.plan.cfg.norm_eps)
+    return y, (None if ctx.mode == "train" else new_cache)
+
+
+def _mixer_sublayer(p: Block, x, ctx: LayerCtx, positions, cache, cache_len):
+    """Attention / SSM / hybrid mixer with residual; returns (x, cache
+    entry ``{"kv": …, "ssm": …}`` or None)."""
+    cfg = ctx.plan.cfg
+    new_cache: Dict[str, Any] = {}
+    kv_in = cache.get("kv") if cache else None
+    ssm_in = cache.get("ssm") if cache else None
+    h = L.rmsnorm(x, p.ln1, cfg.norm_eps)   # hybrid: both branches read it
+    if cfg.hybrid:
+        ya, kv = _attn_sublayer(p, h, ctx, positions, kv_in, cache_len)
+        ys, sc = _ssm_sublayer(p, h, ctx, ssm_in)
+        y = 0.5 * (ya + ys)
+    elif cfg.has_attention:
+        y, kv = _attn_sublayer(p, h, ctx, positions, kv_in, cache_len)
+        sc = None
+    else:
+        y, sc = _ssm_sublayer(p, h, ctx, ssm_in)
+        kv = None
+    if kv is not None:
+        new_cache["kv"] = kv
+    if sc is not None:
+        new_cache["ssm"] = sc
+    return x + y, (new_cache or None)
 
 
 def _ffn_sublayer(p: Block, x, ctx: LayerCtx):
+    """MLP / MoE with residual; returns (x, aux loss)."""
     cfg = ctx.plan.cfg
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff == 0:
+        return x, aux
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
-    return x + L.mlp_apply(p.mlp, h, cfg.gated_mlp)
+    if p.moe is not None:
+        y, aux = moe_local_reference(h, p.moe, ctx.plan.moe, cfg.gated_mlp)
+        if p.shared is not None:
+            y = y + L.mlp_apply(p.shared, h, cfg.gated_mlp)
+    else:
+        y = L.mlp_apply(p.mlp, h, cfg.gated_mlp)
+    return x + y, aux
+
+
+def moe_local_reference(x: torch.Tensor, weights: MoE, plan: MoEPlan, gated: bool):
+    """Dense one-hot MoE (JAX's oracle and single-device path): every
+    virtual expert runs on every token, and each token sums the outputs of
+    its top-k experts' r virtual slices, weighted by the router's softmax.
+    Returns (y [B, S, D] in x's dtype, aux loss)."""
+    B, S, D = x.shape
+    t = x.reshape(-1, D)
+    logits = torch.einsum("td,de->te", t.float(), weights.router)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, plan.top_k, dim=-1)
+    r = plan.virt_per_expert
+    h1 = torch.einsum("td,edf->tef", t, weights.w1)
+    if gated:
+        h = F.silu(h1) * torch.einsum("td,edf->tef", t, weights.w3)
+    else:
+        h = F.gelu(h1, approximate="tanh")   # jax.nn.gelu's default
+    out_e = torch.einsum("tef,efd->ted", h, weights.w2)   # [t, Ev, D]
+    # combine: each selected logical expert e contributes its r virtual slices
+    slots = (topi[:, :, None] * r + torch.arange(r, device=x.device)).reshape(t.shape[0], -1)
+    w = topv.repeat_interleave(r, dim=-1)
+    sel = torch.gather(out_e, 1, slots[:, :, None].expand(-1, -1, D))   # [t, kr, D]
+    y = torch.einsum("tkd,tk->td", sel.float(), w)
+    return y.reshape(B, S, D).to(x.dtype), _local_aux(probs, topi, plan)
+
+
+def _local_aux(probs: torch.Tensor, topi: torch.Tensor, plan: MoEPlan) -> torch.Tensor:
+    """Switch-style load-balancing loss E · Σ_e f_e · P_e over the top-1
+    assignments."""
+    E = plan.num_experts
+    f = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+    return E * (f * probs.mean(dim=0)).sum()
 
 
 REMATS = ("block", "save_mixer", "none")
 
 
-def _train_block(p: Block, x, ctx: LayerCtx, positions):
-    """One block under the remat policy: ``"block"`` keeps only the block's
-    input for the backward pass and recomputes the block
-    (``jax.checkpoint(unit_apply)``); ``"save_mixer"`` also keeps the
-    post-attention residual and recomputes each sub-layer from its own
-    input (JAX's ``save_only_these_names("mixer_out")``); ``"none"`` keeps
-    every activation."""
+def _train_unit(layers, x, ctx: LayerCtx, positions):
+    """One unit of ``period`` layers under the remat policy; returns (x,
+    the unit's aux loss).  ``"block"`` keeps only the unit's input for the
+    backward pass and recomputes the unit (``jax.checkpoint(unit_apply)``);
+    ``"save_mixer"`` also keeps each post-mixer residual and recomputes
+    each sub-layer from its own input (JAX's
+    ``save_only_these_names("mixer_out")``); ``"none"`` keeps every
+    activation."""
 
-    def mixer(h):
-        return _attn_sublayer(p, h, ctx, positions, None, None)[0]
+    def mixer(p, h):
+        return _mixer_sublayer(p, h, ctx, positions, None, None)[0]
 
-    def ffn(h):
-        return _ffn_sublayer(p, h, ctx)
+    def unit(h):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for p in layers:
+            h, a = _ffn_sublayer(p, mixer(p, h), ctx)
+            aux = aux + a
+        return h, aux
 
     if ctx.remat == "none":
-        return ffn(mixer(x))
+        return unit(x)
     if ctx.remat == "save_mixer":
-        h = checkpoint(mixer, x, use_reentrant=False)
-        return checkpoint(ffn, h, use_reentrant=False)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in layers:
+            h = checkpoint(mixer, p, x, use_reentrant=False)
+            x, a = checkpoint(_ffn_sublayer, p, h, ctx, use_reentrant=False)
+            aux = aux + a
+        return x, aux
     if ctx.remat == "block":
-        return checkpoint(lambda h: ffn(mixer(h)), x, use_reentrant=False)
+        return checkpoint(unit, x, use_reentrant=False)
     raise ValueError(f"remat {ctx.remat!r} not in {REMATS}")
 
 
@@ -185,33 +302,46 @@ def _train_block(p: Block, x, ctx: LayerCtx, positions):
 # ---------------------------------------------------------------------------
 
 
+Cache = List[Optional[Dict[str, Any]]]
+
+
 def forward(
     params: Transformer,
-    inputs: torch.Tensor,              # tokens [B, S]
+    inputs: torch.Tensor,              # tokens [B, S] or embeddings [B, S, F]
     plan: ModelPlan,
     ctx: LayerCtx,
-    cache: Optional[List[Dict[str, torch.Tensor]]] = None,   # one {"k","v"} per layer
+    cache: Optional[Cache] = None,     # one {"kv": {"k", "v"}, "ssm": SSMCache} per layer
     cache_len: Optional[int] = None,
 ):
     """Returns ``(x, head, new_cache, aux)``: the final-normed hidden states
-    [B, S, D], the LM head table, the per-layer caches (prefill, decode)
-    and the auxiliary loss (zero: no experts)."""
+    [B, S, D], the LM head table, the per-layer caches (prefill, decode;
+    None in train mode) and the auxiliary loss summed over the layers."""
     cfg = plan.cfg
-    x = L.embed_lookup(params.embed, inputs)
+    if cfg.frontend is None:
+        x = L.embed_lookup(params.embed, inputs)
+    else:
+        x = torch.einsum("bsf,fd->bsd", inputs.to(L.dtype_of(cfg.dtype)),
+                         params.frontend_proj)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if ctx.mode == "decode":
         positions = positions + cache_len
-    new_cache: List[Any] = []
-    for i, layer in enumerate(params.layers):
+    period = plan.period
+    auxs = []
+    new_cache: Cache = []
+    for u in range(0, len(params.layers), period):
+        layers = params.layers[u:u + period]
         if ctx.mode == "train":
-            x = _train_block(layer, x, ctx, positions)
-            continue
-        x, nc = _attn_sublayer(layer, x, ctx, positions,
-                               cache[i] if cache is not None else None, cache_len)
-        x = _ffn_sublayer(layer, x, ctx)
-        new_cache.append(nc)
+            x, aux = _train_unit(layers, x, ctx, positions)
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i, layer in enumerate(layers, start=u):
+                x, nc = _mixer_sublayer(layer, x, ctx, positions,
+                                        cache[i] if cache is not None else None, cache_len)
+                x, a = _ffn_sublayer(layer, x, ctx)
+                aux = aux + a
+                new_cache.append(nc)
+        auxs.append(aux)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     head = params.lm_head if params.lm_head is not None else params.embed
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, head, (new_cache if ctx.mode != "train" else None), aux
+    return x, head, (new_cache if ctx.mode != "train" else None), torch.stack(auxs).sum()

@@ -193,6 +193,31 @@ def test_attention_fwd_with_q_offset_matches_jax(Sq, Skv, q_offset, block_kv, wi
     _close(tattn.mha_reference(tq, tk, tv, **kw), jattn.mha_reference(jq, jk, jv, **kw), F32)
 
 
+@pytest.mark.parametrize("window", [0, 48])
+def test_attention_fwd_pairs_matches_jax(window):
+    """``tests/test_perf_variants.py``'s case: the block-skipping pairs
+    softmax against JAX's and against the blocked ``attention_fwd``; then
+    its gradients against JAX's pairs gradients."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, 128, 2, 3, 32, F32, seed=5)
+    kw = dict(causal=True, window=window, block_q=32, block_kv=32)
+    got = tattn.attention_fwd_pairs(tq, tk, tv, **kw)
+    _close(got, jattn.attention_fwd_pairs(jq, jk, jv, **kw), F32)
+    _close(got, jattn.attention_fwd(jq, jk, jv, causal=True, window=window, block_kv=32), F32)
+    ct = np.random.default_rng(6).standard_normal(tuple(got.shape)).astype(np.float32)
+    jg = jax.grad(lambda q, k, v: jnp.sum(jattn.attention_fwd_pairs(q, k, v, **kw) * ct),
+                  argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    (tattn.attention_fwd_pairs(*leaves, **kw) * torch.from_numpy(ct)).sum().backward()
+    for t, j in zip(leaves, jg):
+        _close(t.grad, j, F32)
+
+
+def test_attention_fwd_pairs_refuses_blocks_that_do_not_divide():
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 48, 1, 1, 16, F32)
+    with pytest.raises(ValueError, match="must divide"):
+        tattn.attention_fwd_pairs(tq, tk, tv, block_q=32, block_kv=32)
+
+
 @pytest.mark.parametrize("ring,window,per_seq", [
     (False, 0, False), (False, 6, False), (True, 0, False), (False, 4, True), (True, 0, True),
 ])
@@ -379,6 +404,8 @@ def test_cuda_tensors_launch_the_flash_kernel_never_plain(fake_card):
     assert fake_card.calls[1][0] == "flash_attention_f32"
     assert fake_card.calls[1][1][4:11] == (4, 2, 30, 24, 16, 0, 0)
     assert tfk.LAUNCHES == {"flash_attention_flat": 2}
+    assert tfk.LAUNCH_SHAPES == {(12, 4, 40, 40, 32, True, 16, "bf16"): 1,
+                                 (4, 2, 30, 24, 16, False, 0, "f32"): 1}
 
 
 def test_flash_kernel_refuses_misaligned_inputs(fake_card):
@@ -406,4 +433,4 @@ def test_flash_kernel_bad_inputs_and_launch_errors_raise(fake_card):
     fake_card.rc = 700
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tfk.flash_attention_flat(q, k, k)
-    assert tfk.LAUNCHES["flash_attention_flat"] == 0
+    assert tfk.LAUNCHES["flash_attention_flat"] == 0 and not tfk.LAUNCH_SHAPES

@@ -20,7 +20,8 @@ and on the CPU must take the same number of outer iterations and agree to
 also element by element under ``flash_attention.ref.bf16_output_bar``,
 |Δ| ≤ 2^-7·(|want| + rms(want)) + 2^-8·ref(q, k, |v|) (one bf16 step of
 the output plus the rounding of p to bf16 for the P·V product); an f32
-model served on the card gives the CPU's tokens.  Diff-norm partials: l∞
+model served on the card gives the CPU's tokens, for the dense family and
+each of the moe, ssm, hybrid and frontend families.  Diff-norm partials: l∞
 1e-6 and l2 / l1 2e-5 relative (summation order), bitwise equal across
 calls.  The stencil and diff-norm kernels are checked in all three partial
 modes (l∞ max|r|, l2 Σr², l1 Σ|r|); an l1 run on the card takes the CPU's
@@ -583,6 +584,29 @@ def test_reduced_serve_on_card_matches_cpu(card, monkeypatch):
     assert gpu["steps"] == cpu["steps"] and gpu["stopped_by"] == cpu["stopped_by"]
     out = tserve.serve("qwen2-1.5b", batch=2, prompt_len=40, max_new=6)   # bf16, on the card
     assert out["tokens"].shape == (2, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m",
+                                  "hymba-1.5b", "musicgen-medium", "llava-next-34b"])
+def test_reduced_family_serve_on_card_matches_cpu(card, arch):
+    """Every other family, reduced and in f32, served on the card and on
+    the CPU from the same weights: the same tokens, and #6 once a layer
+    with attention in the card's prefill."""
+    cfg = reduced(treg.get_arch(arch), dtype="float32")
+    prompts = tserve.make_prompts(cfg.vocab_size, 2, 64, 0,
+                                  cfg.frontend_dim if cfg.frontend else 0)
+    outs = []
+    for dev in (card, "cpu"):
+        m = Model(cfg, device=dev)
+        params = m.init(torch.Generator().manual_seed(0))   # CPU draws: the same weights
+        tfk.reset_launches()
+        outs.append(tserve.generate(m, params, prompts, 8))
+        on_card = m.device.type == "cuda" and cfg.has_attention
+        assert tfk.LAUNCHES["flash_attention_flat"] == (cfg.num_layers if on_card else 0)
+    gpu, cpu = outs
+    np.testing.assert_array_equal(gpu["tokens"], cpu["tokens"])
+    assert gpu["steps"] == cpu["steps"] and gpu["logits_finite"]
 
 
 def _flash_against_plain(card, BH, BN, S, H, causal, window, dtype, seed=0):

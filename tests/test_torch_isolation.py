@@ -34,7 +34,7 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 67, names
+    assert len(names) >= 69, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
@@ -45,7 +45,7 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.solvers.mlfixed" in names, names
     for name in ("runtime.train_async", "runtime.elastic", "runtime.fault_tolerance",
                  "checkpoint.checkpointer", "optim.adamw", "optim.grad_compression",
-                 "data.pipeline", "launch.train"):
+                 "data.pipeline", "launch.train", "models.ssm", "models.moe"):
         assert "repro_torch." + name in names, names
     print("ISOLATED", len(names))
 """)
@@ -94,9 +94,12 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         detection.batched_monitor("pfait", torch.ones(1, 4), [1e-3], [0], [1])
     assert detection.init_lanes(2, 3, "cpu").step.device.type == "cpu"
+    for arch in ("qwen2-1.5b", "mamba2-130m", "musicgen-medium"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Model(reduced(get_arch(arch)))
+        assert Model(reduced(get_arch(arch)), device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Model(reduced(get_arch("qwen2-1.5b")))
-    assert Model(reduced(get_arch("qwen2-1.5b")), device="cpu").device.type == "cpu"
+        serve.serve("hymba-1.5b", batch=1, prompt_len=4, max_new=2)
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

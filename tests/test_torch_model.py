@@ -5,8 +5,8 @@ Reduced qwen2-1.5b (GQA, QKV bias, SwiGLU), starcoder2-3b (GQA, GELU MLP,
 no bias) and deepseek-7b (MHA), each in f32 and in bf16: the prefill's
 last-position logits and KV cache, teacher-forced decode steps, and
 decode-matches-full-forward.  ``Model.init`` gives the JAX tree's shapes
-and dtypes with the JAX initialisers' scales, and the families not ported
-yet are refused.
+and dtypes with the JAX initialisers' scales.  The other families are
+``tests/test_torch_families.py``.
 
 Tolerances: f32 logits and caches 1e-5 (atol and rtol; the same arithmetic
 in another summation order); bf16 max|Δ| ≤ 2e-2 × max|JAX| per tensor (a
@@ -80,14 +80,15 @@ def test_prefill_logits_and_cache_match_jax(arch, dtype):
     _close(tl, jl, TOL[dtype])
     assert len(tc) == m.cfg.num_layers
     for i, layer in enumerate(tc):
+        assert sorted(layer) == ["kv"]
         for name in ("k", "v"):
-            assert layer[name].dtype == tL.dtype_of(dtype)
-            _close(layer[name], jc[0]["kv"][name][i], TOL[dtype])
+            assert layer["kv"][name].dtype == tL.dtype_of(dtype)
+            _close(layer["kv"][name], jc[0]["kv"][name][i], TOL[dtype])
     # with room for decoding: the same entries, zeros after them
     _, tc2 = m.make_prefill()(tp, torch.as_tensor(toks), max_len=S + 5)
     for a, b in zip(tc, tc2):
-        assert b["k"].shape[1] == S + 5
-        assert torch.equal(b["k"][:, :S], a["k"]) and not b["v"][:, S:].any()
+        assert b["kv"]["k"].shape[1] == S + 5
+        assert torch.equal(b["kv"]["k"][:, :S], a["kv"]["k"]) and not b["kv"]["v"][:, S:].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -106,8 +107,8 @@ def test_teacher_forced_decode_matches_jax(arch, dtype):
         tl, tc = tdec(tp, tc, torch.as_tensor(step), S0 + i)
         _close(tl, jl, TOL[dtype])
     for i, layer in enumerate(tc):
-        _close(layer["k"], jc[0]["kv"]["k"][i], TOL[dtype])
-        _close(layer["v"], jc[0]["kv"]["v"][i], TOL[dtype])
+        _close(layer["kv"]["k"], jc[0]["kv"]["k"][i], TOL[dtype])
+        _close(layer["kv"]["v"], jc[0]["kv"]["v"][i], TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -163,13 +164,6 @@ def test_init_matches_jax_tree_and_scales(arch, tp):
         assert torch.equal(blk.ln1, torch.ones_like(blk.ln1))
         assert abs(float(blk.mlp.w2.float().std()) * np.sqrt(cfg.d_ff) - 1) < 0.1
     assert abs(float(params.embed.float().std()) / 0.02 - 1) < 0.1
-
-
-@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m",
-                                  "hymba-1.5b", "musicgen-medium", "llava-next-34b"])
-def test_families_not_ported_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        Model(reduced(get_arch(arch)), device="cpu")
 
 
 def test_params_from_refuses_a_tree_of_another_shape():

@@ -6,7 +6,8 @@ logits that agree to ~1e-6, far inside the gaps between the top logits).
 
 One case per staleness K runs at batch 1 with ``eos_id`` set to the token
 JAX emitted at position 4, so the K-stale detector fires K steps after
-the EOS and the drain mask rewrites the over-run tokens.
+the EOS and the drain mask rewrites the over-run tokens.  The moe, ssm,
+hybrid and frontend families run the same comparison, reduced and in f32.
 """
 import dataclasses
 import sys
@@ -14,6 +15,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import registry as jreg
 from repro.configs.base import reduced as jreduced
@@ -98,8 +100,35 @@ def test_serve_on_cpu_and_cli(capsys, monkeypatch):
     assert "[serve] generated (2, 4)" in capsys.readouterr().out
 
 
-def test_serve_refuses_families_not_ported():
-    with pytest.raises(NotImplementedError):
-        tserve.serve("mamba2-130m", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tserve.serve("musicgen-medium", device="cpu")
+FAMILIES = ("grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m", "hymba-1.5b",
+            "musicgen-medium", "llava-next-34b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_loop_matches_jax_for_every_family(monkeypatch, arch):
+    """The moe, ssm, hybrid and frontend families, reduced, in f32: a
+    frontend model's prompts are the JAX server's normal draws and its
+    decode steps read ``one_hot(token, F)`` (tokens ≥ F a zero row)."""
+    name = f"{arch}-f32-test"
+    jcfg = dataclasses.replace(jreduced(jreg.get_arch(arch), dtype="float32"), name=name)
+    monkeypatch.setitem(jreg.ARCHS, name, jcfg)
+    monkeypatch.setitem(treg.ARCHS, name, interop.model_config_from(jcfg))
+    kw = dict(batch=2, prompt_len=16, max_new=6, seed=1)
+    want = jserve.serve(name, use_reduced=False, **kw)
+    m = Model(treg.get_arch(name), device="cpu")
+    tree = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.PRNGKey(kw["seed"])))
+    F = jcfg.frontend_dim if jcfg.frontend else 0
+    prompts = tserve.make_prompts(jcfg.vocab_size, kw["batch"], kw["prompt_len"], kw["seed"], F)
+    assert prompts.dtype == (np.float32 if F else np.int32)
+    got = tserve.generate(m, interop.params_from(tree, m), prompts, kw["max_new"])
+    _assert_same(got, want)
+    assert got["logits_finite"]
+
+
+def test_frontend_decode_input_is_jax_one_hot():
+    tok = np.array([0, 5, 31, 32, 40], np.int32)
+    got = tserve._decode_input(torch.as_tensor(tok), 32)
+    want = jax.nn.one_hot(tok, 32, dtype=np.float32)[:, None, :]
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5, 1, 32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(tserve._decode_input(torch.as_tensor(tok), 0), torch.as_tensor(tok)[:, None])

@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+from repro.configs.base import ParallelConfig as JParallelConfig
 from repro.configs.base import reduced as jreduced
 from repro.configs.registry import get_arch as jget_arch
 from repro.core import detection as jdet
@@ -156,16 +157,32 @@ def test_remat_policies_give_bitwise_the_same_loss_and_grads(remat):
     assert all(torch.equal(g0[n], g1[n]) for n in g0)
 
 
-def test_unknown_remat_and_pairs_attention_are_refused():
+def test_unknown_remat_is_refused():
     jm = _jmodel()
     (batch,) = _batches(jm.cfg, 1)
-    for parallel, err, match in ((ParallelConfig(remat="everything"), ValueError, "remat"),
-                                 (ParallelConfig(attn_impl="pairs"), NotImplementedError,
-                                  "ROADMAP queue 1 item 14")):
-        m = _port(jm, parallel=parallel)
-        params = m.init(torch.Generator().manual_seed(0)).requires_grad_(True)
-        with pytest.raises(err, match=match):
-            m.loss_fn(params, _tb(batch))
+    m = _port(jm, parallel=ParallelConfig(remat="everything"))
+    params = m.init(torch.Generator().manual_seed(0)).requires_grad_(True)
+    with pytest.raises(ValueError, match="remat"):
+        m.loss_fn(params, _tb(batch))
+
+
+def test_pairs_attention_save_mixer_train_step_matches_jax():
+    """``tests/test_perf_variants.py``'s combination, ``attn_impl="pairs"``
+    with ``remat="save_mixer"`` and 2 microbatches: one f32 step from a
+    carried state, loss and grad_norm within rtol 1e-5 of JAX's."""
+    par = ParallelConfig(attn_impl="pairs", remat="save_mixer")
+    jm = JModel(jreduced(jget_arch(ARCH), dtype="float32"),
+                parallel=JParallelConfig(attn_impl="pairs", remat="save_mixer"))
+    m = _port(jm, parallel=par)
+    jopt, topt = JAdamW(jconstant(1e-3)), AdamW(constant_schedule(1e-3))
+    js = jm.init_train_state(jax.random.PRNGKey(0), jopt)
+    ts = interop.train_state_from(jax.tree.map(np.asarray, js), m)
+    (batch,) = _batches(jm.cfg, 1, batch=2, seq=64)
+    js, jmet = jax.jit(jm.make_train_step(jopt, microbatches=2)[0])(js, _jb(batch))
+    ts, tmet = m.make_train_step(topt, microbatches=2)[0](ts, _tb(batch))
+    assert m._ctx("train").attn_impl == "pairs"
+    assert float(tmet["loss"]) == pytest.approx(float(jmet["loss"]), rel=1e-5)
+    assert float(tmet["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=1e-5)
 
 
 # ---------------------------------------------------------------------------
