@@ -72,10 +72,11 @@ Phases, each of which must pass or the script exits non-zero:
    the host-staged bytes per step are printed beside the stacked twin's;
 10. require that every (stencil kernel, block shape, dtype) the main paths
    launched, in this process and inside the worlds, was held against its
-   plain version in phase 2; rank the stencil kernels by launches x (device
-   ms - bound ms) over those triples, each timed at its shape in its type;
-   print one JSON line of per-kernel numbers, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``;
+   plain version in phase 2; after phase 16, rank the stencil kernels by
+   launches x (device ms - bound ms) over those triples, each timed at its
+   shape in its type; at the end print one JSON line of per-kernel
+   numbers, the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``;
 11. the detection service, run after phase 9 (phase 10's checks, which
    cover its launches, come after phase 13): a seeded open-loop load of 64
    tenants (Poisson, 2 a tick) over convdiff at n = 150 (Jacobi #1 and
@@ -162,9 +163,32 @@ Phases, each of which must pass or the script exits non-zero:
    every family, reduced and in f32, on the card against the CPU: the
    prefill's logits and 3 train steps' losses and grad norms within rtol
    1e-4.  Then every #6 shape a main path launched must be in
-   ``FLASH_CASES``.
+   ``FLASH_CASES``;
+16. the event engine (``core/async_engine.py``) and its protocols, the
+   problems' blocks on the card and every sweep a kernel launch: (a)
+   Tables 4–5 at the paper's smaller grid, convdiff n = 150, ρ = 0.93, the
+   hybrid sweep, l∞, the stable platform, seed 0: PFAIT at ε̃/10 and NFAIS2
+   and NFAIS5 at ε̃ on p = 50 (blocks 15×30×150), PFAIT on p = 150, each
+   under a ``TraceRecorder`` scored by ``detection_report``: every run
+   must terminate with r* < ε̃ and no false detection, give the JAX
+   engine's sweeps, k_max, k_min, reductions, virtual times and message
+   counts at the same seed (``EVENT_JAX``; only a detection moved by an
+   f32 rounding at ε may depart, reported with its distance to ε), and
+   launch #2 once a sweep; (b) reduced, each run on the card and again on
+   the CPU: convdiff n = 24, p = 8 under every protocol, hybrid and
+   Jacobi, l∞ and l2, PageRank n = 256, p = 4 in l1 and the ML problem
+   n = 16, p = 4 under every protocol, and every spec of
+   ``scenario_registry()`` under PFAIT: equal events, counters and
+   verdicts, x within 1e-12, residuals within rtol 1e-6 (l∞) or 1e-5
+   (l2, l1) plus the f64 floor of a residual near convergence; (c) phase
+   8's recorded traces through the port's ``fit_cost_model`` and
+   ``replay``: each validates, its predicted wall printed beside the
+   measured one.  Prints walls, sweeps/s, device→host syncs and launches
+   per run, and the PFAIT/NFAIS2 ratios of virtual wtime and k_max.  #1,
+   #2 and #5 must launch, #2 once per hybrid sweep of the phase; then
+   phase 10's shape check and ``rank`` table cover this phase too.
 
-Phases 4 to 9 and 11 to 15 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 16 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
@@ -241,12 +265,16 @@ F64_UNIT = 2.0 ** -53
 # (the elastic path after its crash), the 75×150×150 block of one of 2 and
 # the whole 150³ grid of one at n = 150 (also a convdiff lane of the
 # detection service, in f32), the 38×152×152 block of one of 4 at
-# n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, and a
-# ragged block.  main() fails if a main path launches #1-#4 at a block
-# shape not listed here (or in HALO_SHAPES for #3/#4)
+# n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, a
+# ragged block, and the event engine's (phase 16): the blocks of p = 50 and
+# p = 150 at n = 150, and at n = 24 the block of p = 8 and the whole grid
+# (its exact residual).  main() fails if a main path launches #1-#4 at a
+# block shape not listed here (or in HALO_SHAPES for #3/#4)
 SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p5": (30, 150, 150),
           "p2": (75, 150, 150), "p1": (150, 150, 150), "p4": (38, 152, 152),
-          "mesh32": (50, 75, 150), "ragged": (13, 37, 19)}
+          "mesh32": (50, 75, 150), "ragged": (13, 37, 19),
+          "ev50": (15, 30, 150), "ev150": (10, 15, 150), "ev8": (6, 12, 24),
+          "ev1": (24, 24, 24)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
 # n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
 # (3, 2) mesh's two overlap face slabs.  The halo Jacobi sweep splits a
@@ -1615,9 +1643,10 @@ def _exact_sigma(prob, x) -> float:
     import torch
 
     from repro_torch.launch.serve import _sigma_np
+    from repro_torch.solvers.convdiff import ConvDiffProblem
 
     x = x.detach().to("cpu", torch.float64)
-    if hasattr(prob, "exact_residual"):
+    if not isinstance(prob, ConvDiffProblem):
         return float(prob.exact_residual([x.numpy()]))
     _, c = prob.update_with_residual_batched(x[None])
     return float(_sigma_np(c.numpy(), float(prob.ord))[0])
@@ -3358,6 +3387,391 @@ def run_families(dev) -> dict:
     return out
 
 
+# phase 16: the event engine (core/async_engine.py) and its protocols, with
+# the problems' blocks on the card and every sweep a kernel launch.  (a)
+# Tables 4-5 at the paper's smaller grid, n = 150, as the JAX package's
+# benchmarks/common.py:run_cell sets them up (rho 0.93, the hybrid sweep,
+# l∞, stable_platform(), seed 0, max_iters 60000): PFAIT at ε̃/10 and the
+# snapshot protocols at ε̃ on p = 50 (the paper's smallest, 48, does not
+# divide 150), and PFAIT on p = 150
+EVENT_RHO, EVENT_MAX_ITERS = 0.93, 60000
+EVENT_RUNS = (("pfait", EPS_TILDE / 10, 50), ("nfais2", EPS_TILDE, 50),
+              ("nfais5", EPS_TILDE, 50), ("pfait", EPS_TILDE / 10, 150))
+# the JAX package's event engine on the same runs (host numpy f64;
+# ``tests/_jax_event_reference.py`` prints them).  A run's counters and
+# virtual times do not depend on the device, so the port must give them
+# unless a comparison with ε flips by an f32 rounding of the residual
+EVENT_JAX = {
+    ("pfait", 50): dict(sweeps=9162, k_max=199, k_min=171, reductions=12,
+                        wtime=0.20193031267451034, detect_time=0.19231917431460707,
+                        msg_counts={"data": 31153}, msg_bytes={"data": 857142000},
+                        detected_residual=2.485364447579741e-08),
+    ("nfais2", 50): dict(sweeps=8486, k_max=183, k_min=156, reductions=2,
+                         wtime=0.18701095898103, detect_time=0.17837981376044892,
+                         msg_counts={"data": 28854, "snap2": 340},
+                         msg_bytes={"data": 793926000, "snap2": 9360000},
+                         detected_residual=2.601644215616261e-07),
+    ("nfais5", 50): dict(sweeps=9125, k_max=198, k_min=168, reductions=2,
+                         wtime=0.20148166159342515, detect_time=0.19192030895681614,
+                         msg_counts={"data": 31026, "snap5": 340, "confirm5": 340},
+                         msg_bytes={"data": 853614000, "snap5": 5440, "confirm5": 340},
+                         detected_residual=5.2285875185020814e-08),
+    ("pfait", 150): dict(sweeps=29483, k_max=217, k_min=182, reductions=10,
+                         wtime=0.2176697458415222, detect_time=0.20510314578348643,
+                         msg_counts={"data": 108130}, msg_bytes={"data": 1627836000},
+                         detected_residual=1.895349477365471e-08),
+}
+EVENT_KERNELS = ("fused_sweep_residual", "fused_rbgs_sweep_residual", "diff_norm_partials")
+# (b) the card against the CPU, reduced, all at seed 0: convdiff n = 24, p = 8
+# (blocks 6×12×24, below one (4, 8) tile column: phase 2 holds them), every
+# protocol × {hybrid, Jacobi} × {l∞, l2}; PageRank n = 256, p = 4, l1; the ML
+# problem n = 16, p = 4 (lstsq, l2); every spec of scenario_registry() under
+# PFAIT on the convdiff case.  Bars: x within 1e-12 of its largest element;
+# r*, the detected and the detection instant's residuals within rtol 1e-6
+# (l∞, one f32 rounding) or 1e-5 (l2, l1: an f32 sum), plus the f64 floor
+# of a residual near convergence, 16·2^-53·S a cell (√N and N times that
+# at l2 and l1; S the scale of the residual's terms), where the kernel's
+# and the plain version's f64 orders part
+EVENT_SMALL = dict(convdiff=(dict(n=24, p=8, rho=0.9), 1e-6),
+                   pagerank=(dict(n=256, p=4, ord=1.0), 1e-9),
+                   mlfixed=(dict(n=16, p=4, m_rows=64), 1e-6))
+EVENT_RTOL = {INF: 1e-6, 2.0: 1e-5, 1.0: 1e-5}
+
+
+class EventRun(NamedTuple):
+    """One event-engine run: its result and recorder, the final blocks (on
+    the host), setup and run walls, device→host reads and launches."""
+
+    res: object
+    rec: object
+    x: list
+    setup_s: float
+    run_s: float
+    syncs: int
+    used: dict
+
+
+def _event_run(prob, cfg, proto, record_sends=True, stride=0) -> EventRun:
+    import torch
+
+    from repro_torch.core.async_engine import AsyncEngine
+    from repro_torch.core.reliability import TraceRecorder
+
+    cuda = torch.cuda.is_available()
+    before = _launches()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = TraceRecorder(residual_stride=stride, record_sends=record_sends)
+    eng = AsyncEngine(prob, cfg, proto, recorder=rec)
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = eng.run()
+    if cuda:
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    x = [xi.cpu().numpy() for xi in eng.x]
+    return EventRun(res, rec, x, t1 - t0, t2 - t1, prob.syncs,
+                    {k: v - before[k] for k, v in _launches().items()})
+
+
+def _event_cfg(platform="stable", scenario=None, fifo=False, max_iters=EVENT_MAX_ITERS):
+    """Seed 0 on ``platform``'s preset, or on the platform of the
+    ``scenario_registry()`` spec named ``scenario`` with its effects."""
+    from repro_torch.core.async_engine import PLATFORMS
+    from repro_torch.core.scenarios import scenario_registry
+
+    if scenario is not None:
+        spec = scenario_registry()[scenario]
+        platform, scenario = spec.platform, spec.scenario
+    return dataclasses.replace(PLATFORMS[platform](), seed=0, max_iters=max_iters,
+                               fifo=fifo, scenario=scenario)
+
+
+def _protocol(name, eps, ord):
+    from repro_torch.core.protocols import PROTOCOLS
+
+    return PROTOCOLS[name](eps, ord=ord)
+
+
+def run_events_large(dev) -> list:
+    """(a): the four n = 150 runs on the card, each under a ``TraceRecorder``
+    and scored by ``detection_report``; returns ``[(key, eps, EventRun,
+    report)]``."""
+    from repro_torch.core.reliability import detection_report
+    from repro_torch.solvers.convdiff import ConvDiffProblem
+
+    out = []
+    for proto, eps, p in EVENT_RUNS:
+        prob = ConvDiffProblem(n=SHARD_N, p=p, rho=EVENT_RHO, seed=0, sweep="hybrid",
+                               ord=INF, device=dev)
+        run = _event_run(prob, _event_cfg(), _protocol(proto, eps, prob.ord),
+                         record_sends=False)
+        out.append(((proto, p), eps, run, detection_report(run.rec, eps)))
+    return out
+
+
+def verify_events_large(large, card: str) -> None:
+    """(a)'s checks: every run terminates with r* < ε̃, its counters and
+    virtual times are JAX's (``EVENT_JAX``), #2 launched once a sweep;
+    prints each run's numbers and the PFAIT/NFAIS2 ratios."""
+    by = {}
+    for key, eps, run, rep in large:
+        res, want = run.res, EVENT_JAX[key]
+        got = dict(sweeps=len(run.rec.sweep_events()), k_max=res.k_max, k_min=res.k_min,
+                   reductions=res.reductions, wtime=res.wtime, detect_time=res.detect_time,
+                   msg_counts=res.msg_counts, msg_bytes=res.msg_bytes)
+        by[key] = got
+        sweeps = got["sweeps"]
+        u = run.used
+        print(f"events (a) {key[0]} p = {key[1]} (blocks {SHARD_N // _grid(key[1])[0]}×"
+              f"{SHARD_N // _grid(key[1])[1]}×{SHARD_N}), ε {eps:g}: terminated "
+              f"{res.terminated}, k_max {res.k_max}, k_min {res.k_min}, virtual wtime "
+              f"{res.wtime!r} s, reductions {res.reductions}, sweeps {sweeps}; wall "
+              f"{run.run_s:.3f} s (setup {run.setup_s:.3f} s), {sweeps / run.run_s:.1f} "
+              f"sweeps/s, {1e3 * run.run_s / sweeps:.4f} ms a sweep, {run.syncs} syncs; "
+              f"launches #1 {u['fused_sweep_residual']}, #2 {u['fused_rbgs_sweep_residual']}, "
+              f"#5 {u['diff_norm_partials']}; r* {res.r_star:.4e}, detected "
+              f"{res.detected_residual:.4e}; oracle: false detection {rep.false_detection}, "
+              f"true at detect {rep.true_at_detect:.4e} (overshoot {rep.overshoot:.3f} of ε) "
+              f"[{card}]")
+        _require(res.terminated, f"events (a) {key}: did not terminate")
+        _require(res.r_star < EPS_TILDE, f"events (a) {key}: r* {res.r_star:.3e} >= ε̃ "
+                                         f"{EPS_TILDE:g} (false detection)")
+        _require(not rep.false_detection, f"events (a) {key}: the oracle finds a false "
+                                          f"detection")
+        _require(u["fused_rbgs_sweep_residual"] == sweeps,
+                 f"events (a) {key}: #2 launched {u['fused_rbgs_sweep_residual']} times "
+                 f"for {sweeps} hybrid sweeps")
+        same = all(got[k] == want[k] for k in got)
+        if not same:
+            # the one allowed departure: a detection moved by an f32 rounding
+            # of the residual at a comparison with ε
+            dist = {w: abs(r - eps) / eps for w, r in (("port", res.detected_residual),
+                                                       ("JAX", want["detected_residual"]))}
+            print(f"events (a) {key}: counters depart from JAX's engine: port {got}, JAX "
+                  f"{ {k: want[k] for k in got} }; detected residuals' distance to ε: "
+                  f"{dist}")
+            _require(min(dist.values()) <= EVENT_RTOL[INF],
+                     f"events (a) {key}: counters depart from JAX's with no detection "
+                     f"near ε")
+        else:
+            print(f"events (a) {key}: sweeps, k_max, k_min, reductions, wtime, detect_time "
+                  f"and message counts and bytes equal JAX's engine")
+    (pf, n2, n5) = (by[proto, p] for proto, _, p in EVENT_RUNS[:3])
+    print(f"events (a) p = {EVENT_RUNS[0][2]}, the paper's structure: PFAIT/NFAIS2 wtime "
+          f"{pf['wtime'] / n2['wtime']:.4f}, k_max {pf['k_max'] / n2['k_max']:.4f}; "
+          f"PFAIT/NFAIS5 wtime {pf['wtime'] / n5['wtime']:.4f}, k_max "
+          f"{pf['k_max'] / n5['k_max']:.4f}")
+
+
+def _grid(p):
+    from repro_torch.solvers.partition import process_grid
+
+    return process_grid(p)
+
+
+def _f64_floor(family, prob, x, ord) -> float:
+    """The f64 floor of ``prob``'s residual at the state ``x`` (host
+    numpy) in the norm ``ord``: 16·2^-53·S a cell, √N or N times that."""
+    import numpy as np
+
+    a = np.abs(np.concatenate([np.ravel(v) for v in x]))
+    if family == "convdiff":
+        st = prob.st
+        off = sum(abs(c) for c in st.coefs[1:])
+        scale = float(np.abs(prob.b_global).max() + (abs(st.diag) + off) * a.max())
+    elif family == "pagerank":
+        scale = float((prob.d * (prob.to_dense() @ a)).max() + prob.v + a.max())
+    else:
+        scale = prob.gamma * float((np.abs(prob.H) @ a + np.abs(prob.c)).max())
+    cell = 16 * F64_UNIT * scale
+    return {INF: cell, 2.0: a.size ** 0.5 * cell, 1.0: a.size * cell}[float(ord)]
+
+
+def _event_small_cases() -> list:
+    """(b)'s runs: ``(label, family, problem kwargs, protocol, ε, config
+    kwargs)``."""
+    from repro_torch.core.protocols import PROTOCOLS
+    from repro_torch.core.scenarios import scenario_registry
+
+    cases = []
+    base, eps = EVENT_SMALL["convdiff"]
+    for proto in PROTOCOLS:
+        for sweep in ("hybrid", "jacobi"):
+            for ord in (INF, 2.0):
+                cases.append((f"convdiff {proto} {sweep} {_ord_tag(ord)}", "convdiff",
+                              dict(base, sweep=sweep, ord=ord), proto, eps,
+                              dict(fifo=proto == "exact_snapshot")))
+    for family in ("pagerank", "mlfixed"):
+        kw, feps = EVENT_SMALL[family]
+        for proto in PROTOCOLS:
+            cases.append((f"{family} {proto}", family, kw, proto, feps,
+                          dict(fifo=proto == "exact_snapshot")))
+    for name in scenario_registry():
+        cases.append((f"convdiff pfait scenario {name}", "convdiff", dict(base), "pfait", eps,
+                      dict(scenario=name)))
+    return cases
+
+
+def _near(got, want, rtol, floor) -> bool:
+    if want in (INF, 0.0):
+        return got == want
+    return abs(got - want) <= rtol * abs(want) + floor
+
+
+def _small_problem(family, kw, where):
+    from repro_torch.solvers.convdiff import ConvDiffProblem
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    make = dict(convdiff=ConvDiffProblem, pagerank=PageRankProblem,
+                mlfixed=MLFixedPointProblem)[family]
+    return make(seed=0, device=where, **kw)
+
+
+def _small_run(case, where) -> EventRun:
+    _, family, kw, proto, eps, ckw = case
+    prob = _small_problem(family, kw, where)
+    return _event_run(prob, _event_cfg(**ckw), _protocol(proto, eps, prob.ord), stride=25)
+
+
+def _small_run_on_cpu(case) -> EventRun:
+    """One of (b)'s CPU runs, in a worker process (one thread)."""
+    import torch
+
+    torch.set_num_threads(1)
+    return _small_run(case, "cpu")
+
+
+def run_events_small(dev) -> list:
+    """(b): each case on the card here while a pool of spawned CPU
+    processes runs it again on the CPU; returns ``[(label, family, ord,
+    floor, card EventRun, cpu EventRun)]``."""
+    import multiprocessing
+    import os
+
+    cases = _event_small_cases()
+    procs = max(1, min(len(cases), (os.cpu_count() or 2) - 2))
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        pending = pool.map_async(_small_run_on_cpu, cases)
+        cards = [_small_run(case, dev) for case in cases]
+        cpus = pending.get(timeout=600)
+    out = []
+    for case, card, cpu in zip(cases, cards, cpus):
+        label, family, kw = case[:3]
+        prob = _small_problem(family, kw, "cpu")
+        floor = _f64_floor(family, prob, cpu.x, prob.ord)
+        out.append((label, family, prob.ord, floor, card, cpu))
+    return out
+
+
+def verify_events_small(small) -> dict:
+    """(b)'s checks: the card equals the CPU on events, counters and
+    verdicts, x and the residuals within the bars.  Returns the worst
+    relative departures."""
+    import numpy as np
+
+    worst = dict(x=0.0, r=0.0)
+    for label, family, ord, floor, card, cpu in small:
+        a, b = card.res, cpu.res
+        _require(card.rec.sweep_events() == cpu.rec.sweep_events(),
+                 f"events (b) {label}: sweep events differ on the card "
+                 f"(detected {a.detected_residual!r} / {b.detected_residual!r})")
+        _require([e for e in card.rec.events if e[0] != "detect"]
+                 == [e for e in cpu.rec.events if e[0] != "detect"],
+                 f"events (b) {label}: send or membership events differ on the card")
+        for f in ("terminated", "detect_time", "wtime", "k_max", "k_min", "msg_counts",
+                  "msg_bytes", "reductions", "msg_dropped"):
+            _require(getattr(a, f) == getattr(b, f),
+                     f"events (b) {label}: {f} {getattr(a, f)} on the card, {getattr(b, f)} "
+                     f"on the CPU")
+        scale = max(max(float(np.abs(v).max()) for v in cpu.x), 1e-300)
+        dx = max(float(np.abs(u - v).max()) for u, v in zip(card.x, cpu.x)) / scale
+        pairs = [("r*", a.r_star, b.r_star), ("detected", a.detected_residual,
+                                               b.detected_residual)]
+        for f in ("true_at_detect", "certified_at_detect", "active_at_detect"):
+            u, v = getattr(card.rec, f), getattr(cpu.rec, f)
+            _require((u is None) == (v is None), f"events (b) {label}: {f} present on one side")
+            if v is not None:
+                pairs.append((f, u, v))
+        pairs += [(f"sample t={t:.4f}", u, v) for (t, u), (_, v)
+                  in zip(card.rec.residual_samples, cpu.rec.residual_samples)]
+        _require(len(card.rec.residual_samples) == len(cpu.rec.residual_samples),
+                 f"events (b) {label}: residual samples differ in number")
+        for what, u, v in pairs:
+            _require(_near(u, v, EVENT_RTOL[float(ord)], floor),
+                     f"events (b) {label}: {what} {u!r} on the card, {v!r} on the CPU "
+                     f"(bar rtol {EVENT_RTOL[float(ord)]:g} + {floor:.2e})")
+            if v not in (INF, 0.0):
+                worst["r"] = max(worst["r"], abs(u - v) / abs(v))
+        _require(dx <= 1e-12, f"events (b) {label}: x departs by {dx:.2e} of its largest")
+        worst["x"] = max(worst["x"], dx)
+        u = card.used
+        print(f"events (b) {label}: terminated {a.terminated}, k_max {a.k_max}, k_min "
+              f"{a.k_min}, reductions {a.reductions}, sweeps {len(card.rec.sweep_events())}; "
+              f"x within {dx:.2e}, r* {a.r_star:.6e} / {b.r_star:.6e}; card {card.run_s:.3f} s "
+              f"({card.syncs} syncs; #1 {u['fused_sweep_residual']}, #2 "
+              f"{u['fused_rbgs_sweep_residual']}, #5 {u['diff_norm_partials']}), CPU "
+              f"{cpu.run_s:.3f} s")
+    print(f"events (b): {len(small)} runs equal on the card and on the CPU in events, "
+          f"counters and verdicts; x within {worst['x']:.2e}, residuals within "
+          f"{worst['r']:.2e} relative")
+    return worst
+
+
+def replay_card_traces(traces) -> None:
+    """(c): phase 8's recorded ``repro-trace/1`` traces through the port's
+    ``fit_cost_model`` and ``replay``: each validates, and its predicted
+    wall is printed beside the measured one."""
+    from repro_torch.core.trace import Trace, validate_trace
+    from repro_torch.sim.calibrate import fit_cost_model
+    from repro_torch.sim.replay import WhatIf, replay
+
+    for name, text in traces:
+        tr = Trace.loads(text)
+        _require(validate_trace(tr), f"events (c) {name}: the trace fails validate()")
+        cost, report = fit_cost_model(tr)
+        v = replay(tr, cost)
+        wide = replay(tr, cost, WhatIf(p=2 * tr.p))
+        print(f"events (c) phase 8 {name}: measured wall {tr.meta['wall_s']:.4f} s over "
+              f"{tr.meta['outer_iters']} steps; self-replay predicts {v.predicted_wall_s:.4f} s "
+              f"(detect step {v.predicted_detect_step}, approximate {v.approximate}); sweep "
+              f"{1e3 * cost.sweep_s:.4f} ms, hop {1e3 * cost.hop_s:.4f} ms (defaulted "
+              f"{report['defaulted']}); at p = {2 * tr.p} it predicts "
+              f"{wide.predicted_wall_s:.4f} s")
+
+
+def run_events(dev, traces) -> dict:
+    """Phase 16: (a) the n = 150 runs, (b) the reduced runs on the card
+    and on the CPU, (c) the replay of phase 8's traces."""
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    large = run_events_large(dev)
+    t1 = time.perf_counter()
+    small = run_events_small(dev)
+    t2 = time.perf_counter()
+    print(f"events: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s [{card}]")
+    hybrid = sum(len(r.rec.sweep_events()) for _, _, r, _ in large) + sum(
+        len(c.rec.sweep_events()) for label, fam, _, _, c, _ in small
+        if fam == "convdiff" and " jacobi " not in f" {label} ")
+    return dict(large=large, small=small, traces=traces, hybrid_sweeps=hybrid, card=card,
+                seconds=time.perf_counter() - t0)
+
+
+def verify_events(out, used) -> None:
+    """Phase 16's checks, after its launches were read."""
+    verify_events_large(out["large"], out["card"])
+    verify_events_small(out["small"])
+    replay_card_traces(out["traces"])
+    _require(used["fused_rbgs_sweep_residual"] == out["hybrid_sweeps"],
+             f"events: #2 launched {used['fused_rbgs_sweep_residual']} times for "
+             f"{out['hybrid_sweeps']} hybrid sweeps on the card")
+    print(f"events: phase 16 took {out['seconds']:.1f} s; #2 launched once a hybrid sweep "
+          f"({out['hybrid_sweeps']})")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3396,6 +3810,21 @@ PATHS = (
     ("training runtime", run_training, ("diff_norm_partials",)),
     ("elastic driver", run_elastic_driver, ("fused_sweep_residual", "diff_norm_partials")),
 )
+
+
+def _require_held(shape_launches, where: str) -> None:
+    """Every (stencil kernel, block shape, dtype) launched was held against
+    its plain version in phase 2 (each shape of ``SHAPES`` / ``HALO_SHAPES``
+    in f64 and in f32)."""
+    checked = {(k, shape, dt) for k, _, _ in shape_launches
+               for shape in (HALO_SHAPES if "halo" in k else SHAPES).values()
+               for dt in ("f64", "f32")}
+    unchecked = sorted(f"{k} {_shape_str(s)} {dt}" for k, s, dt in shape_launches
+                       if (k, s, dt) not in checked)
+    _require(not unchecked, f"main-path launches at shapes never held against the "
+                            f"plain version: {unchecked}")
+    print(f"every (stencil kernel, block shape, dtype) the main paths launched {where} "
+          f"({len(shape_launches)} triples) was held against its plain version in phase 2")
 
 
 def main() -> int:
@@ -3469,18 +3898,7 @@ def main() -> int:
             _require(need.get(k, 0) > 0, f"{k}: not launched on the {path} path")
         for k in launches:
             launches[k] += used[k]
-    # phase 2 holds each stencil kernel at every shape of its dict in f64
-    # and in f32
-    checked = {(k, shape, dt) for k, _, _ in shape_launches
-               for shape in (HALO_SHAPES if "halo" in k else SHAPES).values()
-               for dt in ("f64", "f32")}
-    unchecked = sorted(f"{k} {_shape_str(s)} {dt}" for k, s, dt in shape_launches
-                       if (k, s, dt) not in checked)
-    _require(not unchecked, f"main-path launches at shapes never held against the "
-                            f"plain version: {unchecked}")
-    print(f"every (stencil kernel, block shape, dtype) the main paths launched, in this "
-          f"process and inside the worlds ({len(shape_launches)} triples), was held "
-          f"against its plain version above")
+    _require_held(shape_launches, "in this process and inside the worlds")
     verify_runs(*(runs[path] for path, _, _ in PATHS[:3]), runs["distributed shard runtime"].twins)
     verify_serve(runs["serve"], used_by["serve"], dev)
     verify_distributed(runs["distributed shard runtime"], runs, nvidia_smi())
@@ -3488,7 +3906,9 @@ def main() -> int:
     verify_service(runs["detection service"], used_by["detection service"], dev)
     verify_train(runs["training runtime"], nvidia_smi())
     verify_elastic(runs["elastic driver"])
-    rank_launches(st, dev, shape_launches, times)
+    # phase 16 replays phase 8's recorded traces
+    pagerank_traces = [(run.name, run.rep.trace.dumps())
+                       for run in runs["pagerank shard runtime"]["runs"]]
     runs.clear()   # the card's memory goes to the full-width training step
 
     # phase 14, the dense-LM training path, launches none of the kernels:
@@ -3516,6 +3936,21 @@ def main() -> int:
                          f"plain version: {unheld}")
     print(f"every #6 shape the main paths launched ({len(flash_shapes)}: "
           f"{dict(flash_shapes)}) was held against its plain version in phase 2")
+
+    # phase 16, the event engine: the counters set to 0 just before it
+    _reset_launches()
+    events = run_events(dev, pagerank_traces)
+    torch.cuda.synchronize()
+    used = _launches()
+    print("main-path launches, event engine:", json.dumps(used))
+    for k in EVENT_KERNELS:
+        _require(used[k] > 0, f"{k}: not launched on the event engine path")
+    for k in launches:
+        launches[k] += used[k]
+    _require_held(jk.LAUNCH_SHAPES, "on the event engine path")
+    shape_launches.update(jk.LAUNCH_SHAPES)
+    verify_events(events, used)
+    rank_launches(st, dev, shape_launches, times)
 
     rows = []
     for k, (source, replaces) in KERNELS.items():

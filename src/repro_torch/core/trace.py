@@ -15,7 +15,10 @@ change), ``segment`` (device wall segment), ``finish``.
 This is the port's copy of the JAX package's schema (``core/trace.py``):
 a trace the port writes is text that the JAX package's ``Trace.loads``
 reads and validates unchanged, and that its replay and calibration
-(``sim/replay.py``, ``sim/calibrate.py``) accept.  ``trace_from_shard_run``
+(``sim/replay.py``, ``sim/calibrate.py``, and the port's own copies)
+accept.  ``EngineTraceObserver`` records an event-engine run
+(``core/async_engine.py``) with the engine's virtual timestamps.
+``trace_from_shard_run``
 (and ``trace_from_train_run``) turns a shard (training) run into a trace:
 the runtime's loop does not timestamp its own events, so per-step
 timestamps are the measured wall interpolated over the outer steps, marked
@@ -179,6 +182,47 @@ def validate_trace(tr: Trace) -> bool:
         return True
     except ValueError:
         return False
+
+
+# ---------------------------------------------------------------------------
+# Event-engine emitter (AsyncEngine observer)
+# ---------------------------------------------------------------------------
+
+
+class EngineTraceObserver:
+    """``AsyncEngine(..., recorder=)`` observer emitting schema events.
+
+    Same hook protocol as ``core.reliability.TraceRecorder`` (the engine
+    feature-detects ``record_sends`` exactly the same way), but the output
+    is a schema ``Trace``.  Timestamps are the engine's own virtual clock.
+    """
+
+    def __init__(self, p: int, record_sends: bool = True,
+                 meta: Optional[Dict[str, Any]] = None):
+        self.record_sends = bool(record_sends)
+        self.trace = Trace("engine", p, meta)
+
+    # -- engine hooks -------------------------------------------------------
+    def on_sweep(self, eng, t: float, i: int) -> None:
+        self.trace.add("sweep", t, w=i, step=int(eng.k[i]))
+
+    def on_send(self, eng, msg, t: float, deliver) -> None:
+        kind = "halo" if msg.kind == "data" else "reduce"
+        self.trace.add(kind, t, w=int(msg.src), step=int(msg.round),
+                       dst=int(msg.dst), msg=str(msg.kind),
+                       deliver=(None if deliver is None else float(deliver)),
+                       dropped=deliver is None)
+
+    def on_membership(self, eng, t: float, kind: str, worker: int) -> None:
+        self.trace.add("member", t, w=int(worker), change=str(kind))
+
+    def on_detect(self, eng, t: float, detected: float) -> None:
+        self.trace.add("detect", t, residual=float(detected))
+
+    def on_finish(self, eng, result) -> None:
+        self.trace.add("finish", float(eng.now),
+                       terminated=bool(result.terminated),
+                       k_max=int(result.k_max), k_min=int(result.k_min))
 
 
 # ---------------------------------------------------------------------------

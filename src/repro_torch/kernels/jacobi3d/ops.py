@@ -54,32 +54,42 @@ def _reduce(parts: torch.Tensor, ord: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ghost_pad1(x: torch.Tensor, ghosts) -> torch.Tensor:
+def _assemble(x: torch.Tensor, ghosts, pad: int, buf) -> torch.Tensor:
+    """Interior + the 4 (x,y) face planes ``(gxm, gxp, gym, gyp)`` into a
+    block padded by ``pad`` in x and y (ghosts one ring in) and 1 in z.
+    ``buf`` — a persistent buffer of that shape to assemble into (its
+    outer rings and z ghosts stay as they are: zero), else a fresh zero
+    block.  A face given as None is not written, so it reads zero in a
+    fresh block and whatever the buffer last held in a persistent one."""
+    bx, by, bz = x.shape
+    shape = (bx + 2 * pad, by + 2 * pad, bz + 2)
+    if buf is None:
+        g = x.new_zeros(shape)
+    elif tuple(buf.shape) != shape:
+        raise ValueError(f"ghost buffer has shape {tuple(buf.shape)}, want {shape}")
+    else:
+        g = buf
+    lo, hi, z = pad - 1, bx + pad, slice(1, -1)
+    ylo, yhi = pad - 1, by + pad
+    xs, ys = slice(pad, bx + pad), slice(pad, by + pad)
+    g[xs, ys, z] = x
+    for face, idx in zip(ghosts, ((lo, ys, z), (hi, ys, z), (xs, ylo, z), (xs, yhi, z))):
+        if face is not None:
+            g[idx] = face
+    return g
+
+
+def ghost_pad1(x: torch.Tensor, ghosts, buf=None) -> torch.Tensor:
     """(bx+2, by+2, bz+2) ghosted block from interior + 4 (x,y) face planes
-    ``(gxm, gxp, gym, gyp)``."""
-    gxm, gxp, gym, gyp = ghosts
-    bx, by, bz = x.shape
-    g = x.new_zeros((bx + 2, by + 2, bz + 2))
-    g[1:-1, 1:-1, 1:-1] = x
-    g[0, 1:-1, 1:-1] = gxm
-    g[-1, 1:-1, 1:-1] = gxp
-    g[1:-1, 0, 1:-1] = gym
-    g[1:-1, -1, 1:-1] = gyp
-    return g
+    ``(gxm, gxp, gym, gyp)``, in ``buf`` where given (see ``_assemble``)."""
+    return _assemble(x, ghosts, 1, buf)
 
 
-def ghost_pad2(x: torch.Tensor, ghosts) -> torch.Tensor:
+def ghost_pad2(x: torch.Tensor, ghosts, buf=None) -> torch.Tensor:
     """(bx+4, by+4, bz+2) twice-padded block for the RB-GS kernel: ghosts sit
-    one ring in; the outermost ring is never read."""
-    gxm, gxp, gym, gyp = ghosts
-    bx, by, bz = x.shape
-    g = x.new_zeros((bx + 4, by + 4, bz + 2))
-    g[2:-2, 2:-2, 1:-1] = x
-    g[1, 2:-2, 1:-1] = gxm
-    g[-2, 2:-2, 1:-1] = gxp
-    g[2:-2, 1, 1:-1] = gym
-    g[2:-2, -2, 1:-1] = gyp
-    return g
+    one ring in; the outermost ring is never read.  In ``buf`` where given
+    (see ``_assemble``)."""
+    return _assemble(x, ghosts, 2, buf)
 
 
 # ---------------------------------------------------------------------------
@@ -87,24 +97,25 @@ def ghost_pad2(x: torch.Tensor, ghosts) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sweep_impl(st: Stencil, x, ghosts, b, sweep, ox, oy, tile, ord):
+def _sweep_impl(st: Stencil, x, ghosts, b, sweep, ox, oy, tile, ord, buf):
     """One relaxation sweep fused with the input-state residual partials."""
     if sweep == "jacobi":
-        return fused_sweep_residual(ghost_pad1(x, ghosts), b, st.coefs,
+        return fused_sweep_residual(ghost_pad1(x, ghosts, buf), b, st.coefs,
                                     tile=tile, op="sweep", ord=ord)
     if sweep != "hybrid":
         raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
-    return fused_rbgs_sweep_residual(ghost_pad2(x, ghosts), b, st.coefs,
+    return fused_rbgs_sweep_residual(ghost_pad2(x, ghosts, buf), b, st.coefs,
                                      int(ox) + int(oy), tile=tile, ord=ord)
 
 
 def sweep(st: Stencil, x: torch.Tensor, ghosts, b: torch.Tensor,
           sweep: str = "jacobi", ox: int = 0, oy: int = 0,
-          tile: Tuple[int, int] = DEFAULT_TILE) -> torch.Tensor:
+          tile: Tuple[int, int] = DEFAULT_TILE, buf=None) -> torch.Tensor:
     """Sweep-only entry (inner sweeps that don't feed detection; the
-    kernel's partials are discarded)."""
+    kernel's partials are discarded).  ``buf``: a persistent buffer to
+    assemble the ghosted block in (``ghost_pad1`` / ``ghost_pad2``)."""
     PASS_COUNTS["sweep"] += 1
-    new, _ = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, float("inf"))
+    new, _ = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, float("inf"), buf)
     return new
 
 
@@ -112,15 +123,15 @@ def sweep_with_contribution(st: Stencil, x: torch.Tensor, ghosts,
                             b: torch.Tensor, sweep: str = "jacobi",
                             ox: int = 0, oy: int = 0,
                             ord: float = float("inf"),
-                            tile: Tuple[int, int] = DEFAULT_TILE):
+                            tile: Tuple[int, int] = DEFAULT_TILE, buf=None):
     """Fused hot path: ``(new_block, contrib)`` in one assembly + one pass.
 
     ``contrib`` is the pre-σ local contribution (max|r| for l∞, Σr² for
     l2, Σ|r| for l1) of the *input* state's residual — one sweep staler
     than a dedicated post-sweep pass, which the detection layer tolerates
-    by design."""
+    by design.  ``buf`` as in ``sweep``."""
     PASS_COUNTS["fused"] += 1
-    new, parts = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, ord)
+    new, parts = _sweep_impl(st, x, ghosts, b, sweep, ox, oy, tile, ord, buf)
     return new, _reduce(parts, ord)
 
 

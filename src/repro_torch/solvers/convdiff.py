@@ -12,20 +12,29 @@ solved by relaxation.  The Jacobi iteration matrix has spectral radius
 ρ ≈ (6ν/h²)/(1/dt + 6ν/h²) < 1, so ``dt`` controls the contraction rate;
 ``for_contraction`` picks dt for a target ρ.
 
-``ConvDiffProblem`` is the device-facing part of the JAX package's problem
-class: its geometry and seeded rhs, and the batched step of the detection
-lanes (``update_with_residual_batched``, ``lane_x0``, ``lane_operands``).
+``ConvDiffProblem`` is the JAX package's problem class: its geometry and
+seeded rhs, the batched step of the detection lanes
+(``update_with_residual_batched``, ``lane_x0``, ``lane_operands``), and the
+event-level methods the asynchronous engine (``core/async_engine.py``)
+calls, whose blocks live on ``device`` and whose every sweep and residual
+pass is a launch of the jacobi3d kernels there (#2 for the hybrid sweep,
+#1 for Jacobi and for residual-only passes).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.residual import combine_contributions
 from repro_torch.solvers.partition import GridPartition, process_grid
+
+#: the ghost planes' order in the kernel ops, ``(gxm, gxp, gym, gyp)``
+_SIDES = ("x-", "x+", "y-", "y+")
 
 
 @dataclass(frozen=True)
@@ -81,10 +90,72 @@ def make_rhs(n: int, seed: int = 0, kind: str = "smooth") -> np.ndarray:
     return b + 0.05 * rng.standard_normal((n, n, n))
 
 
+class _EventState:
+    """The event-level methods' per-worker device state.
+
+    ``faces[i]`` is worker i's persistent face set: the last face received
+    from each neighbour, by ``_SIDES`` position (None on a domain
+    boundary, where the ghost stays zero).  The fused path assembles its
+    ghosted blocks from it in persistent buffers, so a neighbour whose
+    dependency is missing keeps its last face there, as the JAX package's
+    never re-zeroed ghost buffer does; the unfused path zero-fills a fresh
+    block instead.  ``gbuf[i]`` is the sweep's layout (±2 in x/y for the
+    hybrid kernel, ±1 for Jacobi), ``rbuf[i]`` the ±1 layout of the
+    residual-only pass (the same buffer for Jacobi).
+    """
+
+    def __init__(self, prob: "ConvDiffProblem", device: torch.device):
+        part = prob.part
+        bx, by, bz = part.block
+        self.device = device
+        self.b_global = torch.as_tensor(prob.b_global, dtype=torch.float64,
+                                        device=device).contiguous()
+        self.offsets = [part.offsets(i) for i in range(prob.p)]
+        self.b = [self.b_global[ox:ox + bx, oy:oy + by].contiguous()
+                  for ox, oy in self.offsets]
+        self.neighbors = [part.neighbors(i) for i in range(prob.p)]
+        self.side = [{j: _SIDES.index(part.side(i, j)) for j in nb}
+                     for i, nb in enumerate(self.neighbors)]
+        self.faces: List[List[Optional[torch.Tensor]]] = [[None] * 4 for _ in range(prob.p)]
+
+        def zeros(pad):
+            return torch.zeros((bx + 2 * pad, by + 2 * pad, bz + 2),
+                               dtype=torch.float64, device=device)
+
+        self.rbuf = [zeros(1) for _ in range(prob.p)]
+        self.gbuf = (self.rbuf if prob.sweep == "jacobi"
+                     else [zeros(2) for _ in range(prob.p)])
+        self.gexact: Optional[torch.Tensor] = None   # the (n+2)³ ghosted grid
+
+    def fill(self, i: int, deps: Dict[int, torch.Tensor]) -> Tuple:
+        """Worker i's face set after taking every dependency present."""
+        faces = self.faces[i]
+        for j, s in self.side[i].items():
+            dep = deps.get(j)
+            if dep is not None:
+                faces[s] = dep
+        return tuple(faces)
+
+    def fresh(self, i: int, deps: Dict[int, torch.Tensor]) -> Tuple:
+        """The faces of ``deps`` alone (None where missing: zero-filled)."""
+        faces: List[Optional[torch.Tensor]] = [None] * 4
+        for j, s in self.side[i].items():
+            faces[s] = deps.get(j)
+        return tuple(faces)
+
+
 class ConvDiffProblem:
     """The paper's experiment: an ``n³`` grid over a ``p``-worker process
     grid (validated as the JAX package's), the stencil for a contraction
-    ``rho`` and the rhs of ``seed``."""
+    ``rho`` and the rhs of ``seed``.
+
+    The event-level methods keep their blocks on ``device`` (the card
+    unless the caller asks for another; resolved at their first call, so
+    a lane-only caller never needs one) in f64, and count in ``syncs``
+    every device→host read of a residual they make.  At ord 1 a
+    contribution is Σ|r| and ``exact_residual`` the exact Σ|b − Ax| (the
+    kernels' l1 mode); only ord 1, 2 and ∞ exist.
+    """
 
     def __init__(
         self,
@@ -96,6 +167,7 @@ class ConvDiffProblem:
         ord: float = float("inf"),
         seed: int = 0,
         sweep: str = "hybrid",  # "hybrid" (paper: GS interior) | "jacobi"
+        device: DeviceLike = None,
     ):
         if sweep not in ("jacobi", "hybrid"):
             raise ValueError(f"sweep {sweep!r} not in ('jacobi', 'hybrid')")
@@ -107,6 +179,123 @@ class ConvDiffProblem:
         self.sweep = sweep
         self.st = Stencil.for_contraction(n, nu, a, rho)
         self.b_global = make_rhs(n, seed)
+        self._device = device
+        self._ev: Optional[_EventState] = None
+        self.syncs = 0   # device→host residual reads of the event methods
+
+    # -- event-level methods (core/async_engine.py:DecomposedProblem) ---------
+    def _events(self) -> _EventState:
+        if self._ev is None:
+            self._ev = _EventState(self, resolve_device(self._device))
+        return self._ev
+
+    def _read(self, contrib: torch.Tensor) -> float:
+        self.syncs += 1
+        return float(contrib)
+
+    def neighbors(self, i: int) -> List[int]:
+        return self._events().neighbors[i]
+
+    def init_local(self, i: int) -> torch.Tensor:
+        return torch.zeros(self.part.block, dtype=torch.float64,
+                           device=self._events().device)
+
+    def interface(self, i: int, x_i: torch.Tensor, j: int) -> torch.Tensor:
+        """Face of i facing j, as a fresh contiguous tensor (the reference
+        escapes into deps, in-flight messages and snapshot records)."""
+        s = self._events().side[i][j]
+        face = (x_i[0], x_i[-1], x_i[:, 0], x_i[:, -1])[s]
+        return face.clone(memory_format=torch.contiguous_format)
+
+    def update(self, i: int, x_i: torch.Tensor,
+               deps: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """One sweep against a fresh zero-filled view (missing deps read 0)."""
+        from repro_torch.kernels.jacobi3d import ops
+
+        ev = self._events()
+        ox, oy = ev.offsets[i]
+        return ops.sweep(self.st, x_i, ev.fresh(i, deps), ev.b[i], self.sweep, ox, oy)
+
+    def update_with_residual(self, i: int, x_i: torch.Tensor,
+                             deps: Dict[int, torch.Tensor],
+                             need_residual: bool = True):
+        """Fused sweep + the *input* state's residual contribution, one
+        launch of #2 (hybrid, phase ``ox + oy``) or #1 (Jacobi) on the
+        worker's persistent buffer.  ``r_i`` is None, and nothing is read
+        back, when ``need_residual`` is False."""
+        from repro_torch.kernels.jacobi3d import ops
+
+        ev = self._events()
+        ox, oy = ev.offsets[i]
+        faces = ev.fill(i, deps)
+        if not need_residual:
+            return ops.sweep(self.st, x_i, faces, ev.b[i], self.sweep, ox, oy,
+                             buf=ev.gbuf[i]), None
+        new, contrib = ops.sweep_with_contribution(
+            self.st, x_i, faces, ev.b[i], self.sweep, ox, oy, ord=self.ord,
+            buf=ev.gbuf[i])
+        return new, self._read(contrib)
+
+    def local_residual(self, i: int, x_i: torch.Tensor,
+                       deps: Dict[int, torch.Tensor]) -> float:
+        """Residual contribution against a fresh zero-filled view (#1,
+        residual-only)."""
+        from repro_torch.kernels.jacobi3d import ops
+
+        ev = self._events()
+        g = ops.ghost_pad1(x_i, ev.fresh(i, deps))
+        return self._read(ops.residual_contribution(self.st, g, ev.b[i], ord=self.ord))
+
+    def local_residual_fast(self, i: int, x_i: torch.Tensor,
+                            deps: Dict[int, torch.Tensor]) -> float:
+        """``local_residual`` through the persistent face set and buffer
+        (the fused path's: PFAIT samples it at every reduction slot)."""
+        from repro_torch.kernels.jacobi3d import ops
+
+        ev = self._events()
+        g = ops.ghost_pad1(x_i, ev.fill(i, deps), buf=ev.rbuf[i])
+        return self._read(ops.residual_contribution(self.st, g, ev.b[i], ord=self.ord))
+
+    def exact_residual(self, xs: Sequence[torch.Tensor]) -> float:
+        """r(x̄): #1's residual-only pass over the global ±1 ghosted grid
+        (Dirichlet zeros; the interior overwritten each call), in the
+        problem's norm (l1: Σ|r|, l2: √Σr², l∞: max|r|)."""
+        from repro_torch.kernels.jacobi3d import ops
+
+        ev = self._events()
+        if ev.gexact is None:
+            ev.gexact = torch.zeros((self.n + 2,) * 3, dtype=torch.float64,
+                                    device=ev.device)
+        self._place(ev.gexact[1:-1, 1:-1, 1:-1], xs)
+        contrib = ops.residual_contribution(self.st, ev.gexact, ev.b_global, ord=self.ord)
+        return combine_contributions([self._read(contrib)], self.ord)
+
+    def _place(self, u: torch.Tensor, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        bx, by, _ = self.part.block
+        for i, (ox, oy) in enumerate(self._events().offsets):
+            u[ox:ox + bx, oy:oy + by, :] = xs[i]
+        return u
+
+    def assemble(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global ``n³`` state from the workers' blocks."""
+        return self._place(torch.zeros((self.n,) * 3, dtype=torch.float64,
+                                       device=self._events().device), xs)
+
+    def solve_reference(self, tol: float = 1e-12, max_iter: int = 100_000) -> torch.Tensor:
+        """Sequential Jacobi to high precision (test oracle; plain PyTorch
+        on the problem's device, one host read an iteration)."""
+        from repro_torch.solvers.jacobi import jacobi_sweep
+
+        ev = self._events()
+        g = torch.zeros((self.n + 2,) * 3, dtype=torch.float64, device=ev.device)
+        inner = g[1:-1, 1:-1, 1:-1]
+        for _ in range(max_iter):
+            new = jacobi_sweep(self.st, g, ev.b_global)
+            delta = float((new - inner).abs().max())
+            inner.copy_(new)
+            if delta < tol:
+                break
+        return inner.clone()
 
     def update_with_residual_batched(self, X: torch.Tensor, b=None):
         """One synchronous global sweep of every lane, with the residual

@@ -15,17 +15,25 @@ with a planted model:
 This is the port's own copy of the JAX package's data draw
 (``solvers/mlfixed.py``): the same ``np.random.default_rng(seed)`` calls in
 the same order, so the same seed gives the same ``A``, ``H``, ``c``, ``s``,
-``L`` and ``γ``.  Only the device-facing part is here — the batched step of
-the detection lanes, the exact residual that scores them, and the data and
-objective the data-parallel training runtime (``runtime/train_async.py``)
-reads; the event-level interface (per-worker views and updates) is not.
+``L`` and ``γ``.  Here are the batched step of the detection lanes, the
+exact residual that scores them, the data and objective the data-parallel
+training runtime (``runtime/train_async.py``) reads, and the event-level
+methods the asynchronous engine (``core/async_engine.py``) calls:
+parameter-blocked gradient descent, each worker owning one coordinate
+block and reading every other (an all-to-all dependency graph), its
+blocks and data on ``device``; a step's contribution ``‖−γ·∇_i F‖`` is one
+launch of the diff-norm kernel (#5).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels.residual_norm.residual_norm import diff_norm_partials
+from repro_torch.solvers.pagerank import host_blocks
 
 
 def _sigmoid(z: np.ndarray) -> np.ndarray:
@@ -38,8 +46,33 @@ def _sigmoid(z: np.ndarray) -> np.ndarray:
     return out
 
 
+class _DeviceData:
+    """The event-level methods' copy of the data on the device."""
+
+    def __init__(self, prob: "MLFixedPointProblem", device: torch.device):
+        blk = prob.block
+        rows = [slice(i * blk, (i + 1) * blk) for i in range(prob.p)]
+        self.device = device
+        if prob.task == "lstsq":
+            H = torch.as_tensor(prob.H, device=device)
+            c = torch.as_tensor(prob.c, device=device)
+            self.Hrows = [H[r] for r in rows]
+            self.crows = [c[r] for r in rows]
+        else:
+            self.A = torch.as_tensor(prob.A, device=device)
+            self.s = torch.as_tensor(prob.s, device=device)
+            self.Acols_T = [self.A[:, r].T for r in rows]
+        self.zero = torch.zeros(blk, dtype=torch.float64, device=device)
+
+
 class MLFixedPointProblem:
-    """Gradient descent on a strongly convex ML objective."""
+    """Gradient descent on a strongly convex ML objective.
+
+    The event-level methods keep their blocks on ``device`` (the card
+    unless the caller asks for another; resolved at their first call) in
+    f64, and count in ``syncs`` every device→host read they make.  Their
+    contributions exist for ord 1, 2 and ∞ (the kernel's modes).
+    """
 
     TASKS = ("lstsq", "logistic")
 
@@ -55,6 +88,7 @@ class MLFixedPointProblem:
         noise: float = 0.05,
         ord: float = 2.0,
         seed: int = 0,
+        device: DeviceLike = None,
     ):
         if n % p:
             raise ValueError(f"n={n} not divisible by p={p}")
@@ -106,6 +140,84 @@ class MLFixedPointProblem:
                 f"gamma={gamma:g} outside the contraction range "
                 f"(0, 2/L) = (0, {2.0 / self.L:g})")
         self.gamma = float(gamma)
+        self._device = device
+        self._ev: Optional[_DeviceData] = None
+        self.syncs = 0   # device→host reads of the event methods
+
+    # -- event-level methods (core/async_engine.py:DecomposedProblem) ---------
+    def _events(self) -> _DeviceData:
+        if self._ev is None:
+            self._ev = _DeviceData(self, resolve_device(self._device))
+        return self._ev
+
+    def neighbors(self, i: int) -> List[int]:
+        # all-to-all: every block's gradient couples every other block
+        self._events()   # an event method: the device is resolved here too
+        return [j for j in range(self.p) if j != i]
+
+    def init_local(self, i: int) -> torch.Tensor:
+        # x0 = 0: a worker's view of an undelivered neighbour block is the
+        # init value, so missing deps assemble to the correct async view
+        return torch.zeros(self.block, dtype=torch.float64,
+                           device=self._events().device)
+
+    def interface(self, i: int, x_i: torch.Tensor, j: int) -> torch.Tensor:
+        self._events()
+        return x_i.clone()   # parameter exchange: the whole block escapes
+
+    def _assemble_view(self, i: int, x_i: torch.Tensor,
+                       deps: Dict[int, torch.Tensor]) -> torch.Tensor:
+        blk = self.block
+        x = torch.zeros(self.n, dtype=torch.float64, device=self._events().device)
+        x[i * blk:(i + 1) * blk] = x_i
+        for j, dep in deps.items():
+            if dep is not None and dep.numel():
+                x[j * blk:(j + 1) * blk] = dep
+        return x
+
+    def _grad_block(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """∇_i F at the assembled view ``x``."""
+        ev, blk = self._events(), self.block
+        if self.task == "lstsq":
+            return torch.mv(ev.Hrows[i], x) - ev.crows[i]
+        margin = ev.s * torch.mv(ev.A, x)
+        w = -ev.s * torch.sigmoid(-margin)      # d softplus(−s·z)/dz
+        return torch.mv(ev.Acols_T[i], w) / self.m + self.l2 * x[i * blk:(i + 1) * blk]
+
+    def _contribution(self, step: torch.Tensor) -> float:
+        """Contribution of r = −γ·g from ``step = γ·g``: |r| = |step|,
+        one launch of the diff-norm kernel against zeros, read back."""
+        parts = diff_norm_partials(step, self._events().zero, block=self.block,
+                                   ord=self.ord)
+        self.syncs += 1
+        return float(parts[0])
+
+    def update(self, i: int, x_i: torch.Tensor,
+               deps: Dict[int, torch.Tensor]) -> torch.Tensor:
+        x = self._assemble_view(i, x_i, deps)
+        return x_i - self.gamma * self._grad_block(i, x)
+
+    def update_with_residual(self, i: int, x_i: torch.Tensor,
+                             deps: Dict[int, torch.Tensor],
+                             need_residual: bool = True):
+        """Fused step + residual: the update difference is −γ·∇_i F."""
+        step = self.gamma * self._grad_block(i, self._assemble_view(i, x_i, deps))
+        x_new = x_i - step
+        if not need_residual:
+            return x_new, None
+        return x_new, self._contribution(step)
+
+    def local_residual(self, i: int, x_i: torch.Tensor,
+                       deps: Dict[int, torch.Tensor]) -> float:
+        x = self._assemble_view(i, x_i, deps)
+        return self._contribution(self.gamma * self._grad_block(i, x))
+
+    def split(self, x) -> List[torch.Tensor]:
+        """The workers' blocks of a global vector, as fresh tensors on the
+        problem's device."""
+        x = torch.as_tensor(x, dtype=torch.float64, device=self._events().device)
+        blk = self.block
+        return [x[i * blk:(i + 1) * blk].clone() for i in range(self.p)]
 
     def grad(self, x: np.ndarray) -> np.ndarray:
         """Full gradient ∇F(x) (f64, the oracle path)."""
@@ -125,10 +237,14 @@ class MLFixedPointProblem:
                      + self.l2 * (x @ x) / 2)
 
     def assemble(self, xs: Sequence[np.ndarray]) -> np.ndarray:
-        return np.concatenate(list(xs))
+        """The global vector on the host (numpy) from blocks on any device."""
+        return host_blocks(xs)
 
     def exact_residual(self, xs: Sequence[np.ndarray]) -> float:
-        """σ-reduced norm of the update difference −γ∇F(x̄) (f64)."""
+        """σ-reduced norm of the update difference −γ∇F(x̄) (f64, on the
+        host; blocks on a device cost one read, counted in ``syncs``)."""
+        if xs and isinstance(xs[0], torch.Tensor):
+            self.syncs += 1
         r = -self.gamma * self.grad(self.assemble(xs))
         if np.isinf(self.ord):
             return float(np.max(np.abs(r)))

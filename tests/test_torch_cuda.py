@@ -903,3 +903,99 @@ def test_lm_train_on_card_fires_at_the_replayed_step(card):
             fire = k
             break
     assert out["stop_step"] is not None and out["stop_step"] == fire
+
+
+def _event_problem(family, device, **kw):
+    from repro_torch.solvers.convdiff import ConvDiffProblem
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    if family == "convdiff":
+        return ConvDiffProblem(n=24, p=8, rho=0.9, seed=1, device=device, **kw)
+    if family == "pagerank":
+        return PageRankProblem(n=256, p=4, seed=1, device=device, **kw)
+    return MLFixedPointProblem(n=16, p=4, m_rows=64, seed=1, device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", [("convdiff", dict(sweep="hybrid", ord=INF)),
+                                       ("convdiff", dict(sweep="jacobi", ord=2.0)),
+                                       ("convdiff", dict(sweep="hybrid", ord=1.0)),
+                                       ("pagerank", dict(ord=1.0)), ("pagerank", dict(ord=INF)),
+                                       ("mlfixed", dict(ord=2.0)),
+                                       ("mlfixed", dict(task="logistic", ord=1.0))])
+def test_event_methods_on_card_match_cpu(card, family, kw):
+    """The problems' event methods launch their kernels on the card (#2 or
+    #1 for convdiff, #5 for PageRank and the ML problem) and give the plain
+    path's blocks within 1e-12 and contributions within the f32 bars
+    (1e-6 l∞, 1e-5 l2 / l1); a stale face is kept on both."""
+    cpu, gpu = _event_problem(family, "cpu", **kw), _event_problem(family, card, **kw)
+    rng = np.random.default_rng(3)
+    xs = []
+    for i in range(cpu.p):
+        x0 = cpu.init_local(i)
+        noise = torch.as_tensor(rng.standard_normal((2, *x0.shape)))
+        xs.append(x0 * (1 + noise[0]) + noise[1])
+    rtol = 1e-6 if np.isinf(kw["ord"]) else 1e-5
+    before = {**tk.LAUNCHES, **trk.LAUNCHES}
+    for i in range(cpu.p):
+        for drop in ((), cpu.neighbors(i)[:1]):
+            dc = {k: cpu.interface(k, xs[k], i) for k in cpu.neighbors(i) if k not in drop}
+            dg = {k: gpu.interface(k, xs[k].to(card), i) for k in gpu.neighbors(i)
+                  if k not in drop}
+            xc, xg = xs[i], xs[i].to(card)
+            (nc, rc), (ng, rg) = cpu.update_with_residual(i, xc, dc), \
+                gpu.update_with_residual(i, xg, dg)
+            assert ng.device.type == "cuda"
+            np.testing.assert_allclose(ng.cpu().numpy(), nc.numpy(), rtol=0,
+                                       atol=1e-12 * float(nc.abs().max()))
+            assert rg == pytest.approx(rc, rel=rtol)
+            assert gpu.local_residual(i, xg, dg) == pytest.approx(
+                cpu.local_residual(i, xc, dc), rel=rtol)
+            np.testing.assert_allclose(gpu.update(i, xg, dg).cpu().numpy(),
+                                       cpu.update(i, xc, dc).numpy(), rtol=0,
+                                       atol=1e-12 * float(nc.abs().max()))
+    assert gpu.exact_residual([x.to(card) for x in xs]) == pytest.approx(
+        cpu.exact_residual(xs), rel=rtol)
+    after = {**tk.LAUNCHES, **trk.LAUNCHES}
+    want = {"convdiff": "fused_rbgs_sweep_residual" if kw.get("sweep") == "hybrid"
+            else "fused_sweep_residual"}.get(family, "diff_norm_partials")
+    assert after[want] > before[want]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,proto", [("convdiff", "pfait"), ("convdiff", "nfais2"),
+                                          ("convdiff", "exact_snapshot"),
+                                          ("pagerank", "nfais5"), ("mlfixed", "rdub")])
+def test_event_engine_on_card_matches_cpu(card, family, proto):
+    """An engine run with the blocks on the card is the CPU's run: equal
+    events, counters and times; #2 launches once a hybrid sweep."""
+    import dataclasses
+
+    from repro_torch.core.async_engine import AsyncEngine, stable_platform
+    from repro_torch.core.protocols import PROTOCOLS
+    from repro_torch.core.reliability import TraceRecorder
+
+    eps = {"convdiff": 1e-6, "pagerank": 1e-9, "mlfixed": 1e-6}[family]
+    runs = {}
+    for where in ("cpu", card):
+        prob = _event_problem(family, where)
+        cfg = dataclasses.replace(stable_platform(), seed=0, max_iters=2000,
+                                  fifo=proto == "exact_snapshot")
+        rec = TraceRecorder(residual_stride=25)
+        before = dict(tk.LAUNCHES)
+        eng = AsyncEngine(prob, cfg, PROTOCOLS[proto](eps, ord=prob.ord), recorder=rec)
+        res = eng.run()
+        runs[str(where)] = (res, rec, [x.cpu().numpy() for x in eng.x],
+                            tk.LAUNCHES["fused_rbgs_sweep_residual"]
+                            - before["fused_rbgs_sweep_residual"])
+    (a, ra, xa, _), (b, rb, xb, hyb) = runs["cpu"], runs[str(card)]
+    assert rb.sweep_events() == ra.sweep_events()
+    assert [e for e in rb.events if e[0] != "detect"] == [e for e in ra.events if e[0] != "detect"]
+    for f in ("terminated", "detect_time", "wtime", "k_max", "k_min", "msg_counts",
+              "msg_bytes", "reductions"):
+        assert getattr(b, f) == getattr(a, f), f
+    for u, v in zip(xb, xa):
+        np.testing.assert_allclose(u, v, rtol=0, atol=1e-12 * float(np.abs(v).max()))
+    if family == "convdiff":
+        assert hyb == len(rb.sweep_events())

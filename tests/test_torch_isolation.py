@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and
 ``chip_smoke.py`` loads neither ``jax`` nor any module of ``repro``; entry
 points default to the card and refuse to fall back to the CPU."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -34,7 +35,7 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 69, names
+    assert len(names) >= 76, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
@@ -45,7 +46,9 @@ _PROGRAM = textwrap.dedent("""
     assert "repro_torch.solvers.mlfixed" in names, names
     for name in ("runtime.train_async", "runtime.elastic", "runtime.fault_tolerance",
                  "checkpoint.checkpointer", "optim.adamw", "optim.grad_compression",
-                 "data.pipeline", "launch.train", "models.ssm", "models.moe"):
+                 "data.pipeline", "launch.train", "models.ssm", "models.moe",
+                 "core.async_engine", "core.protocols", "core.scenarios", "core.reliability",
+                 "sim", "sim.replay", "sim.calibrate"):
         assert "repro_torch." + name in names, names
     print("ISOLATED", len(names))
 """)
@@ -139,3 +142,36 @@ def test_train_and_elastic_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ck.restore()
     assert ck.restore(device="cpu")[0][0].device.type == "cpu"
+
+
+def test_event_methods_default_to_cuda(monkeypatch):
+    """The problems' event-level methods put their blocks on the card unless
+    asked for another device, and raise without one; the lane-only methods
+    need no device."""
+    from repro_torch.core import async_engine, protocols
+    from repro_torch.core.trace import EngineTraceObserver
+    from repro_torch.solvers.convdiff import ConvDiffProblem
+    from repro_torch.solvers.mlfixed import MLFixedPointProblem
+    from repro_torch.solvers.pagerank import PageRankProblem
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = (lambda **kw: ConvDiffProblem(n=8, p=4, **kw),
+              lambda **kw: PageRankProblem(n=64, p=4, **kw),
+              lambda **kw: MLFixedPointProblem(n=8, p=4, m_rows=16, **kw))
+    for make in makers:
+        prob = make()
+        assert prob.lane_x0() is not None   # no device needed for the lanes
+        for call in (lambda: prob.init_local(0), lambda: prob.neighbors(0),
+                     lambda: prob.interface(0, torch.zeros(1), 1),
+                     lambda: prob.update_with_residual(0, torch.zeros(1), {})):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            async_engine.AsyncEngine(prob, async_engine.stable_platform(),
+                                     protocols.PFAIT(1e-6, ord=prob.ord))
+        cpu = make(device="cpu")
+        assert cpu.init_local(0).device.type == "cpu"
+        res = async_engine.AsyncEngine(
+            cpu, dataclasses.replace(async_engine.stable_platform(), max_iters=5),
+            protocols.PFAIT(1e-6, ord=cpu.ord), recorder=EngineTraceObserver(cpu.p)).run()
+        assert res.k_max == 5
