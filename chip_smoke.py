@@ -186,9 +186,27 @@ Phases, each of which must pass or the script exits non-zero:
    measured one.  Prints walls, sweeps/s, device→host syncs and launches
    per run, and the PFAIT/NFAIS2 ratios of virtual wtime and k_max.  #1,
    #2 and #5 must launch, #2 once per hybrid sweep of the phase; then
-   phase 10's shape check and ``rank`` table cover this phase too.
+   phase 10's shape check and ``rank`` table cover this phase too;
+17. the model's parallel layout, in a spawned world of two gloo ranks
+   sharing ``cuda:0`` (``make_host_mesh(model_axis=2)``, every collective
+   staged through host memory): (a) qwen2-1.5b at full width, tensor
+   parallel at tp 2, phase 7's prompts (batch 4 × 2048) and 8 decode
+   steps, the gathered logits against the tp = 1 twin (run here first) at
+   ``BF16_MODEL_BAR`` × the JAX bar, #6 28 times a rank at its per-rank
+   shape; (b) its training at tp 2, batch 1 × 4096, 2 steps with the f32
+   reduction of the TP partial sums and 2 with ``tp_reduce_bf16``, from
+   the same seed-0 state: the first loss within rtol 1e-3 of the tp = 1
+   loss, the bf16-reduce loss within 5e-3 of the f32 one, everything
+   finite, no launch of #1–#6; (c) phase 15(d)'s cut llama4-maverick,
+   expert parallel (64 experts a rank, the only ones it draws), batch 2 ×
+   512: at ample capacity nothing drops and the logits hold to phase
+   15(d)'s tp = 1 prefill at the same bar; at capacity factor 1.0 the
+   dropped share, the ``all_to_all`` bytes and ms and the MoE layer's
+   share of the prefill are printed.  Prints prefill ms, decode ms a step,
+   ms a training step, staged bytes and blocked seconds per rank; every
+   #6 shape a rank launched must be in ``FLASH_CASES``.
 
-Phases 4 to 9 and 11 to 16 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 17 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
@@ -205,6 +223,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from collections import Counter
 import statistics
 from typing import NamedTuple
@@ -230,18 +249,23 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "qwen2-1.5b", 4, 2048, 64
 # window, the non-causal case and H = 64, in bf16 and f32; then phase 15's
 # prefill shapes: hymba-1.5b (4·5·5 rows of 64 over 4·5 kv rows, S 4096,
 # window 2048), musicgen-medium (MHA, 4·24 rows of 64, S 2048) and the cut
-# llama4-maverick (2·8·5 rows of 128 over 2·8 kv rows, S 512).  main() fails
-# if a main path launches #6 at a shape not listed here
+# llama4-maverick (2·8·5 rows of 128 over 2·8 kv rows, S 512); then phase
+# 17's per-rank prefill shapes at tp 2: qwen2-1.5b's rank holds 1 of the 2
+# kv slots with its 6 q heads (4·1·6 rows over 4·1 kv rows), the cut
+# llama4's 4 of 8 slots with 5 q heads each (2·4·5 rows over 2·4).  main()
+# fails if a main path launches #6 at a shape not listed here
 SERVE_FLASH = (48, 8, 2048, 128, True, 0, "bf16")
 HYMBA_FLASH = (100, 20, 4096, 64, True, 2048, "bf16")
 MUSICGEN_FLASH = (96, 96, 2048, 64, True, 0, "bf16")
 LLAMA4_FLASH = (80, 16, 512, 128, True, 0, "bf16")
+TP_FLASH = (24, 4, 2048, 128, True, 0, "bf16")
+EP_FLASH = (40, 8, 512, 128, True, 0, "bf16")
 FLASH_CASES = [SERVE_FLASH, (48, 8, 2048, 128, True, 0, "f32"),
                (48, 8, 1000, 128, True, 0, "bf16"), (48, 8, 1000, 128, True, 0, "f32"),
                (48, 8, 2048, 128, True, 256, "bf16"), (48, 8, 1000, 128, False, 0, "bf16"),
                (48, 8, 1000, 128, False, 0, "f32"), (48, 8, 2048, 64, True, 0, "bf16"),
                (48, 8, 1000, 64, True, 256, "f32"),
-               HYMBA_FLASH, MUSICGEN_FLASH, LLAMA4_FLASH]
+               HYMBA_FLASH, MUSICGEN_FLASH, LLAMA4_FLASH, TP_FLASH, EP_FLASH]
 
 # the PageRank path: n = 16384 nodes (a 2 GiB f64 operator), p = 4 row
 # blocks of 4096, ε̃ = 1e-9 in l1, and the heterogeneous knobs of run (b)
@@ -3040,11 +3064,11 @@ SSM_TRAIN_BATCH = 4
 FAMILY_FLASH = {"hymba-1.5b": HYMBA_FLASH, "musicgen-medium": MUSICGEN_FLASH,
                 MOE_ARCH: LLAMA4_FLASH}
 # the main paths' prefill shapes phase 3 times, each with its batch (the
-# SDPA layout [B, N·P, S, H]): phase 7's and phase 15's
+# SDPA layout [B, N·P, S, H]): phase 7's, phase 15's and phase 17's
 FLASH_TIMED = ((SERVE_FLASH, SERVE_BATCH),
                *((case, FAMILY_SERVE[arch][0]) for arch, case in FAMILY_FLASH.items()
                  if arch != MOE_ARCH),
-               (LLAMA4_FLASH, MOE_BATCH))
+               (LLAMA4_FLASH, MOE_BATCH), (TP_FLASH, SERVE_BATCH), (EP_FLASH, MOE_BATCH))
 # (e) every family, reduced and in f32, on the card against the CPU
 FAMILY_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m", "hymba-1.5b",
                 "musicgen-medium", "llava-next-34b")
@@ -3286,6 +3310,8 @@ def _serve_moe(dev, card: str) -> dict:
 
     prefill_ms = events(lambda: prefill(params, prompts))
     moe_ms = events(lambda: _ffn_sublayer(params.layers[1], h, ctx))
+    # phase 17(c)'s tp = 1 twin: the last position's logits of this prefill
+    twin = prefill(params, prompts)[0].float().cpu()
     plan = m.plan.moe
     flops = 2 * MOE_BATCH * MOE_PROMPT * cfg.d_model * plan.d_ff_virtual \
         * plan.virtual_experts * (3 if cfg.gated_mlp else 2)
@@ -3308,7 +3334,8 @@ def _serve_moe(dev, card: str) -> dict:
     _require(out["logits_finite"], f"families {MOE_ARCH}: NaN or inf in the logits")
     del params, h
     torch.cuda.empty_cache()
-    return dict(out=out, used=used, shapes=shapes, moe_ms=moe_ms, prefill_ms=prefill_ms)
+    return dict(out=out, used=used, shapes=shapes, moe_ms=moe_ms, prefill_ms=prefill_ms,
+                twin=twin)
 
 
 def _card_vs_cpu(dev) -> list:
@@ -3772,6 +3799,388 @@ def verify_events(out, used) -> None:
           f"({out['hybrid_sweeps']})")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the model's parallel layout, two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# two ranks on the one H100 over gloo (NCCL refuses two ranks on one
+# device), each tensor a collective moves staged through host memory.
+# (a) qwen2-1.5b at full width on a make_host_mesh(model_axis=2) mesh:
+# phase 7's prompts (batch 4 × 2048), the prefill padded for 8 decode steps
+# fed the same seeded tokens as the tp = 1 twin; (b) one training step's
+# worth at full width with TRAIN_4K's sequence length, batch 1 (the global
+# 256 cut for one card's step time), 2 steps with the f32 reduction and 2
+# with the bf16 one, each from the seed-0 state; (c) phase 15(d)'s cut
+# llama4-maverick (a dense and a MoE layer) at batch 2 × 512, 64 experts a
+# rank: at capacity factor Ev (C = tokens a rank × kr, nothing drops)
+# against phase 15(d)'s tp = 1 prefill, then at factor 1.0
+TP_RANKS = 2
+TP_DECODE = 8
+TP_TRAIN_BATCH, TP_TRAIN_STEPS = 1, 2
+# the first TP training loss against the tp = 1 loss on the same weights and
+# batch, and the bf16-reduce loss against the f32-reduce one (JAX's bar,
+# tests/test_perf_variants.py:63-73)
+TP_LOSS_RTOL, TP_BF16_LOSS_ATOL = 1e-3, 5e-3
+
+
+def _tokens_for_decode(cfg, steps, batch):
+    """The seeded tokens every decode step of (a) feeds, twin and ranks alike."""
+    import numpy as np
+
+    return np.random.default_rng(5).integers(3, cfg.vocab_size, (steps, batch, 1))
+
+
+def _tp_batch(cfg, mesh=None):
+    """(b)'s batch: ``synth_batch`` of step 0 at 1 × 4096 (the rank's rows)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_batches
+
+    shape = ShapeConfig("tp_train", seq_len=4096, global_batch=TP_TRAIN_BATCH, kind="train")
+    data = device_batches(cfg, shape, mesh=mesh, seed=0,
+                          device=None if mesh is not None else "cuda")
+    try:
+        return [next(data)[1] for _ in range(TP_TRAIN_STEPS)]
+    finally:
+        data.close()
+
+
+def tp_twins(dev) -> dict:
+    """The tp = 1 twins of (a) and (b), in this process: qwen2-1.5b at full
+    width from seed 0, the kernel prefill of phase 7's prompts and 8
+    decode steps from its cache (last-position logits, on the host), and
+    the loss of (b)'s first batch."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(SERVE_ARCH)
+    m = Model(cfg, device=dev)
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.as_tensor(make_prompts(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0),
+                              device=dev).long()
+    toks = torch.as_tensor(_tokens_for_decode(cfg, TP_DECODE, SERVE_BATCH), device=dev)
+    logits, cache = m.make_prefill()(params, prompts, max_len=SERVE_PROMPT + TP_DECODE)
+    decode, steps = m.make_decode_step(), []
+    for i in range(TP_DECODE):
+        out, cache = decode(params, cache, toks[i], SERVE_PROMPT + i)
+        steps.append(out.float().cpu())
+    with torch.no_grad():
+        loss = float(m.loss_fn(params, _tp_batch(cfg)[0])[0])
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(prefill=logits.float().cpu(), decode=torch.stack(steps), loss=loss)
+
+
+def _mesh_snapshot(mesh) -> dict:
+    return dict(staged_bytes=mesh.staged_bytes, staged_s=mesh.staged_s, wait_s=mesh.wait_s,
+                moved_bytes=dict(mesh.moved_bytes), moved_s=dict(mesh.moved_s))
+
+
+def _mesh_since(mesh, before) -> dict:
+    now = _mesh_snapshot(mesh)
+    out = {k: now[k] - before[k] for k in ("staged_bytes", "staged_s", "wait_s")}
+    for k in ("moved_bytes", "moved_s"):
+        out[k] = {c: v - before[k].get(c, 0) for c, v in now[k].items()}
+    return out
+
+
+def _rank_counted(mesh, fn):
+    """``fn()`` with the launch counters from 0 just before it and read just
+    after; returns (its result, launches, #6 shapes, the mesh's counters
+    over the call, host seconds)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    before = _mesh_snapshot(mesh)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, _launches(), dict(fk.LAUNCH_SHAPES), _mesh_since(mesh, before), wall
+
+
+def _rank_serve(mesh, dev) -> dict:
+    """(a) on this rank: a warm prefill (uncounted), the counted prefill and
+    8 decode steps; the gathered logits go back to the parent."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(SERVE_ARCH)
+    m = Model(cfg, mesh=mesh)
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.as_tensor(make_prompts(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0),
+                              device=dev).long()
+    toks = torch.as_tensor(_tokens_for_decode(cfg, TP_DECODE, SERVE_BATCH), device=dev)
+    prefill, decode = m.make_prefill(), m.make_decode_step()
+    prefill(params, prompts)
+    max_len = SERVE_PROMPT + TP_DECODE
+    (logits, cache), used, shapes, moved, wall = _rank_counted(
+        mesh, lambda: prefill(params, prompts, max_len=max_len))
+
+    def steps():
+        nonlocal cache
+        outs = []
+        for i in range(TP_DECODE):
+            out, cache = decode(params, cache, toks[i], SERVE_PROMPT + i)
+            outs.append(out.float().cpu())
+        return torch.stack(outs).numpy()
+
+    dec, dused, _, dmoved, dwall = _rank_counted(mesh, steps)
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    del params, cache
+    torch.cuda.empty_cache()
+    # numpy, not tensors: a tensor crosses the result queue by a file
+    # descriptor that dies with the rank
+    return dict(prefill=logits.float().cpu().numpy(), decode=dec, used=used, shapes=shapes,
+                moved=moved, prefill_ms=1e3 * wall, decode_used=dused, decode_moved=dmoved,
+                decode_ms=1e3 * dwall / TP_DECODE, param_bytes=nbytes)
+
+
+def _rank_train(mesh, dev) -> dict:
+    """(b) on this rank: 2 steps from the seed-0 state with the f32
+    reduction of the TP partial sums, then 2 with the bf16 one."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = get_arch(LM_ARCH)
+    batches = _tp_batch(cfg, mesh)
+    out = {}
+    for tag, bf16 in (("f32", False), ("bf16", True)):
+        m = Model(cfg, mesh=mesh, parallel=ParallelConfig(fsdp=False, tp_reduce_bf16=bf16))
+        opt = AdamW(cosine_schedule(3e-3, 1, 200))
+        state = m.init_train_state(torch.Generator(device=dev).manual_seed(0), opt)
+        step_fn, _ = m.make_train_step(opt)
+        rec = []
+        for b in batches:
+            (state, met), used, _, moved, wall = _rank_counted(mesh, lambda: step_fn(state, b))
+            rec.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                            used=used, moved=moved, ms=1e3 * wall))
+        finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+        out[tag] = dict(steps=rec, params_finite=finite)
+        del state, step_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_moe(mesh, dev) -> dict:
+    """(c) on this rank: the cut llama4 with only this rank's 64 experts
+    drawn into memory, a prefill at ample capacity (counted), then one at
+    capacity factor 1.0 with its dropped entries recorded, and the MoE
+    sub-layer's share of a prefill."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import _ffn_sublayer
+
+    cfg = dc.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    ample = Model(cfg, mesh=mesh, capacity_factor=float(cfg.num_experts))
+    t0 = time.perf_counter()
+    params = ample.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompts = _family_prompts(cfg, MOE_BATCH, MOE_PROMPT, dev)
+    prefill = ample.make_prefill()
+
+    def drops():
+        got = [int(sum(int(t) for t in col)) for col in zip(*mesh.moe_drops)]
+        mesh.moe_drops = None
+        return got
+
+    mesh.moe_drops = []
+    (logits, _), used, shapes, moved, wall = _rank_counted(mesh, lambda: prefill(params, prompts))
+    ample_dropped, _ = drops()
+    tight = Model(cfg, mesh=mesh, capacity_factor=1.0)
+    tprefill, ctx = tight.make_prefill(), tight._ctx("prefill")
+    mesh.moe_drops = []
+    (tlogits, _), _, _, tmoved, twall = _rank_counted(mesh, lambda: tprefill(params, prompts))
+    dropped, routed = drops()
+    h = torch.randn((MOE_BATCH, MOE_PROMPT, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        _, _, _, mmoved, mwall = _rank_counted(mesh, lambda: _ffn_sublayer(params.layers[1], h,
+                                                                         ctx))
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, h
+    torch.cuda.empty_cache()
+    return dict(logits=logits.float().cpu().numpy(), tight_logits=tlogits.float().cpu().numpy(),
+                used=used,
+                shapes=shapes, moved=moved, prefill_ms=1e3 * wall, tight_moved=tmoved,
+                tight_ms=1e3 * twall, dropped=dropped, routed=routed, moe_ms=1e3 * mwall,
+                ample_dropped=ample_dropped,
+                moe_moved=mmoved, param_bytes=nbytes, init_s=t_init, peak=peak,
+                capacity=(ample.plan.moe.capacity(MOE_BATCH * MOE_PROMPT // TP_RANKS),
+                          tight.plan.moe.capacity(MOE_BATCH * MOE_PROMPT // TP_RANKS)))
+
+
+def parallel_rank(rank: int, k: int, store) -> dict:
+    """One rank of phase 17's world: (a), (b) and (c) on a
+    ``make_host_mesh(model_axis=2)`` mesh over gloo, on ``cuda:0``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=k)
+    mesh = make_host_mesh(model_axis=k, device=dev)
+    t0 = time.perf_counter()
+    out = dict(serve=_rank_serve(mesh, dev))
+    t1 = time.perf_counter()
+    out["train"] = _rank_train(mesh, dev)
+    t2 = time.perf_counter()
+    out["moe"] = _rank_moe(mesh, dev)
+    out["walls"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    out["mesh"] = (list(mesh.axis_names), list(mesh.shape.values()), list(mesh.coords))
+    return out
+
+
+def run_parallel(dev, moe_twin) -> dict:
+    """Phase 17: the tp = 1 twins of (a) and (b) here (the card's memory
+    freed after), then a spawned gloo world of 2 ranks on the card."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    twins = tp_twins(dev)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store:
+        ranks = spawn_world(parallel_rank, TP_RANKS, store, timeout=900)
+    return dict(twins=twins, moe_twin=moe_twin, ranks=ranks, card=nvidia_smi(),
+                twin_s=t1 - t0, world_s=time.perf_counter() - t1)
+
+
+def _bytes_str(moved) -> str:
+    return ", ".join(f"{k} {v / 1e6:.1f} MB in {1e3 * moved['moved_s'].get(k, 0.0):.1f} ms"
+                     for k, v in sorted(moved["moved_bytes"].items()) if v)
+
+
+def verify_parallel(out) -> dict:
+    """Phase 17's checks and lines; returns the ranks' launches and #6
+    shapes for the script's totals."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    card, twins, ranks = out["card"], out["twins"], out["ranks"]
+    launches, shapes = Counter(), Counter()
+    layers = get_arch(SERVE_ARCH).num_layers
+    for r, rank in enumerate(ranks):
+        _require(list(rank["mesh"][:2]) == [["data", "model"], [1, TP_RANKS]],
+                 f"parallel: rank {r} sits on {rank['mesh']}")
+        sv = rank["serve"]
+        pre = _jax_bar(torch.from_numpy(sv["prefill"]), twins["prefill"])
+        dec = max(_jax_bar(torch.from_numpy(sv["decode"][i]), twins["decode"][i])
+                  for i in range(TP_DECODE))
+        print(f"parallel (a) rank {r}: qwen2-1.5b full width at tp {TP_RANKS} "
+              f"({sv['param_bytes'] / 1e9:.2f} GB of bf16 parameters a rank), batch "
+              f"{SERVE_BATCH}, prompt {SERVE_PROMPT}: prefill {sv['prefill_ms']:.3f} ms, "
+              f"decode {sv['decode_ms']:.3f} ms/step over {TP_DECODE} steps; gathered logits "
+              f"vs the tp = 1 twin at {pre:.3f} (prefill) and {dec:.3f} (worst decode step) "
+              f"of the JAX bar (gate {BF16_MODEL_BAR:g}); prefill staged "
+              f"{sv['moved']['staged_bytes'] / 1e6:.1f} MB in "
+              f"{1e3 * sv['moved']['staged_s']:.1f} ms, blocked {1e3 * sv['moved']['wait_s']:.1f} "
+              f"ms ({_bytes_str(sv['moved'])}); decode staged "
+              f"{sv['decode_moved']['staged_bytes'] / 1e6:.2f} MB, blocked "
+              f"{1e3 * sv['decode_moved']['wait_s']:.1f} ms; launches {json.dumps(sv['used'])}, "
+              f"#6 shapes {sv['shapes']} [{card}]")
+        _require(pre <= BF16_MODEL_BAR and dec <= BF16_MODEL_BAR,
+                 f"parallel (a) rank {r}: TP logits depart from the tp = 1 twin past the bar")
+        _require(sv["used"]["flash_attention_flat"] == layers
+                 and sv["shapes"] == {_flash_key(TP_FLASH): layers},
+                 f"parallel (a) rank {r}: #6 launched {sv['used']['flash_attention_flat']} "
+                 f"times at {sv['shapes']}, want {layers} at {_flash_key(TP_FLASH)}")
+        _require(not any(sv["decode_used"].values()), f"parallel (a) rank {r}: decode "
+                 f"launched {sv['decode_used']}")
+        launches.update(sv["used"])
+        shapes.update(sv["shapes"])
+
+        tr = rank["train"]
+        f32, b16 = tr["f32"]["steps"], tr["bf16"]["steps"]
+        gap = abs(f32[0]["loss"] - twins["loss"]) / abs(twins["loss"])
+        bgap = abs(b16[0]["loss"] - f32[0]["loss"])
+        ar = [s["moved"]["moved_bytes"].get("all_reduce", 0) for s in (f32[0], b16[0])]
+        st = [s["moved"]["staged_bytes"] for s in (f32[0], b16[0])]
+        print(f"parallel (b) rank {r}: qwen2-1.5b training at tp {TP_RANKS}, batch "
+              f"{TP_TRAIN_BATCH} x 4096: f32-reduce losses {[s['loss'] for s in f32]}, grad "
+              f"norms {[round(s['grad_norm'], 4) for s in f32]}, ms/step "
+              f"{[round(s['ms'], 1) for s in f32]}; bf16-reduce losses "
+              f"{[s['loss'] for s in b16]}, ms/step {[round(s['ms'], 1) for s in b16]}; first "
+              f"loss vs the tp = 1 loss {twins['loss']!r}: rtol {gap:.2e} (gate "
+              f"{TP_LOSS_RTOL:g}); bf16 vs f32 reduce {bgap:.2e} (gate {TP_BF16_LOSS_ATOL:g}); "
+              f"all-reduce payload a step {ar[0] / 1e6:.1f} MB (f32 partials) and "
+              f"{ar[1] / 1e6:.1f} MB (bf16), ratio {ar[1] / ar[0]:.3f} (reckoned 0.6: the "
+              f"forward and recomputed down-projection sums halve, the backward sums of the "
+              f"bf16 activation gradients do not); staged {st[0] / 1e6:.1f} and "
+              f"{st[1] / 1e6:.1f} MB, blocked {1e3 * f32[0]['moved']['wait_s']:.1f} and "
+              f"{1e3 * b16[0]['moved']['wait_s']:.1f} ms [{card}]")
+        for tag, steps in (("f32", f32), ("bf16", b16)):
+            _require(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                         for s in steps) and tr[tag]["params_finite"],
+                     f"parallel (b) rank {r}: a non-finite loss, grad norm or parameter")
+            _require(not any(v for s in steps for v in s["used"].values()),
+                     f"parallel (b) rank {r}: the training path launched a kernel")
+        _require(gap <= TP_LOSS_RTOL, f"parallel (b) rank {r}: first loss parts from tp = 1")
+        _require(bgap <= TP_BF16_LOSS_ATOL, f"parallel (b) rank {r}: bf16 reduce parts from f32")
+
+        mo = rank["moe"]
+        mbar = _jax_bar(torch.from_numpy(mo["logits"]), out["moe_twin"])
+        a2a = mo["tight_moved"]["moved_bytes"].get("all_to_all", 0)
+        a2a_ms = 1e3 * mo["tight_moved"]["moved_s"].get("all_to_all", 0.0)
+        print(f"parallel (c) rank {r}: {MOE_ARCH} cut to {MOE_LAYERS} layers at tp {TP_RANKS} "
+              f"({mo['param_bytes'] / 1e9:.2f} GB a rank, drawn in {mo['init_s']:.1f} s; peak "
+              f"{mo['peak'] / 2**30:.2f} GiB), batch {MOE_BATCH}, prompt {MOE_PROMPT}: ample "
+              f"capacity (C {mo['capacity'][0]}) prefill {mo['prefill_ms']:.3f} ms, logits vs "
+              f"the tp = 1 reference at {mbar:.3f} of the JAX bar (gate {BF16_MODEL_BAR:g}), "
+              f"all_to_all {mo['moved']['moved_bytes'].get('all_to_all', 0) / 1e6:.1f} MB; "
+              f"capacity factor 1.0 (C {mo['capacity'][1]}): prefill {mo['tight_ms']:.3f} ms, "
+              f"dropped {mo['dropped']} of {mo['routed']} (token, slot) entries "
+              f"({100 * mo['dropped'] / max(mo['routed'], 1):.2f}%), all_to_all {a2a / 1e6:.2f} "
+              f"MB in {a2a_ms:.1f} ms; the MoE sub-layer {mo['moe_ms']:.3f} ms, "
+              f"{100 * mo['moe_ms'] / mo['tight_ms']:.1f}% of the prefill; launches "
+              f"{json.dumps(mo['used'])}, #6 shapes {mo['shapes']} [{card}]")
+        _require(mbar <= BF16_MODEL_BAR, f"parallel (c) rank {r}: EP logits depart from the "
+                 f"tp = 1 reference past the bar")
+        _require(mo["ample_dropped"] == 0, f"parallel (c) rank {r}: {mo['ample_dropped']} "
+                 f"entries dropped at ample capacity")
+        _require(bool(np.isfinite(mo["tight_logits"]).all()), f"parallel (c) rank {r}: NaN or "
+                 f"inf in the capacity-1.0 logits")
+        _require(mo["used"]["flash_attention_flat"] == MOE_LAYERS
+                 and mo["shapes"] == {_flash_key(EP_FLASH): MOE_LAYERS},
+                 f"parallel (c) rank {r}: #6 launched at {mo['shapes']}")
+        launches.update(mo["used"])
+        shapes.update(mo["shapes"])
+    walls = [round(w, 1) for w in ranks[0]["walls"]]
+    print(f"parallel: phase 17 took {out['twin_s']:.1f} s for the twins and "
+          f"{out['world_s']:.1f} s for the world of {TP_RANKS} (rank 0: (a) {walls[0]} s, (b) "
+          f"{walls[1]} s, (c) {walls[2]} s) [{card}]")
+    return dict(launches=dict(launches), shapes=shapes)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3951,6 +4360,18 @@ def main() -> int:
     shape_launches.update(jk.LAUNCH_SHAPES)
     verify_events(events, used)
     rank_launches(st, dev, shape_launches, times)
+
+    # phase 17, the parallel layout: the twins here, then a world of two
+    # gloo ranks on the card, each setting its counters to 0 just before
+    # each counted run and reading them just after
+    par = verify_parallel(run_parallel(dev, fam[MOE_ARCH]["twin"]))
+    for k in launches:
+        launches[k] += par["launches"].get(k, 0)
+    unheld = sorted(map(str, set(par["shapes"]) - held))
+    _require(not unheld, f"#6 launched on the parallel path at shapes never held against "
+                         f"the plain version: {unheld}")
+    print(f"every #6 shape the parallel path launched ({dict(par['shapes'])}) was held against "
+          f"its plain version in phase 2")
 
     rows = []
     for k, (source, replaces) in KERNELS.items():

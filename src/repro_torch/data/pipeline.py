@@ -8,6 +8,8 @@ background thread (``Prefetcher``) keeps batches ahead of the device;
 ``device_batches`` puts each one on the device from pinned host memory
 with a non-blocking copy, issued on the producer thread, so the host
 never waits for the copy and the step that follows is queued behind it.
+Given a mesh, each rank keeps its block of the global batch's rows over
+the data-parallel axes (JAX's ``device_put`` under ``P(dp)``).
 """
 from __future__ import annotations
 
@@ -103,24 +105,38 @@ class Prefetcher:
         self._thread.join(timeout=2.0)
 
 
-def device_batches(model_cfg: ModelConfig, shape: ShapeConfig, device: DeviceLike = None,
-                   seed: int = 0, start_step: int = 0) -> Prefetcher:
+def device_batches(model_cfg: ModelConfig, shape: ShapeConfig, mesh=None, seed: int = 0,
+                   start_step: int = 0, device: DeviceLike = None) -> Prefetcher:
     """Iterator of (step, batch on ``device``) for a train shape; the
-    device is the card unless the caller asks for another."""
+    device is the mesh's or the card unless the caller asks for another.
+    On a mesh the batch is this rank's rows over the data-parallel axes."""
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     dc = DataConfig(
         seed=seed,
         vocab_size=model_cfg.vocab_size,
         frontend_dim=model_cfg.frontend_dim if model_cfg.frontend else 0,
     )
+    rows = slice(None)
+    if mesh is not None:
+        dp = tuple(a for a in mesh.axis_names if a != "model")
+        k = mesh.size(dp)
+        if shape.global_batch % k:
+            raise ValueError(f"global batch {shape.global_batch} does not split over the "
+                             f"{k} data-parallel ranks of {mesh.shape}")
+        n = shape.global_batch // k
+        rows = slice(mesh.index(dp) * n, (mesh.index(dp) + 1) * n)
 
     def make(step: int):
-        host = synth_batch(dc, step, shape.global_batch, shape.seq_len)
+        host = {k: v[rows] for k, v in
+                synth_batch(dc, step, shape.global_batch, shape.seq_len).items()}
         if dev.type != "cuda":
-            return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in host.items()}
         # the caching host allocator keeps a pinned buffer until the copy
         # that reads it has run
-        return {k: torch.from_numpy(v).pin_memory().to(dev, non_blocking=True)
-                for k, v in host.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+            dev, non_blocking=True) for k, v in host.items()}
 
     return Prefetcher(make, start_step=start_step)

@@ -12,6 +12,9 @@ Adam moments and step, monitor); ``params_to_tree`` and
 ``train_state_tree`` give the port's state back in JAX's tree layout
 (layers stacked ``[L, …]``), the layout ``launch/train.py`` checkpoints,
 so either package restores the other's training checkpoints.
+``shard_params`` carries a JAX tree of global parameters into this rank's
+blocks of a model on a mesh (``Model.param_specs``), and
+``gather_params`` puts the blocks of every rank back together.
 """
 from __future__ import annotations
 
@@ -227,3 +230,42 @@ def train_state_from(state, model: "Model") -> "TrainState":
                       opt=AdamState(step=on_dev(opt_step), m=moments(m), v=moments(v)),
                       monitor=MonitorState(*(on_dev(x) for x in monitor)),
                       step=on_dev(step))
+
+
+def shard_params(tree: Mapping[str, Any], model: "Model", mesh=None) -> "Transformer":
+    """A JAX parameter tree of *global* leaves (numpy arrays or tensors) as
+    this rank's blocks of ``model``'s parameters on ``model.device``, by
+    ``model.param_specs()`` (``mesh``, if given, must be the model's)."""
+    from repro_torch.models.transformer import Transformer
+
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError("shard_params: the mesh is not the model's")
+    blocks = model.param_blocks() or {}
+    params = Transformer(model.plan, model.device, model.param_blocks())
+    named = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, leaf in _named_from_tree(tree, named).items():
+            block = blocks.get(name)
+            named[name].copy_(leaf[block] if block is not None else leaf)
+    return params
+
+
+def gather_params(params, model: "Model") -> Dict[str, Any]:
+    """The inverse of ``shard_params``, for checks: every rank's blocks of
+    ``params`` (a ``Transformer``, or a ``{name: tensor}`` dict of
+    gradients or moments under its names) gathered over the mesh into
+    JAX's tree of global host tensors.  Every rank of the mesh calls it."""
+    from repro_torch.launch.mesh import spec_axes
+    from repro_torch.models.collectives import all_gather
+
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) \
+        else dict(params)
+    specs = model.param_specs() if model.mesh is not None else {}
+    out = {}
+    for name, t in named.items():
+        t = t.detach()
+        for d, axes in enumerate(specs.get(name, ())):
+            if spec_axes(axes):
+                t = all_gather(t.contiguous(), model.mesh, tuple(spec_axes(axes)), dim=d)
+        out[name] = t
+    return params_to_tree(out, model.plan.period)

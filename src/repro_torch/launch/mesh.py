@@ -18,6 +18,16 @@ per process:
 * ``spawn_world`` starts a local world of k ranks (spawned processes that
   meet at a ``FileStore``), runs a job on each and returns their results;
   a rank that raises, dies or hangs ends the world with an error.
+
+The model's meshes (the JAX module's ``make_production_mesh``,
+``make_host_mesh`` and ``dp_axes_of``) are ``ModelMesh``es: a shape over
+named axes (``("data", "model")`` or ``("pod", "data", "model")``), this
+rank's coordinates on it, and one process group per axis (the ranks that
+share every other coordinate).  ``P`` is the port's ``PartitionSpec``: an
+axis name, a tuple of names or None per tensor dimension;
+``spec_slices`` says which block of a global tensor a rank holds under
+it.  ``make_production_mesh`` only describes the 16×16 or 2×16×16 mesh (no
+group, no device), as the JAX function touches no device at import.
 """
 from __future__ import annotations
 
@@ -291,3 +301,202 @@ def spawn_world(job: Callable, k: int, store_dir: str, *, args: tuple = (),
         if os.path.exists(path):
             os.remove(path)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The model's meshes and partition specs
+# ---------------------------------------------------------------------------
+
+
+class P(tuple):
+    """A partition spec: per tensor dimension an axis name, a tuple of axis
+    names (the dimension split over their product, the first major), or
+    None (replicated) — ``jax.sharding.PartitionSpec``'s counterpart.
+    Missing trailing dimensions are replicated.  As JAX's, a tuple of one
+    name is that name and an empty tuple is None."""
+
+    def __new__(cls, *parts):
+        def norm(a):
+            if isinstance(a, (tuple, list)):
+                a = tuple(a)
+                return None if not a else (a[0] if len(a) == 1 else a)
+            return a
+
+        return super().__new__(cls, tuple(norm(a) for a in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def spec_axes(axis) -> Tuple[str, ...]:
+    """The axis names of one spec entry: () for None, (name,) for a name."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+@dataclass(eq=False)
+class ModelMesh:
+    """Ranks laid row-major over named axes.  ``coords`` is this rank's
+    place (None for a mesh that only describes a layout, such as the
+    production meshes); ``groups`` holds one process group per axis, and
+    one for the data-parallel axes together where there are two, each
+    over the ranks that share every other coordinate.  An axis of size 1
+    needs no group.  The counters are ``ShardGroup``'s: ``staged_bytes``
+    moved between the card and the host for gloo, ``staged_s`` the host
+    seconds that took (stream synchronisations included) and ``wait_s``
+    the host seconds blocked in collectives; ``moved_bytes`` / ``moved_s``
+    hold the payload bytes and host seconds of each kind of collective
+    (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``).
+    ``moe_drops``, when a list, collects each MoE dispatch's (dropped,
+    routed) entry counts as device tensors."""
+
+    axis_names: Tuple[str, ...]
+    devices_shape: Tuple[int, ...]
+    coords: Optional[Tuple[int, ...]] = None
+    rank: Optional[int] = None
+    backend: Optional[str] = None
+    device: Optional[torch.device] = None
+    groups: Dict[Tuple[str, ...], Any] = None
+    staged_bytes: int = 0
+    staged_s: float = 0.0
+    wait_s: float = 0.0
+    moved_bytes: Dict[str, int] = None
+    moved_s: Dict[str, float] = None
+    moe_drops: Optional[list] = None
+
+    def __post_init__(self):
+        self.groups = dict(self.groups or {})
+        self.moved_bytes = dict(self.moved_bytes or {})
+        self.moved_s = dict(self.moved_s or {})
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """{axis: size}, in axis order (JAX's ``mesh.shape``)."""
+        return dict(zip(self.axis_names, self.devices_shape))
+
+    def size(self, axis) -> int:
+        """The size of an axis, or the product over a tuple of axes."""
+        shape = self.shape
+        return math.prod(shape[a] for a in spec_axes(axis))
+
+    def index(self, axis) -> int:
+        """This rank's coordinate along an axis (row-major over a tuple)."""
+        if self.coords is None:
+            raise ValueError(f"mesh {self.shape} describes a layout: no rank has a place on it")
+        pos = dict(zip(self.axis_names, self.coords))
+        idx = 0
+        for a in spec_axes(axis):
+            idx = idx * self.shape[a] + pos[a]
+        return idx
+
+    def group(self, axis):
+        """The process group over an axis (or a tuple of axes)."""
+        key = spec_axes(axis)
+        if len(key) > 1 and set(key) == set(self.axis_names):
+            return dist.group.WORLD
+        if key not in self.groups:
+            raise ValueError(f"mesh {self.shape} has no process group over {key}")
+        return self.groups[key]
+
+    def count(self, kind: str, nbytes: int, seconds: float) -> None:
+        self.moved_bytes[kind] = self.moved_bytes.get(kind, 0) + int(nbytes)
+        self.moved_s[kind] = self.moved_s.get(kind, 0.0) + seconds
+
+
+def dp_axes_of(mesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes: every axis but ``model``."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _group_sets(shape: Sequence[int], axes: Sequence[str], over: Tuple[str, ...]):
+    """Rank lists of the groups over the axes ``over``: one per combination
+    of the other axes' coordinates, ranks in row-major order of ``over``."""
+    inner = [i for i, a in enumerate(axes) if a in over]
+    outer = [i for i, a in enumerate(axes) if a not in over]
+    sets = []
+    for oc in np.ndindex(*[shape[i] for i in outer]):
+        ranks = []
+        for ic in np.ndindex(*[shape[i] for i in inner]):
+            c = [0] * len(shape)
+            for i, v in zip(outer, oc):
+                c[i] = v
+            for i, v in zip(inner, ic):
+                c[i] = v
+            ranks.append(int(np.ravel_multi_index(c, shape)))
+        sets.append(ranks)
+    return sets
+
+
+def make_model_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                    device: DeviceLike = None) -> ModelMesh:
+    """A mesh of ``shape`` over ``axes`` on the running world: this rank's
+    coordinates and the groups every axis needs (every rank makes every
+    group, in the same order, as ``torch.distributed.new_group`` wants).
+    Without a process group the mesh only describes the layout, unless it
+    holds one rank (then collectives have nothing to do).  The device is
+    ``cuda:<local rank>`` under NCCL, else ``device`` (default ``cuda``)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            return ModelMesh(axes, shape)
+        return ModelMesh(axes, shape, coords=(0,) * len(shape), rank=0,
+                         device=resolve_device(device))
+    world, me = dist.get_world_size(), dist.get_rank()
+    if world != n:
+        raise ValueError(f"a mesh of {shape} needs {n} ranks; the world has {world}")
+    backend = dist.get_backend()
+    dev = _nccl_device(me, world) if backend == "nccl" else resolve_device(device)
+    groups = {}
+    wanted = [(a,) for a, s in zip(axes, shape) if s > 1]
+    dp = tuple(a for a in axes if a != "model")
+    if len(dp) > 1 and len(dp) < len(axes):
+        wanted.append(dp)
+    for over in wanted:
+        for ranks in _group_sets(shape, axes, over):
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups[over] = g
+    return ModelMesh(axes, shape, coords=mesh_coords(me, shape), rank=me, backend=backend,
+                     device=dev, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ModelMesh:
+    """The 16×16 single-pod (256 chips) or 2×16×16 two-pod (512 chips)
+    layout, as a description: no process group, no device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ModelMesh(axes, shape)
+
+
+def make_host_mesh(model_axis: int = 1, *, device: DeviceLike = None) -> ModelMesh:
+    """A ``(world / model_axis, model_axis)`` mesh over the ranks of the
+    running world (one rank, and no process group, when none is running)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"model_axis={model_axis} does not divide the world of {n} ranks")
+    return make_model_mesh((n // model_axis, model_axis), ("data", "model"), device=device)
+
+
+def spec_slices(spec: Sequence, shape: Sequence[int], mesh: ModelMesh) -> Tuple[slice, ...]:
+    """The block of a global tensor of ``shape`` that this rank holds
+    under ``spec``: each dimension split evenly over its axes' product,
+    this rank's coordinate (row-major over the axes) picking the block."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {tuple(shape)}")
+    out = []
+    for d, n in enumerate(shape):
+        axes = spec_axes(spec[d]) if d < len(spec) else ()
+        k = mesh.size(axes) if axes else 1
+        if n % k:
+            raise ValueError(f"dimension {d} of {tuple(shape)} ({n}) does not split over "
+                             f"{axes} ({k} ranks)")
+        i = mesh.index(axes) if axes else 0
+        out.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(out)

@@ -11,7 +11,11 @@ Also wires the synthetic data (``data/pipeline.py``, pinned host memory,
 non-blocking copies), checkpointing in the JAX package's tree layout with
 restore (``checkpoint/``, ``interop.train_state_tree``) and straggler
 timing (``runtime/fault_tolerance.py``).  Training runs on the card unless
-the caller asks for the CPU.
+the caller asks for the CPU.  Given a mesh (``launch.mesh.ModelMesh``,
+every rank of the world calling ``train``) the model is sharded over it
+and each rank reads its rows of every batch; the weights are replicated
+over ``data`` (dense FSDP is ROADMAP Queue 1 item 16b), which the
+losses do not see, and a sharded state is not checkpointed yet.
 
 Usage (CPU example run — reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
@@ -28,7 +32,7 @@ import torch
 from repro_torch import interop
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import ShapeConfig, reduced as reduced_cfg
+from repro_torch.configs.base import ParallelConfig, ShapeConfig, reduced as reduced_cfg
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import detection
 from repro_torch.data.pipeline import device_batches
@@ -51,15 +55,22 @@ def train(
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 50,
     seed: int = 0,
+    mesh=None,
     log_every: int = 10,
     device: DeviceLike = None,
 ):
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if use_reduced:
         cfg = reduced_cfg(cfg)
     shape = ShapeConfig("custom", seq_len=seq, global_batch=batch, kind="train")
-    model = Model(cfg, device=dev)
+    if mesh is not None and ckpt_dir:
+        raise ValueError("checkpoints of a sharded state are not ported yet "
+                         "(ROADMAP Queue 1 item 16b)")
+    parallel = ParallelConfig(fsdp=False) if mesh is not None else ParallelConfig()
+    model = Model(cfg, mesh=mesh, parallel=parallel, device=dev)
     opt = AdamW(cosine_schedule(3e-3, max(steps // 20, 1), steps))
     # the shared ε̃/margin convention (core/detection.for_mode): PFAIT
     # detects at the *tightened* threshold ε = ε̃ / margin, every other
@@ -83,7 +94,8 @@ def train(
         state = interop.train_state_from(tree, model)
         print(f"[train] restored checkpoint at step {start_step}")
 
-    data = device_batches(cfg, shape, device=dev, seed=seed, start_step=start_step)
+    data = device_batches(cfg, shape, mesh=mesh, seed=seed, start_step=start_step,
+                          device=dev)
     stragglers = StragglerPolicy()
     pending_metrics = None  # the previous step's metrics, still on the device
     losses = []

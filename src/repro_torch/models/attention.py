@@ -4,9 +4,13 @@ sliding windows and KV-cache decode (port of ``models/attention.py``).
 The slot layout is the JAX package's: kv groups padded to ``G2`` and
 replicated ``kv_repl`` times, q heads padded per group and laid out as
 ``[slots, q_per_slot]``, padded q heads neutralised by zero rows of
-``wo``.  The port runs on one device (``tp = 1``, where the layout is the
-plain GQA one), but keeps the plan so that parameters carried across from
-JAX keep their shapes.
+``wo``.  At ``tp = 1`` the layout is the plain GQA one.  On a mesh of
+``model`` width tp each rank holds ``slots / tp`` slots: q, k and v are
+column-parallel (the rank projects its own slots, a replicated kv slot
+included), attention runs on the rank's heads alone (the prefill's flash
+kernel at per-rank shapes), and ``wo`` is row-parallel, its partial
+output summed over ``model`` (``layers.row_parallel``, or the bf16
+``tp_reduce``).  The decode cache holds the rank's slots.
 
 ``attention_fwd`` is the plain blocked online-softmax over KV blocks and
 the plain version of the flash kernel on the model layout
@@ -25,7 +29,8 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.models.layers import apply_rope, ceil_to, normal
+from repro_torch.models.collectives import copy_to
+from repro_torch.models.layers import apply_rope, ceil_to, fill_, normal, row_parallel
 
 NEG_INF = -1e30
 
@@ -117,7 +122,7 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, plan: AttentionPlan, qkv_bias: bool,
                  dtype: torch.dtype, device=None):
         super().__init__()
-        self.plan = plan
+        self.plan, self.d_model = plan, d_model
         S, P, H = plan.slots, plan.q_per_slot, plan.head_dim
 
         def param(*shape):
@@ -137,17 +142,17 @@ class Attention(nn.Module):
         tiled from one draw per group, N(0, 1/(heads·H)) ``wo`` with the
         rows of padded q heads zeroed, zero biases."""
         plan = self.plan
-        D, S, P, H = self.wq.shape
+        D, S, P, H = self.d_model, plan.slots, plan.q_per_slot, plan.head_dim
         s_in = 1.0 / math.sqrt(D)
         s_out = 1.0 / math.sqrt(plan.num_heads * H)
         dt = self.wq.dtype
-        self.wq.copy_(normal((D, S, P, H), s_in, gen, torch.float32).to(dt))
+        fill_(self.wq, normal((D, S, P, H), s_in, gen, torch.float32).to(dt))
         for w in (self.wk, self.wv):
             base = normal((D, plan.groups, H), s_in, gen, torch.float32)
-            w.copy_(torch.repeat_interleave(base, plan.kv_repl, dim=1).to(dt))
+            fill_(w, torch.repeat_interleave(base, plan.kv_repl, dim=1).to(dt))
         wo = normal((S, P, H, D), s_out, gen, torch.float32)
         wo = wo * q_valid_mask(plan, wo.device)[..., None, None]
-        self.wo.copy_(wo.to(dt))
+        fill_(self.wo, wo.to(dt))
         for b in (self.bq, self.bk, self.bv):
             if b is not None:
                 b.zero_()
@@ -351,15 +356,20 @@ def attn_apply(
     cache_len: Optional[int] = None,
     ring: bool = False,
     impl: str = "blocked",   # "blocked" | "pairs" (causal block skipping)
+    mesh=None,               # a ModelMesh: p holds this rank's slots
+    tp_reduce=None,          # explicit bf16 TP reduction for the o-proj
 ):
     """Returns (out [B,S,D], new_kv) where new_kv = (k, v) of this call.
 
     With a cache (decode) the new token's k/v are written into the caches
     in place, at ``min(cache_len, S_max − 1)`` (``cache_len % S_max`` for a
     ring), and attention runs over ``cache_len + 1`` valid entries; the
-    caches themselves are returned.  The JAX ``constrain`` and
-    ``tp_reduce`` hooks have no counterpart on one device.
+    caches themselves are returned.  On a mesh the projections and the
+    cache are this rank's slots and the o-projection's partial output is
+    summed over ``model``; the JAX ``constrain`` hook (a sharding
+    constraint) has no counterpart, the layout being the parameters'.
     """
+    x = copy_to(x, mesh, "model")
     q = torch.einsum("bsd,dnph->bsnph", x, p.wq)
     k = torch.einsum("bsd,dnh->bsnh", x, p.wk)
     v = torch.einsum("bsd,dnh->bsnh", x, p.wv)
@@ -379,7 +389,7 @@ def attn_apply(
         k_cache[:, pos:pos + S] = k.to(k_cache.dtype)
         v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window, ring=ring)
-        return torch.einsum("bsnph,nphd->bsd", out, p.wo), (k_cache, v_cache)
+        return row_parallel("bsnph,nphd->bsd", out, p.wo, mesh), (k_cache, v_cache)
     if use_kernel:
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
@@ -388,4 +398,9 @@ def attn_apply(
         out = attention_fwd_pairs(q, k, v, causal=causal, window=window)
     else:
         out = attention_fwd(q, k, v, causal=causal, window=window, block_kv=block_kv)
-    return torch.einsum("bsnph,nphd->bsd", out, p.wo), (k, v)
+    if tp_reduce is not None:
+        B_, S_ = out.shape[:2]
+        y = tp_reduce(out.reshape(B_, S_, -1), p.wo.reshape(-1, p.wo.shape[-1]))
+    else:
+        y = row_parallel("bsnph,nphd->bsd", out, p.wo, mesh)
+    return y, (k, v)

@@ -5,6 +5,17 @@ RMSNorm and RoPE compute in f32 and cast back, the LM head is f32 on both
 sides.  The initialisers draw from an explicit ``torch.Generator`` with the
 JAX package's distributions and scales (``jax.random`` itself cannot be
 reproduced, so the numbers differ).
+
+On a mesh (``mesh`` given, its ``model`` axis wider than 1) the MLP is
+column- then row-parallel: ``w1`` / ``w3`` hold this rank's d_ff columns,
+``w2`` its d_ff rows, and the partial down-projection is summed over
+``model`` in f32, as GSPMD reduces a dot's partial sums (``tp_reduce``
+sums bf16 partials instead).  The embedding is vocab-parallel: a rank
+looks up the tokens in its rows (clamped, the rest masked to zero) and
+the lookups are summed over ``model``, the lowering GSPMD picks for a
+vocab-sharded table.  A parameter that holds a block of a global tensor
+carries the block's slices as ``local``; ``fill_`` writes a global draw's
+block into it.
 """
 from __future__ import annotations
 
@@ -14,6 +25,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.collectives import copy_to, reduce_from
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -31,6 +44,29 @@ def normal(shape: Tuple[int, ...], std: float, gen: torch.Generator,
     """N(0, std²) drawn in f32 on the generator's device, then cast — the
     JAX initialisers' ``(normal(key, shape) * std).astype(dtype)``."""
     return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+
+def fill_(param: torch.Tensor, value: torch.Tensor) -> None:
+    """Copy a global ``value`` into ``param``, or its block where the
+    parameter holds one (``param.local``, the block's slices)."""
+    block = getattr(param, "local", None)
+    param.copy_(value[block] if block is not None else value)
+
+
+def tp_width(mesh) -> int:
+    """The mesh's ``model`` width (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size("model")
+
+
+def row_parallel(eq: str, h: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """``einsum(eq, h, w)`` over this rank's block of the contracted width,
+    summed over ``model`` in f32 (the dot's accumulation type, as GSPMD
+    reduces it) and cast to the operands' type; the plain einsum without a
+    mesh or at width 1."""
+    if tp_width(mesh) == 1:
+        return torch.einsum(eq, h, w)
+    out_dtype = torch.promote_types(h.dtype, w.dtype)
+    return reduce_from(torch.einsum(eq, h.float(), w.float()), mesh, "model").to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +114,7 @@ class MLP(nn.Module):
 
     def __init__(self, d: int, f: int, gated: bool, dtype: torch.dtype, device=None):
         super().__init__()
+        self.d, self.f = d, f
         self.w1 = nn.Parameter(torch.empty((d, f), dtype=dtype, device=device),
                                requires_grad=False)
         self.w2 = nn.Parameter(torch.empty((f, d), dtype=dtype, device=device),
@@ -88,22 +125,25 @@ class MLP(nn.Module):
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "MLP":
         """The JAX ``mlp_init``: N(0, 1/d) in, N(0, 1/f) out."""
-        d, f = self.w1.shape
+        d, f = self.d, self.f
         s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-        self.w1.copy_(normal((d, f), s_in, gen, self.w1.dtype))
-        self.w2.copy_(normal((f, d), s_out, gen, self.w2.dtype))
+        fill_(self.w1, normal((d, f), s_in, gen, self.w1.dtype))
+        fill_(self.w2, normal((f, d), s_out, gen, self.w2.dtype))
         if self.w3 is not None:
-            self.w3.copy_(normal((d, f), s_in, gen, self.w3.dtype))
+            fill_(self.w3, normal((d, f), s_in, gen, self.w3.dtype))
         return self
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, gated: bool) -> torch.Tensor:
+def mlp_apply(p: MLP, x: torch.Tensor, gated: bool, mesh=None, tp_reduce=None) -> torch.Tensor:
+    x = copy_to(x, mesh, "model")
     h = torch.einsum("...d,df->...f", x, p.w1)
     if gated:
         h = F.silu(h) * torch.einsum("...d,df->...f", x, p.w3)
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return torch.einsum("...f,fd->...d", h, p.w2)
+    if tp_reduce is not None:
+        return tp_reduce(h, p.w2)
+    return row_parallel("...f,fd->...d", h, p.w2, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +155,16 @@ def embed_init(vocab: int, d: int, gen: torch.Generator, dtype: torch.dtype) -> 
     return normal((vocab, d), 0.02, gen, dtype)
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens.long()]
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The rows of ``tokens``; on a mesh ``emb`` is this rank's block of
+    the vocabulary, and the masked lookups are summed over ``model``."""
+    if tp_width(mesh) == 1:
+        return emb[tokens.long()]
+    n = emb.shape[0]
+    ids = tokens.long() - mesh.index("model") * n
+    inside = (ids >= 0) & (ids < n)
+    x = torch.where(inside[..., None], emb[ids.clamp(0, n - 1)], 0.0)
+    return reduce_from(x.to(emb.dtype), mesh, "model")
 
 
 def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -15,14 +15,17 @@ through ``frontend_proj`` [F, D], and the model always has an ``lm_head``.
 In train mode each unit runs under the remat policy of ``LayerCtx.remat``
 (``torch.utils.checkpoint`` where JAX wraps the scan body in
 ``jax.checkpoint``).  Parameters are made with ``requires_grad=False``,
-for serving; ``Model.init_train_state`` switches it on.  On one device the
-MoE layer is ``moe_local_reference``, JAX's dense one-hot path without a
-mesh.
+for serving; ``Model.init_train_state`` switches it on.  Without a mesh
+the MoE layer is ``moe_local_reference``, JAX's dense one-hot path; with
+one (``LayerCtx.mesh``) it is the expert-parallel ``moe.moe_apply``, and
+the attention, MLPs, embedding and head run on this rank's blocks
+(``Transformer(plan, device, blocks)``: each parameter the block of its
+global tensor that ``Model.param_specs`` gives the rank).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,9 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import collectives as col
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttentionPlan, plan_attention
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import MoE, MoEPlan, plan_moe
 from repro_torch.models.ssm import SSM, SSMPlan, plan_ssm
 
@@ -56,10 +61,10 @@ class ModelPlan:
         return self.cfg.num_layers // self.period
 
 
-def make_plan(cfg: ModelConfig, tp: int = 1) -> ModelPlan:
+def make_plan(cfg: ModelConfig, tp: int = 1, capacity_factor: float = 1.0) -> ModelPlan:
     attn = (plan_attention(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, tp)
             if cfg.has_attention else None)
-    moe = plan_moe(cfg, tp) if cfg.is_moe else None
+    moe = plan_moe(cfg, tp, capacity_factor) if cfg.is_moe else None
     ssm = plan_ssm(cfg, tp) if cfg.has_ssm else None
     return ModelPlan(cfg=cfg, tp=tp, attn=attn, moe=moe, ssm=ssm,
                      vocab_padded=L.ceil_to(cfg.vocab_size, max(256, tp)))
@@ -103,10 +108,25 @@ class Transformer(nn.Module):
     [F, D] instead with a frontend), ``lm_head`` [Vpad, D] (absent when
     tied, always there with a frontend), ``final_norm`` [D] and one
     ``Block`` per layer.  ``period`` is the plan's: layer i is entry
-    ``i % period`` of JAX's scan unit ``i // period``."""
+    ``i % period`` of JAX's scan unit ``i // period``.
 
-    def __init__(self, plan: ModelPlan, device=None):
+    ``blocks`` maps a parameter's name to the slices of its global tensor
+    that this rank holds: the parameter is made at the block's shape and
+    keeps the slices as ``local`` (``init_`` draws each global tensor, in
+    the same order at every layout, and keeps the block).  The global
+    layout is laid out on the ``meta`` device first, so no global tensor
+    is ever allocated."""
+
+    def __init__(self, plan: ModelPlan, device=None,
+                 blocks: Optional[Mapping[str, Tuple[slice, ...]]] = None):
         super().__init__()
+        if blocks is not None:
+            self._build(plan, "meta")
+            self._localize(blocks, device)
+            return
+        self._build(plan, device)
+
+    def _build(self, plan: ModelPlan, device) -> None:
         cfg = plan.cfg
         dtype = L.dtype_of(cfg.dtype)
         self.period = plan.period
@@ -123,6 +143,26 @@ class Transformer(nn.Module):
         mask = cfg.moe_layer_mask()
         self.layers = nn.ModuleList(Block(plan, mask[i], dtype, device)
                                     for i in range(cfg.num_layers))
+        self.vocab_padded, self.d_model = plan.vocab_padded, cfg.d_model
+        self.frontend_dim = cfg.frontend_dim
+
+    def _localize(self, blocks: Mapping[str, Tuple[slice, ...]], device) -> None:
+        """Give every parameter storage on ``device``, at its block's shape
+        where ``blocks`` names one; the norms start at one."""
+        for name, p in list(self.named_parameters()):
+            owner_name, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(owner_name) if owner_name else self
+            block = blocks.get(name)
+            shape = p.shape if block is None else tuple(
+                len(range(*s.indices(n))) for s, n in zip(block, p.shape))
+            new = nn.Parameter(torch.empty(shape, dtype=p.dtype, device=device),
+                               requires_grad=False)
+            if block is not None and tuple(shape) != tuple(p.shape):
+                new.local = tuple(block)
+            if leaf in ("ln1", "ln2", "final_norm", "norm"):
+                with torch.no_grad():
+                    new.fill_(1.0)
+            setattr(owner, leaf, new)
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "Transformer":
@@ -130,14 +170,15 @@ class Transformer(nn.Module):
         padded vocab rows too), N(0, 1/F) ``frontend_proj``, ones for the
         norms, and per layer ``attn_init``, ``ssm_init``, ``moe_init`` and
         ``mlp_init``."""
+        V, D = self.vocab_padded, self.d_model
         if self.embed is not None:
-            self.embed.copy_(L.embed_init(*self.embed.shape, gen, self.embed.dtype))
+            L.fill_(self.embed, L.embed_init(V, D, gen, self.embed.dtype))
         if self.frontend_proj is not None:
-            F_, D = self.frontend_proj.shape
-            self.frontend_proj.copy_(L.normal((F_, D), F_ ** -0.5, gen,
-                                              self.frontend_proj.dtype))
+            F_ = self.frontend_dim
+            L.fill_(self.frontend_proj, L.normal((F_, D), F_ ** -0.5, gen,
+                                                 self.frontend_proj.dtype))
         if self.lm_head is not None:
-            self.lm_head.copy_(L.embed_init(*self.lm_head.shape, gen, self.lm_head.dtype))
+            L.fill_(self.lm_head, L.embed_init(V, D, gen, self.lm_head.dtype))
         for blk in self.layers:
             for sub in (blk.attn, blk.ssm, blk.moe, blk.shared, blk.mlp):
                 if sub is not None:
@@ -151,17 +192,20 @@ class Transformer(nn.Module):
 
 
 class LayerCtx(NamedTuple):
-    """Static context of a forward pass.  The JAX fields for meshes,
-    sharding constraints and the TP reduction have no counterpart on one
-    device."""
+    """Static context of a forward pass.  The JAX sharding constraints
+    (``c_act``, ``c_head``, ``c_ffn``) have no counterpart: the layout is
+    the parameters' blocks, and ``mesh`` names the collectives' groups."""
     plan: ModelPlan
     mode: str                     # "train" | "prefill" | "decode"
     window: int
     use_kernel: bool
+    mesh: Any = None              # None on one device
+    dp_axes: Tuple[str, ...] = ()
     block_kv: int = 1024
     ssd_chunk: int = 128
     ring: bool = False            # ring KV cache (long-context decode)
     attn_impl: str = "blocked"    # "blocked" | "pairs" (causal block skip)
+    tp_reduce: Any = None         # explicit bf16 TP reduction (tp_reduce.py)
     remat: str = "block"          # "block" | "save_mixer" | "none" (train mode)
 
 
@@ -174,7 +218,7 @@ def _attn_sublayer(p: Block, h, ctx: LayerCtx, positions, cache, cache_len):
         p.attn, h, ctx.plan.attn, cfg.rope_theta, positions,
         causal=True, window=ctx.window, block_kv=ctx.block_kv,
         use_kernel=ctx.use_kernel, cache=kv_cache, cache_len=cache_len, ring=ctx.ring,
-        impl=ctx.attn_impl,
+        impl=ctx.attn_impl, mesh=ctx.mesh, tp_reduce=ctx.tp_reduce,
     )
     # decode: attn_apply already wrote the new token into the cache
     new_cache = {"k": k_new, "v": v_new} if ctx.mode in ("decode", "prefill") else None
@@ -220,11 +264,15 @@ def _ffn_sublayer(p: Block, x, ctx: LayerCtx):
         return x, aux
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
     if p.moe is not None:
-        y, aux = moe_local_reference(h, p.moe, ctx.plan.moe, cfg.gated_mlp)
+        if ctx.mesh is not None:
+            y, aux = moe_mod.moe_apply(h, p.moe, ctx.plan.moe, cfg.gated_mlp, ctx.mesh,
+                                       dp_axes=ctx.dp_axes)
+        else:
+            y, aux = moe_local_reference(h, p.moe, ctx.plan.moe, cfg.gated_mlp)
         if p.shared is not None:
-            y = y + L.mlp_apply(p.shared, h, cfg.gated_mlp)
+            y = y + L.mlp_apply(p.shared, h, cfg.gated_mlp, ctx.mesh, ctx.tp_reduce)
     else:
-        y = L.mlp_apply(p.mlp, h, cfg.gated_mlp)
+        y = L.mlp_apply(p.mlp, h, cfg.gated_mlp, ctx.mesh, ctx.tp_reduce)
     return x + y, aux
 
 
@@ -318,10 +366,12 @@ def forward(
     None in train mode) and the auxiliary loss summed over the layers."""
     cfg = plan.cfg
     if cfg.frontend is None:
-        x = L.embed_lookup(params.embed, inputs)
+        x = L.embed_lookup(params.embed, inputs, ctx.mesh)
     else:
         x = torch.einsum("bsf,fd->bsd", inputs.to(L.dtype_of(cfg.dtype)),
                          params.frontend_proj)
+        if L.tp_width(ctx.mesh) > 1:   # frontend_proj holds a block of D
+            x = col.gather_split(x, ctx.mesh, "model", dim=-1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if ctx.mode == "decode":

@@ -84,12 +84,15 @@ class AdamW:
         )
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params) -> Tuple[Any, AdamState, torch.Tensor]:
+    def update(self, grads, state: AdamState, params,
+               gnorm: Optional[torch.Tensor] = None) -> Tuple[Any, AdamState, torch.Tensor]:
         """``(updates, AdamState, gnorm)``: the updates in the parameters'
         dtypes, the new moments, and the global norm of ``grads`` before
-        clipping (f32)."""
+        clipping (f32).  A caller whose ``grads`` are one rank's blocks of
+        the global gradients passes the global norm as ``gnorm``."""
         step = state.step + 1
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         lr = self.learning_rate(step)
         b1, b2 = self.b1, self.b2

@@ -109,6 +109,34 @@ class StackedTransport:
         return [blocks[i] for i in self.local]
 
 
+def stage_out(counters, staged: bool, device: torch.device,
+              tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Fresh contiguous wire copies of ``tensors``: on the host where the
+    wire is ``staged`` (gloo with CUDA tensors: the producing stream is
+    synchronised, then each tensor copied), else as they lie.  The staged
+    bytes and host seconds go to ``counters`` (a ``ShardGroup`` or a
+    ``ModelMesh``)."""
+    if not staged or not tensors:
+        return [t.clone(memory_format=torch.contiguous_format) for t in tensors]
+    t0 = time.perf_counter()
+    torch.cuda.current_stream(device).synchronize()
+    host = [t.to("cpu", copy=True).contiguous() for t in tensors]
+    counters.staged_bytes += sum(h.nbytes for h in host)
+    counters.staged_s += time.perf_counter() - t0
+    return host
+
+
+def stage_in(counters, staged: bool, device: torch.device, t: torch.Tensor) -> torch.Tensor:
+    """A received wire tensor on ``device`` (counted as ``stage_out``)."""
+    if not staged:
+        return t
+    t0 = time.perf_counter()
+    out = t.to(device)
+    counters.staged_bytes += t.nbytes
+    counters.staged_s += time.perf_counter() - t0
+    return out
+
+
 class GroupTransport:
     """One shard per rank of the default process group, which a
     ``ShardGroup`` lays out as a shard mesh (its ranks are the world's)."""
@@ -122,27 +150,10 @@ class GroupTransport:
         return dist.ReduceOp.MAX if np.isinf(ord) else dist.ReduceOp.SUM
 
     def _out(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Fresh contiguous wire copies of ``tensors``: on the host under
-        gloo (after the producing stream is synchronised), else as they
-        lie."""
-        if not self._staged or not tensors:
-            return [t.clone(memory_format=torch.contiguous_format) for t in tensors]
-        t0 = time.perf_counter()
-        torch.cuda.current_stream(self.device).synchronize()
-        host = [t.to("cpu", copy=True).contiguous() for t in tensors]
-        self.group.staged_bytes += sum(h.nbytes for h in host)
-        self.group.staged_s += time.perf_counter() - t0
-        return host
+        return stage_out(self.group, self._staged, self.device, tensors)
 
     def _in(self, t: torch.Tensor) -> torch.Tensor:
-        """A received wire tensor on the shard's device."""
-        if not self._staged:
-            return t
-        t0 = time.perf_counter()
-        out = t.to(self.device)
-        self.group.staged_bytes += t.nbytes
-        self.group.staged_s += time.perf_counter() - t0
-        return out
+        return stage_in(self.group, self._staged, self.device, t)
 
     def _wait(self, works: Sequence) -> None:
         t0 = time.perf_counter()

@@ -37,6 +37,9 @@ card take the CPU's rounds and segments, with X within rtol 1e-10.  A
 reduced f32 LM's train steps on the card give the CPU's losses and grad
 norms within rtol 1e-4, launch none of the kernels, and ``train`` on the
 card fires where the detection rule replayed on its loss series fires.
+Tensor parallelism over two gloo ranks sharing the card gives the
+one-device prefill logits of a reduced f32 qwen2 within 1e-5 of the
+largest, #6 launching once a layer in each rank.
 """
 import numpy as np
 import pytest
@@ -999,3 +1002,41 @@ def test_event_engine_on_card_matches_cpu(card, family, proto):
         np.testing.assert_allclose(u, v, rtol=0, atol=1e-12 * float(np.abs(v).max()))
     if family == "convdiff":
         assert hyb == len(rb.sweep_events())
+
+
+def _tp_card_rank(rank, k, store):
+    """A rank of a tp-k gloo world on the card: reduced f32 qwen2's prefill
+    logits and the launches of #6 (rank-local counts)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=k)
+    mesh = make_host_mesh(model_axis=k)
+    m = Model(reduced(treg.get_arch("qwen2-1.5b"), dtype="float32"), mesh=mesh)
+    params = m.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 32)), device="cuda")
+    before = tfk.LAUNCHES["flash_attention_flat"]
+    logits, _ = m.make_prefill()(params, toks)
+    return logits.cpu().numpy(), tfk.LAUNCHES["flash_attention_flat"] - before, mesh.staged_bytes
+
+
+@pytest.mark.cuda
+def test_tp_prefill_world_on_card_matches_one_device(card, tmp_path):
+    """Tensor parallelism over a gloo world of 2 ranks sharing the card (the
+    model's collectives staged through host memory): the gathered prefill
+    logits of a reduced f32 qwen2 equal the one-device prefill of the same
+    draw within 1e-5 of the largest (f32 sums over the ranks in another
+    order), and each rank launches #6 once a layer on its own heads."""
+    from repro_torch.launch.mesh import spawn_world
+
+    ranks = spawn_world(_tp_card_rank, 2, str(tmp_path), timeout=300)
+    cfg = reduced(treg.get_arch("qwen2-1.5b"), dtype="float32")
+    m = Model(cfg, device=card)
+    params = m.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 32)), device=card)
+    want = m.make_prefill()(params, toks)[0].cpu().numpy()
+    for logits, flash, staged in ranks:
+        assert logits.shape == want.shape
+        assert float(np.abs(logits - want).max()) <= 1e-5 * float(np.abs(want).max())
+        assert flash == cfg.num_layers and staged > 0
