@@ -204,9 +204,33 @@ Phases, each of which must pass or the script exits non-zero:
    dropped share, the ``all_to_all`` bytes and ms and the MoE layer's
    share of the prefill are printed.  Prints prefill ms, decode ms a step,
    ms a training step, staged bytes and blocked seconds per rank; every
-   #6 shape a rank launched must be in ``FLASH_CASES``.
+   #6 shape a rank launched must be in ``FLASH_CASES``;
+18. the rest of the parallel layout, the tp = 1 twins first in this
+   process, then a spawned world of two gloo ranks on ``cuda:0``: (a)
+   hymba-1.5b at full width, the SSM mixer and the attention at tp 2,
+   batch 1 × 4096 (past its 2048 window) and 8 decode steps, in bf16 and
+   again on the same weights in f32: the f32 gathered logits within 1e-4
+   of the largest of the f32 twin's, the bf16 ones no further from the f32
+   twin than 1.5 × the bf16 twin's own error (two one-device bf16
+   evaluations of hymba part by more than ``BF16_MODEL_BAR`` × the JAX
+   bar, and the line prints both readings), #6 32 times a rank and dtype
+   at its per-rank shape; (b) mamba2-130m trained at tp 2, batch 1 × 4096,
+   2 steps: the first loss within rtol 1e-3 of the twin's; (c) qwen2-1.5b
+   trained with dense FSDP on a (2, 1) mesh, global batch 2 × 4096, 2
+   steps: the first loss within rtol 1e-3 of the twin's, then a sharded
+   checkpoint (every rank gathers, rank 0 writes JAX's layout) restored
+   into a fresh model and state, whose step 3 must equal the carried
+   step 3 to the bit; (b) and (c) finite and launching none of #1–#6; (d)
+   (a)'s prefill and (c)'s step on a dry rank of the same layout here
+   (``meta``): the payload bytes of each collective kind equal rank 0's
+   live counter, and (c)'s FLOPs a ``FlopCounterMode`` count of rank 0's
+   live step.  Prints ms per prefill, decode step and training step,
+   payload bytes and seconds by collective kind, staged bytes and blocked
+   seconds, each rank's parameter and moment bytes against the fsdp-off
+   reckoning, the peaks, the save and restore walls, and the dry peak
+   estimate beside the measured step peak.
 
-Phases 4 to 9 and 11 to 17 are the main paths.  The kernels' launch counters are
+Phases 4 to 9 and 11 to 18 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
@@ -221,6 +245,7 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -252,20 +277,27 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "qwen2-1.5b", 4, 2048, 64
 # llama4-maverick (2·8·5 rows of 128 over 2·8 kv rows, S 512); then phase
 # 17's per-rank prefill shapes at tp 2: qwen2-1.5b's rank holds 1 of the 2
 # kv slots with its 6 q heads (4·1·6 rows over 4·1 kv rows), the cut
-# llama4's 4 of 8 slots with 5 q heads each (2·4·5 rows over 2·4).  main()
-# fails if a main path launches #6 at a shape not listed here
+# llama4's 4 of 8 slots with 5 q heads each (2·4·5 rows over 2·4); then
+# phase 18's hymba-1.5b rank at tp 2, in bf16 and in f32.  main() fails if
+# a main path launches
+# #6 at a shape not listed here
 SERVE_FLASH = (48, 8, 2048, 128, True, 0, "bf16")
 HYMBA_FLASH = (100, 20, 4096, 64, True, 2048, "bf16")
 MUSICGEN_FLASH = (96, 96, 2048, 64, True, 0, "bf16")
 LLAMA4_FLASH = (80, 16, 512, 128, True, 0, "bf16")
 TP_FLASH = (24, 4, 2048, 128, True, 0, "bf16")
 EP_FLASH = (40, 8, 512, 128, True, 0, "bf16")
+# phase 18's: hymba-1.5b's rank at tp 2 holds 3 of the 6 kv groups (5 padded
+# to 6) with their 5 q heads each, at batch 1 (1·3·5 rows over 1·3 kv rows)
+HYMBA_TP_FLASH = (15, 3, 4096, 64, True, 2048, "bf16")
+HYMBA_TP_FLASH_F32 = HYMBA_TP_FLASH[:-1] + ("f32",)
 FLASH_CASES = [SERVE_FLASH, (48, 8, 2048, 128, True, 0, "f32"),
                (48, 8, 1000, 128, True, 0, "bf16"), (48, 8, 1000, 128, True, 0, "f32"),
                (48, 8, 2048, 128, True, 256, "bf16"), (48, 8, 1000, 128, False, 0, "bf16"),
                (48, 8, 1000, 128, False, 0, "f32"), (48, 8, 2048, 64, True, 0, "bf16"),
                (48, 8, 1000, 64, True, 256, "f32"),
-               HYMBA_FLASH, MUSICGEN_FLASH, LLAMA4_FLASH, TP_FLASH, EP_FLASH]
+               HYMBA_FLASH, MUSICGEN_FLASH, LLAMA4_FLASH, TP_FLASH, EP_FLASH, HYMBA_TP_FLASH,
+               HYMBA_TP_FLASH_F32]
 
 # the PageRank path: n = 16384 nodes (a 2 GiB f64 operator), p = 4 row
 # blocks of 4096, ε̃ = 1e-9 in l1, and the heterogeneous knobs of run (b)
@@ -3064,11 +3096,12 @@ SSM_TRAIN_BATCH = 4
 FAMILY_FLASH = {"hymba-1.5b": HYMBA_FLASH, "musicgen-medium": MUSICGEN_FLASH,
                 MOE_ARCH: LLAMA4_FLASH}
 # the main paths' prefill shapes phase 3 times, each with its batch (the
-# SDPA layout [B, N·P, S, H]): phase 7's, phase 15's and phase 17's
+# SDPA layout [B, N·P, S, H]): phase 7's, phase 15's, phase 17's and 18's
 FLASH_TIMED = ((SERVE_FLASH, SERVE_BATCH),
                *((case, FAMILY_SERVE[arch][0]) for arch, case in FAMILY_FLASH.items()
                  if arch != MOE_ARCH),
-               (LLAMA4_FLASH, MOE_BATCH), (TP_FLASH, SERVE_BATCH), (EP_FLASH, MOE_BATCH))
+               (LLAMA4_FLASH, MOE_BATCH), (TP_FLASH, SERVE_BATCH), (EP_FLASH, MOE_BATCH),
+               (HYMBA_TP_FLASH, 1))
 # (e) every family, reduced and in f32, on the card against the CPU
 FAMILY_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b", "mamba2-130m", "hymba-1.5b",
                 "musicgen-medium", "llava-next-34b")
@@ -4181,6 +4214,515 @@ def verify_parallel(out) -> dict:
     return dict(launches=dict(launches), shapes=shapes)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the layout (the SSM mixer under TP, dense FSDP with
+# sharded checkpoints) and the dry run against the live run
+# ---------------------------------------------------------------------------
+
+# two gloo ranks on the card again.  (a) hymba-1.5b at full width, tp 2, on a
+# make_host_mesh(model_axis=2) mesh: batch 1 × 4096 (phase 15's 4 rows cut to
+# 1, to keep the staged all-reduces near 2.5 GB a rank), past its 2048
+# window, and 8 decode steps; (b) mamba2-130m trained at tp 2, batch 1 ×
+# 4096 (TRAIN_4K's length, its global batch of 256 cut to 1), 2 steps; (c)
+# qwen2-1.5b trained with FSDP on a (2, 1) mesh, global batch 2 × 4096 (one
+# row a rank), 2 steps, a sharded checkpoint, step 3 carried on and step 3
+# from the restore; (d) (a)'s prefill and (c)'s step on a dry rank of the
+# same layout, in this process
+LAYOUT_ARCH, LAYOUT_BATCH, LAYOUT_PROMPT, LAYOUT_DECODE = "hymba-1.5b", 1, 4096, 8
+SSM_TP_ARCH, LAYOUT_SEQ, LAYOUT_STEPS = "mamba2-130m", 4096, 2
+FSDP_MESH, FSDP_BATCH = (2, 1), 2
+# the dry peak estimate against the measured peak of a training step
+PEAK_RATIO = (0.8, 1.25)
+
+
+def _layout_batches(cfg, global_batch, n, mesh=None):
+    """``synth_batch`` of steps 0 … n−1 at ``global_batch`` × 4096 on the
+    card (a mesh's rank: its rows)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import device_batches
+
+    shape = ShapeConfig("layout", seq_len=LAYOUT_SEQ, global_batch=global_batch, kind="train")
+    data = device_batches(cfg, shape, mesh=mesh, seed=0,
+                          device=None if mesh is not None else "cuda")
+    try:
+        return [next(data)[1] for _ in range(n)]
+    finally:
+        data.close()
+
+
+def _layout_opt():
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    return AdamW(cosine_schedule(3e-3, 1, 200))
+
+
+def _serve_twice(m, params, prompts):
+    """(last-position logits of the kernel prefill of ``prompts``, the
+    logits of 8 decode steps after it fed the seeded tokens), on the host."""
+    import torch
+
+    toks = torch.as_tensor(_tokens_for_decode(m.cfg, LAYOUT_DECODE, LAYOUT_BATCH),
+                           device=prompts.device)
+    logits, cache = m.make_prefill()(params, prompts, max_len=LAYOUT_PROMPT + LAYOUT_DECODE)
+    decode, steps = m.make_decode_step(), []
+    for i in range(LAYOUT_DECODE):
+        out, cache = decode(params, cache, toks[i], LAYOUT_PROMPT + i)
+        steps.append(out.float().cpu())
+    return logits.float().cpu(), torch.stack(steps)
+
+
+def layout_twins(dev) -> dict:
+    """The tp = 1 twins of (a), (b) and (c), in this process: (a) hymba-1.5b
+    on the global draw a tp-2 rank keeps its blocks of (seed 0; the kv
+    groups padded 5 → 6, the padded group's q heads all padding, so the
+    twin drops it), its kernel prefill of 1 × 4096 and 8 decode steps in
+    bf16 and on the same weights in f32, and the bf16 prefill with the
+    plain attention (a second one-device bf16 evaluation); (b)
+    mamba2-130m's first loss (24 SSD heads, no padding at tp 2); (c)
+    qwen2-1.5b's first training step on the global batch of 2 rows."""
+    import torch
+
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import Transformer, forward, make_plan
+
+    cfg = get_arch(LAYOUT_ARCH)
+    m = Model(cfg, device=dev)
+    params = m.empty_params()
+    drawn = dict(Transformer(make_plan(cfg, TP_RANKS), dev).init_(
+        torch.Generator(device=dev).manual_seed(0)).named_parameters())
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            p.copy_(drawn[n][tuple(slice(0, k) for k in p.shape)])
+    del drawn
+    prompts = _family_prompts(cfg, LAYOUT_BATCH, LAYOUT_PROMPT, dev).long()
+    twins = {"bf16": _serve_twice(m, params, prompts)}
+    with torch.inference_mode():   # a second bf16 evaluation: the plain attention
+        x, head, _, _ = forward(params, prompts, m.plan,
+                                m._ctx("prefill")._replace(use_kernel=False))
+        twins["plain"] = L.lm_head(x[:, -1:], head).cpu()
+        del x
+    mf = Model(dc.replace(cfg, dtype="float32"), device=dev)
+    twins["f32"] = _serve_twice(mf, params.float(), prompts)
+    del params
+
+    scfg = get_arch(SSM_TP_ARCH)
+    sm = Model(scfg, device=dev)
+    sparams = sm.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        twins["ssm_loss"] = float(sm.loss_fn(sparams, _layout_batches(scfg, 1, 1)[0])[0])
+    del sparams
+
+    qcfg = get_arch(LM_ARCH)
+    qm = Model(qcfg, device=dev)
+    opt = _layout_opt()
+    state = qm.init_train_state(torch.Generator(device=dev).manual_seed(0), opt)
+    _, met = qm.make_train_step(opt)[0](state, _layout_batches(qcfg, FSDP_BATCH, 1)[0])
+    twins["fsdp_loss"], twins["fsdp_gnorm"] = float(met["loss"]), float(met["grad_norm"])
+    del state, met
+    torch.cuda.empty_cache()
+    return twins
+
+
+def _rank_layout_serve(m, params, prompts, dev) -> dict:
+    """One dtype of (a) on this rank: the counted prefill of 1 × 4096 and
+    the 8 decode steps, with their launches and collectives."""
+    import torch
+
+    mesh = m.mesh
+    toks = torch.as_tensor(_tokens_for_decode(m.cfg, LAYOUT_DECODE, LAYOUT_BATCH), device=dev)
+    prefill, decode = m.make_prefill(), m.make_decode_step()
+    max_len = LAYOUT_PROMPT + LAYOUT_DECODE
+    (logits, cache), used, shapes, moved, wall = _rank_counted(
+        mesh, lambda: prefill(params, prompts, max_len=max_len))
+
+    def steps():
+        nonlocal cache
+        outs = []
+        for i in range(LAYOUT_DECODE):
+            out, cache = decode(params, cache, toks[i], LAYOUT_PROMPT + i)
+            outs.append(out.float().cpu())
+        return torch.stack(outs).numpy()
+
+    dec, dused, _, dmoved, dwall = _rank_counted(mesh, steps)
+    del cache
+    return dict(prefill=logits.float().cpu().numpy(), decode=dec, used=used, shapes=shapes,
+                moved=moved, prefill_ms=1e3 * wall, decode_used=dused, decode_moved=dmoved,
+                decode_ms=1e3 * dwall / LAYOUT_DECODE)
+
+
+def _rank_hymba(mesh, dev) -> dict:
+    """(a) on this rank: a short warm prefill (uncounted), then the counted
+    prefill and 8 decode steps in bf16, and again on the same weights in
+    f32."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(LAYOUT_ARCH)
+    m = Model(cfg, mesh=mesh)
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = _family_prompts(cfg, LAYOUT_BATCH, LAYOUT_PROMPT, dev).long()
+    m.make_prefill()(params, prompts[:, :256])
+    out = _rank_layout_serve(m, params, prompts, dev)
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in params.parameters())
+    out["f32"] = _rank_layout_serve(Model(dc.replace(cfg, dtype="float32"), mesh=mesh),
+                             params.float(), prompts, dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ssm_train(mesh, dev) -> dict:
+    """(b) on this rank: mamba2-130m at tp 2, 2 steps from the seed-0 state."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(SSM_TP_ARCH)
+    m = Model(cfg, mesh=mesh)
+    opt = _layout_opt()
+    state = m.init_train_state(torch.Generator(device=dev).manual_seed(0), opt)
+    step_fn, _ = m.make_train_step(opt)
+    rec = []
+    for b in _layout_batches(cfg, 1, LAYOUT_STEPS, mesh):
+        (state, met), used, _, moved, wall = _rank_counted(mesh, lambda: step_fn(state, b))
+        rec.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]), used=used,
+                        moved=moved, ms=1e3 * wall))
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return dict(steps=rec, params_finite=finite)
+
+
+def _state_bytes(state) -> tuple:
+    params = sum(p.numel() * p.element_size() for p in state.params.parameters())
+    moments = sum(t.numel() * t.element_size() for d in (state.opt.m, state.opt.v)
+                  for t in d.values())
+    return params, moments
+
+
+def _rank_fsdp(mesh, dev, ckpt_dir) -> dict:
+    """(c) on this rank: qwen2-1.5b with FSDP over ``data`` (its weights
+    stored as this rank's half), 2 steps (the first under
+    ``FlopCounterMode``, the count (d) holds the dry rank to), a sharded
+    checkpoint (every rank gathers, rank 0 writes), step 3 carried on, then
+    a fresh ``Model`` and state restored from the checkpoint and its step 3,
+    which must equal the carried one to the bit."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import interop
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(LM_ARCH)
+    m = Model(cfg, mesh=mesh)
+    opt = _layout_opt()
+    state = m.init_train_state(torch.Generator(device=dev).manual_seed(0), opt)
+    whole = sum(math.prod(s) for s in m.param_shapes().values()) * 2   # bf16, fsdp off
+    pbytes, mbytes = _state_bytes(state)
+    step_fn, _ = m.make_train_step(opt)
+    batches = _layout_batches(cfg, FSDP_BATCH, 3, mesh)
+    rec, flops = [], None
+    for i, b in enumerate(batches[:LAYOUT_STEPS]):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        fc = FlopCounterMode(display=False) if i == 0 else None
+        with fc if fc is not None else contextlib.nullcontext():
+            (state, met), used, _, moved, wall = _rank_counted(mesh, lambda: step_fn(state, b))
+        if fc is not None:
+            flops = fc.get_total_flops()
+        rec.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]), used=used,
+                        moved=moved, ms=1e3 * wall))
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    writer = mesh.rank == 0
+    t0 = time.perf_counter()
+    tree = interop.train_state_tree(state, m, keep=writer)
+    if writer:
+        ck = Checkpointer(ckpt_dir)
+        ck.save(tree, LAYOUT_STEPS + 1)
+        del tree
+        ck.wait()
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    state, met3 = step_fn(state, batches[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m2 = Model(cfg, mesh=mesh)
+    like = m2.train_state_of(m2.empty_params(), opt)
+    tree, tag = Checkpointer(ckpt_dir).restore(like=interop.train_state_tree(like),
+                                               device="cpu")
+    del like
+    restored = interop.train_state_from(tree, m2)
+    del tree
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    step2, _ = m2.make_train_step(opt)
+    restored, met3b = step2(restored, batches[2])
+    same = dict(
+        loss=float(met3["loss"]) == float(met3b["loss"]),
+        grad_norm=float(met3["grad_norm"]) == float(met3b["grad_norm"]),
+        params=all(torch.equal(a, b) for a, b in zip(state.params.parameters(),
+                                                     restored.params.parameters())),
+        moments=all(torch.equal(state.opt.m[n], restored.opt.m[n])
+                    and torch.equal(state.opt.v[n], restored.opt.v[n]) for n in state.opt.m))
+    gap = max(abs(float(a) - float(b)) / max(abs(float(a)), 1e-30)
+              for a, b in ((met3["loss"], met3b["loss"]),
+                           (met3["grad_norm"], met3b["grad_norm"])))
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, restored, step_fn, step2
+    torch.cuda.empty_cache()
+    return dict(steps=rec, flops=flops, step3=(float(met3["loss"]), float(met3["grad_norm"])),
+                step3_restored=(float(met3b["loss"]), float(met3b["grad_norm"])), same=same,
+                gap=gap, tag=tag, save_s=save_s, restore_s=restore_s, params_finite=finite,
+                param_bytes=pbytes, moment_bytes=mbytes, whole_param_bytes=whole,
+                step_peak=step_peak, peak=peak)
+
+
+def layout_rank(rank: int, k: int, store, ckpt_dir: str) -> dict:
+    """One rank of phase 18's world: (a) and (b) on a
+    ``make_host_mesh(model_axis=2)`` mesh, (c) on a (2, 1) mesh, over gloo
+    on ``cuda:0``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_model_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=k)
+    tp = make_host_mesh(model_axis=k, device=dev)
+    t0 = time.perf_counter()
+    out = dict(serve=_rank_hymba(tp, dev))
+    t1 = time.perf_counter()
+    out["ssm"] = _rank_ssm_train(tp, dev)
+    t2 = time.perf_counter()
+    dp = make_model_mesh(FSDP_MESH, ("data", "model"), device=dev)
+    out["fsdp"] = _rank_fsdp(dp, dev, ckpt_dir)
+    out["walls"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    out["mesh"] = (list(tp.shape.values()), list(dp.shape.values()), list(dp.coords))
+    return out
+
+
+def dry_counts() -> dict:
+    """(d): (a)'s prefill and (c)'s training step on rank 0 of a dry rank
+    of the same layout (``meta``, no process group), counted by
+    ``hlo_analysis.trace_program``: the payload bytes of each collective
+    kind, the FLOPs, and for (c) ``launch/dryrun.py``'s memory reckoning."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import dry_rank, make_model_mesh
+    from repro_torch.models.model import Model
+
+    out = {}
+    mesh = dry_rank(make_model_mesh((1, TP_RANKS), ("data", "model")))
+    m = Model(get_arch(LAYOUT_ARCH), mesh=mesh)
+    prefill = m.make_prefill()
+    prompts = torch.zeros((LAYOUT_BATCH, LAYOUT_PROMPT), dtype=torch.long, device="meta")
+    t0 = time.perf_counter()
+    tr = hlo_analysis.trace_program(
+        lambda p, x: prefill(p, x, max_len=LAYOUT_PROMPT + LAYOUT_DECODE), m.empty_params(),
+        prompts, mesh=mesh)
+    out["serve"] = dict(moved=dict(mesh.moved_bytes), flops=tr.stats.flops,
+                        wire=tr.stats.total_wire_bytes, s=time.perf_counter() - t0)
+
+    mesh = dry_rank(make_model_mesh(FSDP_MESH, ("data", "model")))
+    m = Model(get_arch(LM_ARCH), mesh=mesh)
+    opt = _layout_opt()
+    state = m.train_state_of(m.empty_params(), opt)
+    batch = {k: torch.zeros((FSDP_BATCH // FSDP_MESH[0], LAYOUT_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("inputs", "labels")}
+    t0 = time.perf_counter()
+    tr = hlo_analysis.trace_program(m.make_train_step(opt)[0], state, batch, mesh=mesh)
+    arg, outb, alias = dryrun._nbytes((state, batch)), dryrun._nbytes(tr.out), \
+        dryrun._nbytes(state)
+    out["fsdp"] = dict(moved=dict(mesh.moved_bytes), flops=tr.stats.flops,
+                       wire=tr.stats.total_wire_bytes, temp=tr.temp_bytes,
+                       peak=arg + outb + tr.temp_bytes - alias, s=time.perf_counter() - t0)
+    return out
+
+
+def run_layouts(dev) -> dict:
+    """Phase 18: the tp = 1 twins here, a spawned gloo world of 2 ranks on
+    the card, then (d)'s dry rank here."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    twins = layout_twins(dev)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as store, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        ranks = spawn_world(layout_rank, TP_RANKS, store, args=(ckpt,), timeout=900)
+    t2 = time.perf_counter()
+    dry = dry_counts()
+    return dict(twins=twins, ranks=ranks, dry=dry, card=nvidia_smi(), twin_s=t1 - t0,
+                world_s=t2 - t1, dry_s=time.perf_counter() - t2)
+
+
+def _nonzero(moved: dict) -> dict:
+    return {k: v for k, v in moved.items() if v}
+
+
+def verify_layouts(out) -> dict:
+    """Phase 18's checks and lines; returns the ranks' launches and #6
+    shapes for the script's totals."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
+    card, twins, ranks, dry = out["card"], out["twins"], out["ranks"], out["dry"]
+    launches, shapes = Counter(), Counter()
+    layers = get_arch(LAYOUT_ARCH).num_layers
+    fails = []
+
+    def need(ok, what):   # every line is printed before the phase fails
+        if not ok:
+            fails.append(what)
+
+    (tb_pre, tb_dec), (tf_pre, tf_dec) = twins["bf16"], twins["f32"]
+    drift = _jax_bar(tb_pre, twins["plain"])
+    twin_err = (_maxdiff(tb_pre, tf_pre), _maxdiff(tb_dec, tf_dec))
+    for r, rank in enumerate(ranks):
+        need(list(rank["mesh"][:2]) == [[1, TP_RANKS], list(FSDP_MESH)],
+             f"layouts: rank {r} sits on {rank['mesh']}")
+        sv, sf = rank["serve"], rank["serve"]["f32"]
+        rb_pre, rb_dec = torch.from_numpy(sv["prefill"]), torch.from_numpy(sv["decode"])
+        rf_pre, rf_dec = torch.from_numpy(sf["prefill"]), torch.from_numpy(sf["decode"])
+        pre = _jax_bar(rb_pre, tb_pre)
+        dec = max(_jax_bar(rb_dec[i], tb_dec[i]) for i in range(LAYOUT_DECODE))
+        f32_err = max(_maxdiff(rf_pre, tf_pre) / float(tf_pre.abs().max()),
+                      _maxdiff(rf_dec, tf_dec) / float(tf_dec.abs().max()))
+        tp_err = (_maxdiff(rb_pre, tf_pre), _maxdiff(rb_dec, tf_dec))
+        print(f"layouts (a) rank {r}: {LAYOUT_ARCH} full width at tp {TP_RANKS} ({layers} "
+              f"layers, 25 SSD heads and 3 kv groups a rank, {sv['param_bytes'] / 1e9:.2f} GB "
+              f"of bf16 parameters), batch {LAYOUT_BATCH}, prompt {LAYOUT_PROMPT} (window "
+              f"2048): prefill {sv['prefill_ms']:.3f} ms, decode {sv['decode_ms']:.3f} ms/step "
+              f"over {LAYOUT_DECODE} steps (f32: {sf['prefill_ms']:.3f} / "
+              f"{sf['decode_ms']:.3f} ms); f32 gathered logits vs the f32 tp = 1 twin max|Δ| "
+              f"{f32_err:.2e} of the largest (gate 1e-4); bf16 error vs the f32 twin "
+              f"{tp_err[0]:.4f} (prefill) / {tp_err[1]:.4f} (decode) against the bf16 twin's "
+              f"{twin_err[0]:.4f} / {twin_err[1]:.4f} (gate 1.5x); bf16 vs the bf16 twin at "
+              f"{pre:.3f} (prefill) and {dec:.3f} (worst decode step) of the JAX bar, two "
+              f"one-device bf16 prefills (kernel, plain attention) at {drift:.3f} of it "
+              f"(BF16_MODEL_BAR {BF16_MODEL_BAR:g}); prefill staged "
+              f"{sv['moved']['staged_bytes'] / 1e6:.1f} MB in "
+              f"{1e3 * sv['moved']['staged_s']:.1f} ms, blocked "
+              f"{1e3 * sv['moved']['wait_s']:.1f} ms ({_bytes_str(sv['moved'])}); decode "
+              f"staged {sv['decode_moved']['staged_bytes'] / 1e6:.2f} MB, blocked "
+              f"{1e3 * sv['decode_moved']['wait_s']:.1f} ms ({_bytes_str(sv['decode_moved'])}); "
+              f"launches {json.dumps(sv['used'])} and f32 {json.dumps(sf['used'])}, #6 shapes "
+              f"{sv['shapes']} and {sf['shapes']} [{card}]")
+        need(f32_err <= 1e-4, f"layouts (a) rank {r}: f32 TP logits depart from the f32 twin")
+        need(all(t <= 1.5 * w for t, w in zip(tp_err, twin_err)),
+             f"layouts (a) rank {r}: bf16 TP logits less accurate than the bf16 twin's")
+        for got, case in ((sv, HYMBA_TP_FLASH), (sf, HYMBA_TP_FLASH_F32)):
+            need(got["used"]["flash_attention_flat"] == layers
+                 and got["shapes"] == {_flash_key(case): layers},
+                 f"layouts (a) rank {r}: #6 launched {got['used']['flash_attention_flat']} "
+                 f"times at {got['shapes']}, want {layers} at {_flash_key(case)}")
+            need(not any(v for k, v in got["used"].items() if k != "flash_attention_flat")
+                 and not any(got["decode_used"].values()),
+                 f"layouts (a) rank {r}: stray launches {got['used']} / {got['decode_used']}")
+            launches.update(got["used"])
+            shapes.update(got["shapes"])
+
+        ss = rank["ssm"]["steps"]
+        sgap = abs(ss[0]["loss"] - twins["ssm_loss"]) / abs(twins["ssm_loss"])
+        print(f"layouts (b) rank {r}: {SSM_TP_ARCH} training at tp {TP_RANKS} (12 SSD heads "
+              f"a rank), batch 1 x {LAYOUT_SEQ}: losses {[s['loss'] for s in ss]}, grad norms "
+              f"{[round(s['grad_norm'], 4) for s in ss]}, ms/step "
+              f"{[round(s['ms'], 1) for s in ss]}; first loss vs the tp = 1 loss "
+              f"{twins['ssm_loss']!r}: rtol {sgap:.2e} (gate {TP_LOSS_RTOL:g}); a step staged "
+              f"{ss[1]['moved']['staged_bytes'] / 1e6:.1f} MB, blocked "
+              f"{1e3 * ss[1]['moved']['wait_s']:.1f} ms ({_bytes_str(ss[1]['moved'])}) [{card}]")
+        need(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in ss)
+                 and rank["ssm"]["params_finite"],
+                 f"layouts (b) rank {r}: a non-finite loss, grad norm or parameter")
+        need(not any(v for s in ss for v in s["used"].values()),
+                 f"layouts (b) rank {r}: SSM training launched a kernel")
+        need(sgap <= TP_LOSS_RTOL, f"layouts (b) rank {r}: first loss parts from tp = 1")
+
+        fs = rank["fsdp"]
+        st = fs["steps"]
+        fgap = abs(st[0]["loss"] - twins["fsdp_loss"]) / abs(twins["fsdp_loss"])
+        ggap = abs(st[0]["grad_norm"] - twins["fsdp_gnorm"]) / abs(twins["fsdp_gnorm"])
+        print(f"layouts (c) rank {r}: {LM_ARCH} FSDP training on a {FSDP_MESH} mesh, global "
+              f"batch {FSDP_BATCH} x {LAYOUT_SEQ} (one row a rank): losses "
+              f"{[s['loss'] for s in st]}, grad norms {[round(s['grad_norm'], 4) for s in st]}, "
+              f"ms/step {[round(s['ms'], 1) for s in st]} (step 1 under FlopCounterMode); first "
+              f"loss vs the tp = 1 loss {twins['fsdp_loss']!r}: rtol {fgap:.2e} (gate "
+              f"{TP_LOSS_RTOL:g}), first grad norm gap {ggap:.2e}; a step staged "
+              f"{st[1]['moved']['staged_bytes'] / 1e6:.1f} MB, blocked "
+              f"{1e3 * st[1]['moved']['wait_s']:.1f} ms ({_bytes_str(st[1]['moved'])}); "
+              f"parameters {fs['param_bytes'] / 1e9:.3f} GB and moments "
+              f"{fs['moment_bytes'] / 1e9:.3f} GB a rank against "
+              f"{fs['whole_param_bytes'] / 1e9:.3f} and {2 * fs['whole_param_bytes'] / 1e9:.3f} "
+              f"GB with fsdp off (each moment in its parameter's bf16; ratio "
+              f"{fs['param_bytes'] / fs['whole_param_bytes']:.3f}); max_memory_allocated "
+              f"{fs['peak'] / 2**30:.2f} GiB (step 2 alone {fs['step_peak'] / 2**30:.2f} GiB); "
+              f"checkpoint of step {fs['tag']}: save {fs['save_s']:.1f} s, restore "
+              f"{fs['restore_s']:.1f} s; step 3 carried on {fs['step3']} and from the restore "
+              f"{fs['step3_restored']}, bitwise {fs['same']} [{card}]")
+        need(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in st)
+                 and fs["params_finite"],
+                 f"layouts (c) rank {r}: a non-finite loss, grad norm or parameter")
+        need(not any(v for s in st for v in s["used"].values()),
+                 f"layouts (c) rank {r}: FSDP training launched a kernel")
+        need(fgap <= TP_LOSS_RTOL, f"layouts (c) rank {r}: first loss parts from tp = 1")
+        need(all(fs["same"].values()), f"layouts (c) rank {r}: step 3 from the restored "
+                 f"checkpoint is not step 3 carried on ({fs['same']}, gap {fs['gap']:.2e})")
+        need(st[0]["moved"]["moved_bytes"].get("all_gather", 0) > 0
+                 and st[0]["moved"]["moved_bytes"].get("reduce_scatter", 0) > 0,
+                 f"layouts (c) rank {r}: no FSDP gather / scatter in a step")
+
+    r0 = ranks[0]
+    for tag, live, flops in (("(a) prefill", r0["serve"]["moved"]["moved_bytes"], None),
+                             ("(c) step", r0["fsdp"]["steps"][0]["moved"]["moved_bytes"],
+                              r0["fsdp"]["flops"])):
+        d = dry["serve" if tag.startswith("(a)") else "fsdp"]
+        print(f"layouts (d) {tag}: dry payload by kind {_nonzero(d['moved'])} against rank 0's "
+              f"live {_nonzero(live)}; dry {d['flops'] / 1e12:.4f} TFLOP"
+              + (f" against FlopCounterMode's {flops / 1e12:.4f} on the live step" if flops
+                 else "") + f"; wire {d['wire'] / 2**20:.1f} MiB; dry pass {d['s']:.1f} s")
+        need(_nonzero(d["moved"]) == _nonzero(live),
+                 f"layouts (d) {tag}: dry collective bytes differ from the live ones")
+        need(flops is None or d["flops"] == flops,
+                 f"layouts (d) {tag}: dry FLOPs {d['flops']} != live {flops}")
+    ratio = dry["fsdp"]["peak"] / r0["fsdp"]["step_peak"]
+    print(f"layouts (d): dry peak_estimate_bytes {dry['fsdp']['peak'] / 2**30:.2f} GiB (temp "
+          f"{dry['fsdp']['temp'] / 2**30:.2f}) against (c)'s measured step peak "
+          f"{r0['fsdp']['step_peak'] / 2**30:.2f} GiB: ratio {ratio:.3f} (reckoned "
+          f"{PEAK_RATIO[0]}–{PEAK_RATIO[1]}) [{card}]")
+    walls = [round(w, 1) for w in r0["walls"]]
+    print(f"layouts: phase 18 took {out['twin_s']:.1f} s for the twins, {out['world_s']:.1f} s "
+          f"for the world of {TP_RANKS} (rank 0: (a) {walls[0]} s, (b) {walls[1]} s, (c) "
+          f"{walls[2]} s) and {out['dry_s']:.1f} s for the dry rank [{card}]")
+    _require(not fails, "; ".join(fails))
+    return dict(launches=dict(launches), shapes=shapes)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4371,6 +4913,18 @@ def main() -> int:
     _require(not unheld, f"#6 launched on the parallel path at shapes never held against "
                          f"the plain version: {unheld}")
     print(f"every #6 shape the parallel path launched ({dict(par['shapes'])}) was held against "
+          f"its plain version in phase 2")
+
+    # phase 18, the rest of the layout: the twins here, a world of two gloo
+    # ranks on the card (counters set to 0 just before each counted run and
+    # read just after), then the dry rank here
+    lay = verify_layouts(run_layouts(dev))
+    for k in launches:
+        launches[k] += lay["launches"].get(k, 0)
+    unheld = sorted(map(str, set(lay["shapes"]) - held))
+    _require(not unheld, f"#6 launched on the layout path at shapes never held against "
+                         f"the plain version: {unheld}")
+    print(f"every #6 shape the layout path launched ({dict(lay['shapes'])}) was held against "
           f"its plain version in phase 2")
 
     rows = []

@@ -205,10 +205,9 @@ class ParallelConfig:
     """How a model is laid out on the mesh.
 
     Axes: ``pod`` (optional outer DP), ``data`` (DP/FSDP), ``model`` (TP/EP).
-    The port's ``Model`` reads ``fsdp`` (the specs; weights split over a
-    ``data`` axis wider than 1 raise until ROADMAP Queue 1 item 16b),
-    ``tp_reduce_bf16``, ``remat``, ``attn_impl``, ``monitor_mode`` and
-    ``monitor_staleness``.
+    The port's ``Model`` reads ``fsdp`` (the specs: weights split over
+    ``data`` and gathered before use), ``tp_reduce_bf16``, ``remat``,
+    ``attn_impl``, ``monitor_mode`` and ``monitor_staleness``.
     """
 
     fsdp: bool = True            # shard params over "data" too (ZeRO-3)

@@ -14,12 +14,15 @@ Adam moments and step, monitor); ``params_to_tree`` and
 so either package restores the other's training checkpoints.
 ``shard_params`` carries a JAX tree of global parameters into this rank's
 blocks of a model on a mesh (``Model.param_specs``), and
-``gather_params`` puts the blocks of every rank back together.
+``gather_params`` puts the blocks of every rank back together;
+``train_state_tree(state, model)`` gathers a sharded training state into
+JAX's layout of global leaves (what a checkpoint holds), and
+``train_state_from`` keeps this rank's blocks of one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Dict, Mapping, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -193,16 +196,26 @@ def params_to_tree(params, period: int = 1) -> Dict[str, Any]:
     return tree
 
 
-def train_state_tree(state: "TrainState") -> tuple:
+def train_state_tree(state: "TrainState", model: "Model" = None,
+                     keep: bool = True) -> Optional[tuple]:
     """The port's ``TrainState`` in the JAX ``TrainState``'s tree layout:
     ``(params, (step, m, v), monitor fields, step)``, the parameter and
     moment trees from ``params_to_tree``.  Either package's checkpointer
-    flattens it into the JAX state's leaves, in the same order."""
+    flattens it into the JAX state's leaves, in the same order.  With
+    ``model`` on a mesh the parameters and moments are gathered into their
+    global tensors first (``gather_params``; every rank calls it, and a
+    rank that passes ``keep=False`` takes part in the gathers and gets
+    None)."""
     period = state.params.period
-    return (params_to_tree(state.params),
-            (state.opt.step, params_to_tree(state.opt.m, period),
-             params_to_tree(state.opt.v, period)),
-            tuple(state.monitor), state.step)
+    if model is not None and model.mesh is not None:
+        params, m, v = (gather_params(t, model, keep) for t in
+                        (state.params, state.opt.m, state.opt.v))
+        if not keep:
+            return None
+    else:
+        params, m, v = (params_to_tree(state.params), params_to_tree(state.opt.m, period),
+                        params_to_tree(state.opt.v, period))
+    return (params, (state.opt.step, m, v), tuple(state.monitor), state.step)
 
 
 def train_state_from(state, model: "Model") -> "TrainState":
@@ -210,21 +223,26 @@ def train_state_from(state, model: "Model") -> "TrainState":
     (``train_state_tree``'s, or what a checkpointer restores in it), as the
     port's ``TrainState`` on ``model.device``: the parameters trainable,
     the Adam step and moments (in their own dtypes) keyed by parameter
-    name, and the monitor state."""
+    name, and the monitor state.  On a mesh the leaves are global and this
+    rank keeps its block of each (``shard_params``)."""
     from repro_torch.core.detection import MonitorState
     from repro_torch.models.model import TrainState
     from repro_torch.optim.adamw import AdamState
 
     tree, (opt_step, m, v), monitor, step = state
-    params = params_from(tree, model).requires_grad_(True)
+    sharded = model.mesh is not None
+    params = (shard_params(tree, model) if sharded else params_from(tree, model)
+              ).requires_grad_(True)
     names = [n for n, _ in params.named_parameters()]
+    blocks = model.param_blocks() or {}
     dev = model.device
 
     def on_dev(a) -> torch.Tensor:
         return _as_tensor(a).to(dev)
 
     def moments(t):
-        return {n: leaf.to(dev) for n, leaf in _named_from_tree(t, names).items()}
+        return {n: (leaf[blocks[n]] if n in blocks else leaf).contiguous().to(dev)
+                for n, leaf in _named_from_tree(t, names).items()}
 
     return TrainState(params=params,
                       opt=AdamState(step=on_dev(opt_step), m=moments(m), v=moments(v)),
@@ -236,12 +254,10 @@ def shard_params(tree: Mapping[str, Any], model: "Model", mesh=None) -> "Transfo
     """A JAX parameter tree of *global* leaves (numpy arrays or tensors) as
     this rank's blocks of ``model``'s parameters on ``model.device``, by
     ``model.param_specs()`` (``mesh``, if given, must be the model's)."""
-    from repro_torch.models.transformer import Transformer
-
     if mesh is not None and mesh is not model.mesh:
         raise ValueError("shard_params: the mesh is not the model's")
     blocks = model.param_blocks() or {}
-    params = Transformer(model.plan, model.device, model.param_blocks())
+    params = model.empty_params()
     named = dict(params.named_parameters())
     with torch.no_grad():
         for name, leaf in _named_from_tree(tree, named).items():
@@ -250,11 +266,14 @@ def shard_params(tree: Mapping[str, Any], model: "Model", mesh=None) -> "Transfo
     return params
 
 
-def gather_params(params, model: "Model") -> Dict[str, Any]:
-    """The inverse of ``shard_params``, for checks: every rank's blocks of
-    ``params`` (a ``Transformer``, or a ``{name: tensor}`` dict of
-    gradients or moments under its names) gathered over the mesh into
-    JAX's tree of global host tensors.  Every rank of the mesh calls it."""
+def gather_params(params, model: "Model", keep: bool = True) -> Any:
+    """The inverse of ``shard_params``: every rank's blocks of ``params``
+    (a ``Transformer``, or a ``{name: tensor}`` dict of gradients or
+    moments under its names) gathered over the mesh into JAX's tree of
+    global host tensors.  Every rank of the mesh calls it; each leaf moves
+    to the host as soon as it is whole, so the card holds one gathered
+    leaf at a time.  With ``keep=False`` the rank takes part in the
+    gathers and gets None."""
     from repro_torch.launch.mesh import spec_axes
     from repro_torch.models.collectives import all_gather
 
@@ -267,5 +286,6 @@ def gather_params(params, model: "Model") -> Dict[str, Any]:
         for d, axes in enumerate(specs.get(name, ())):
             if spec_axes(axes):
                 t = all_gather(t.contiguous(), model.mesh, tuple(spec_axes(axes)), dim=d)
-        out[name] = t
-    return params_to_tree(out, model.plan.period)
+        if keep:
+            out[name] = t.to("cpu", copy=True)
+    return params_to_tree(out, model.plan.period) if keep else None

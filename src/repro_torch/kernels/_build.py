@@ -154,3 +154,17 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
         raise ValueError(f"tensors must all be on the CPU or on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     return True
+
+
+#: the running counting modes of ``launch.hlo_analysis``: a dispatch trace
+#: cannot see inside a kernel launched through ctypes, so the wrapper (or,
+#: on ``meta``, the dispatcher) reports the kernel's work here
+WORK_SINKS: List[List[float]] = []
+
+
+def report_work(flops: float, nbytes: float) -> None:
+    """Add a kernel's operations and the bytes it must move to every
+    running counting mode."""
+    for sink in WORK_SINKS:
+        sink[0] += flops
+        sink[1] += nbytes

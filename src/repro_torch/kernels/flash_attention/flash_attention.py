@@ -30,6 +30,27 @@ _SIGNATURES = {f"flash_attention_{s}": (PTR,) * 4 + (INT,) * 7 + (PTR,)
 _build.register_counters(LAUNCHES, LAUNCH_SHAPES)
 
 
+def band(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (q, kv) pairs the kernel computes: every pair without ``causal``,
+    else those with kv ≤ q (both from 0), cut to the ``window`` latest."""
+    if not causal:
+        return Sq * Skv
+    if Sq > Skv:   # rows past the last key: counted one by one
+        return sum(max(0, min(q, Skv - 1) - max(0, q - window + 1 if window else 0) + 1)
+                   for q in range(Sq))
+    cap = min(Skv, window) if window else Skv
+    n = min(Sq, cap)   # rows q < cap see q + 1 pairs, the rest cap
+    return n * (n + 1) // 2 + (Sq - n) * cap
+
+
+def work(BH: int, BN: int, Sq: int, Skv: int, H: int, causal: bool, window: int,
+         itemsize: int):
+    """(operations, bytes) of one launch: 4·H multiply-adds of QKᵀ and PV
+    per pair of the band, q / k / v read once and o written once."""
+    return (4 * H * BH * band(Sq, Skv, causal, window),
+            itemsize * H * (2 * BH * Sq + 2 * BN * Skv))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -68,6 +89,7 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  Skv, H, int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_flat")
+    _build.report_work(*work(BH, BN, Sq, Skv, H, causal, window, q.element_size()))
     LAUNCHES["flash_attention_flat"] += 1
     LAUNCH_SHAPES[BH, BN, Sq, Skv, H, bool(causal), int(window), _SUFFIX[q.dtype]] += 1
     return out

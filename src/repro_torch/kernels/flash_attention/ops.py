@@ -5,19 +5,27 @@
 k/v [B,S,N,H]).  A CPU tensor goes to the blocked plain version
 ``models.attention.attention_fwd``, as the JAX dispatcher does off the
 TPU; a CUDA tensor goes to the kernel (``flash_attention_flat``) or the
-call raises.
+call raises.  A ``meta`` tensor (a dry rank, ``launch/dryrun.py``) is a
+third case that computes no value: the output is an empty tensor of the
+kernel's shape, and the kernel's work (the band's operations under causal
+and window skipping, its bytes) goes to the counting mode
+(``_build.report_work``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_flat
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_flat, work
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     B, S, N, P, H = q.shape
+    if all(t.device.type == "meta" for t in (q, k, v)):
+        _build.report_work(*work(B * N * P, B * N, S, k.shape[1], H, causal, window,
+                                 q.element_size()))
+        return torch.empty_like(q)
     if not _build.on_cuda(q, k, v):
         from repro_torch.models.attention import attention_fwd
 

@@ -27,7 +27,8 @@ share every other coordinate).  ``P`` is the port's ``PartitionSpec``: an
 axis name, a tuple of names or None per tensor dimension;
 ``spec_slices`` says which block of a global tensor a rank holds under
 it.  ``make_production_mesh`` only describes the 16×16 or 2×16×16 mesh (no
-group, no device), as the JAX function touches no device at import.
+group, no device), as the JAX function touches no device at import;
+``dry_rank`` puts one rank on such a layout, on ``meta``.
 """
 from __future__ import annotations
 
@@ -350,9 +351,13 @@ class ModelMesh:
     seconds that took (stream synchronisations included) and ``wait_s``
     the host seconds blocked in collectives; ``moved_bytes`` / ``moved_s``
     hold the payload bytes and host seconds of each kind of collective
-    (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``).
-    ``moe_drops``, when a list, collects each MoE dispatch's (dropped,
-    routed) entry counts as device tensors."""
+    (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``),
+    and ``calls`` the number of calls and payload bytes of each (kind,
+    group size), from which ``launch.hlo_analysis`` reckons result and
+    wire bytes.  ``moe_drops``, when a list, collects each MoE dispatch's
+    (dropped, routed) entry counts as device tensors.  A dry rank
+    (``dry_rank``: backend ``"dry"``, device ``meta``) runs the model's
+    collectives with no process group, counting what they would move."""
 
     axis_names: Tuple[str, ...]
     devices_shape: Tuple[int, ...]
@@ -366,12 +371,14 @@ class ModelMesh:
     wait_s: float = 0.0
     moved_bytes: Dict[str, int] = None
     moved_s: Dict[str, float] = None
+    calls: Dict[Tuple[str, int], Tuple[int, int]] = None
     moe_drops: Optional[list] = None
 
     def __post_init__(self):
         self.groups = dict(self.groups or {})
         self.moved_bytes = dict(self.moved_bytes or {})
         self.moved_s = dict(self.moved_s or {})
+        self.calls = dict(self.calls or {})
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -402,9 +409,13 @@ class ModelMesh:
             raise ValueError(f"mesh {self.shape} has no process group over {key}")
         return self.groups[key]
 
-    def count(self, kind: str, nbytes: int, seconds: float) -> None:
+    def count(self, kind: str, nbytes: int, seconds: float, group_size: int) -> None:
+        """One collective of ``kind`` over ``group_size`` ranks whose input
+        (this rank's payload) holds ``nbytes``."""
         self.moved_bytes[kind] = self.moved_bytes.get(kind, 0) + int(nbytes)
         self.moved_s[kind] = self.moved_s.get(kind, 0.0) + seconds
+        n, b = self.calls.get((kind, group_size), (0, 0))
+        self.calls[kind, group_size] = (n + 1, b + int(nbytes))
 
 
 def dp_axes_of(mesh) -> Tuple[str, ...]:
@@ -473,6 +484,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> ModelMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return ModelMesh(axes, shape)
+
+
+def dry_rank(mesh: ModelMesh, coords: Optional[Sequence[int]] = None) -> ModelMesh:
+    """A copy of ``mesh``'s layout (such as ``make_production_mesh()``) seen
+    from one rank (``coords``, default rank 0's) that computes no value:
+    device ``meta``, backend ``"dry"``, no process group.  A ``Model`` on it
+    builds and runs this rank's program on ``meta`` tensors, and every
+    collective counts its payload (``launch/dryrun.py``)."""
+    coords = tuple(int(c) for c in (coords if coords is not None
+                                    else (0,) * len(mesh.devices_shape)))
+    if len(coords) != len(mesh.devices_shape) or any(
+            not 0 <= c < n for c, n in zip(coords, mesh.devices_shape)):
+        raise ValueError(f"coordinates {coords} are not on the mesh {mesh.shape}")
+    rank = int(np.ravel_multi_index(coords, mesh.devices_shape))
+    return ModelMesh(mesh.axis_names, mesh.devices_shape, coords=coords, rank=rank,
+                     backend="dry", device=torch.device("meta"))
 
 
 def make_host_mesh(model_axis: int = 1, *, device: DeviceLike = None) -> ModelMesh:

@@ -13,9 +13,11 @@ restore (``checkpoint/``, ``interop.train_state_tree``) and straggler
 timing (``runtime/fault_tolerance.py``).  Training runs on the card unless
 the caller asks for the CPU.  Given a mesh (``launch.mesh.ModelMesh``,
 every rank of the world calling ``train``) the model is sharded over it
-and each rank reads its rows of every batch; the weights are replicated
-over ``data`` (dense FSDP is ROADMAP Queue 1 item 16b), which the
-losses do not see, and a sharded state is not checkpointed yet.
+with the default ``ParallelConfig()`` (dense FSDP over ``data``, as JAX's
+``train`` runs) and each rank reads its rows of every batch.  A
+checkpoint of a sharded state holds the global leaves, as JAX's does:
+every rank gathers them and rank 0 writes; on restore every rank reads
+the files and keeps its blocks.
 
 Usage (CPU example run — reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
@@ -32,7 +34,7 @@ import torch
 from repro_torch import interop
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import ParallelConfig, ShapeConfig, reduced as reduced_cfg
+from repro_torch.configs.base import ShapeConfig, reduced as reduced_cfg
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import detection
 from repro_torch.data.pipeline import device_batches
@@ -66,11 +68,8 @@ def train(
     if use_reduced:
         cfg = reduced_cfg(cfg)
     shape = ShapeConfig("custom", seq_len=seq, global_batch=batch, kind="train")
-    if mesh is not None and ckpt_dir:
-        raise ValueError("checkpoints of a sharded state are not ported yet "
-                         "(ROADMAP Queue 1 item 16b)")
-    parallel = ParallelConfig(fsdp=False) if mesh is not None else ParallelConfig()
-    model = Model(cfg, mesh=mesh, parallel=parallel, device=dev)
+    model = Model(cfg, mesh=mesh, device=dev)
+    writer = mesh is None or mesh.rank == 0   # the rank that writes checkpoints
     opt = AdamW(cosine_schedule(3e-3, max(steps // 20, 1), steps))
     # the shared ε̃/margin convention (core/detection.for_mode): PFAIT
     # detects at the *tightened* threshold ε = ε̃ / margin, every other
@@ -90,7 +89,9 @@ def train(
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = model.init_train_state(gen, opt, monitor=monitor)
     if ckpt and ckpt.latest_step() is not None:
-        tree, start_step = ckpt.restore(like=interop.train_state_tree(state), device=dev)
+        # the global leaves go to the host on a mesh: each rank keeps its blocks
+        tree, start_step = ckpt.restore(like=interop.train_state_tree(state),
+                                        device="cpu" if mesh is not None else dev)
         state = interop.train_state_from(tree, model)
         print(f"[train] restored checkpoint at step {start_step}")
 
@@ -129,10 +130,12 @@ def train(
             pending_metrics = (step, metrics, ts)
             if ckpt and step > 0 and step % ckpt_every == 0:
                 # tag = next data step: resume replays nothing, skips nothing
-                ckpt.save(interop.train_state_tree(state), step + 1)
+                tree = interop.train_state_tree(state, model, keep=writer)
+                if writer:
+                    ckpt.save(tree, step + 1)
     finally:
         data.close()
-        if ckpt:
+        if ckpt and writer:
             ckpt.wait()
     wall = time.time() - t0
     return {

@@ -10,7 +10,9 @@ column-parallel (the rank projects its own slots, a replicated kv slot
 included), attention runs on the rank's heads alone (the prefill's flash
 kernel at per-rank shapes), and ``wo`` is row-parallel, its partial
 output summed over ``model`` (``layers.row_parallel``, or the bf16
-``tp_reduce``).  The decode cache holds the rank's slots.
+``tp_reduce``).  The decode cache holds the rank's slots.  Under dense
+FSDP the projections are all-gathered over ``data`` just before use
+(``layers.whole``).
 
 ``attention_fwd`` is the plain blocked online-softmax over KV blocks and
 the plain version of the flash kernel on the model layout
@@ -30,7 +32,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.collectives import copy_to
-from repro_torch.models.layers import apply_rope, ceil_to, fill_, normal, row_parallel
+from repro_torch.models.layers import apply_rope, ceil_to, fill_, normal, row_parallel, \
+    whole
 
 NEG_INF = -1e30
 
@@ -370,9 +373,10 @@ def attn_apply(
     constraint) has no counterpart, the layout being the parameters'.
     """
     x = copy_to(x, mesh, "model")
-    q = torch.einsum("bsd,dnph->bsnph", x, p.wq)
-    k = torch.einsum("bsd,dnh->bsnh", x, p.wk)
-    v = torch.einsum("bsd,dnh->bsnh", x, p.wv)
+    q = torch.einsum("bsd,dnph->bsnph", x, whole(p.wq, mesh))
+    k = torch.einsum("bsd,dnh->bsnh", x, whole(p.wk, mesh))
+    v = torch.einsum("bsd,dnh->bsnh", x, whole(p.wv, mesh))
+    wo = whole(p.wo, mesh)
     if p.bq is not None:
         q = q + p.bq
         k = k + p.bk
@@ -389,7 +393,7 @@ def attn_apply(
         k_cache[:, pos:pos + S] = k.to(k_cache.dtype)
         v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window, ring=ring)
-        return row_parallel("bsnph,nphd->bsd", out, p.wo, mesh), (k_cache, v_cache)
+        return row_parallel("bsnph,nphd->bsd", out, wo, mesh), (k_cache, v_cache)
     if use_kernel:
         from repro_torch.kernels.flash_attention import ops as flash_ops
 
@@ -400,7 +404,7 @@ def attn_apply(
         out = attention_fwd(q, k, v, causal=causal, window=window, block_kv=block_kv)
     if tp_reduce is not None:
         B_, S_ = out.shape[:2]
-        y = tp_reduce(out.reshape(B_, S_, -1), p.wo.reshape(-1, p.wo.shape[-1]))
+        y = tp_reduce(out.reshape(B_, S_, -1), wo.reshape(-1, wo.shape[-1]))
     else:
-        y = row_parallel("bsnph,nphd->bsd", out, p.wo, mesh)
+        y = row_parallel("bsnph,nphd->bsd", out, wo, mesh)
     return y, (k, v)

@@ -26,8 +26,11 @@ Under gloo a CUDA tensor goes through host memory as the shard transport
 stages it (``runtime/transport.py:stage_out`` / ``stage_in``), counted in
 the mesh's ``staged_bytes`` / ``staged_s``; the host seconds blocked in a
 collective go to ``wait_s``, and each kind's payload bytes and host
-seconds to ``moved_bytes`` / ``moved_s``.  An axis of size 1 is the
-identity and moves nothing.
+seconds to ``moved_bytes`` / ``moved_s`` (``ModelMesh.count``).  An axis of
+size 1 is the identity and moves nothing.  On a dry rank
+(``launch.mesh.dry_rank``, backend ``"dry"``) a collective needs no process
+group: it returns an empty ``meta`` tensor of its result's shape and
+counts its payload through the same ``count`` as a live one.
 """
 from __future__ import annotations
 
@@ -44,18 +47,24 @@ def _trivial(mesh, axis) -> bool:
     return mesh is None or mesh.size(axis) == 1
 
 
-def _collective(mesh, kind: str, x: torch.Tensor, out_shape, op) -> torch.Tensor:
-    """Run ``op(out_wire, in_wire, group)`` on a staged copy of ``x`` and
-    return the result on ``x``'s device."""
+def _collective(mesh, kind: str, axis, x: torch.Tensor, out_shape, op) -> torch.Tensor:
+    """Run ``op(out_wire, in_wire, group)`` over the axis' group on a staged
+    copy of ``x`` and return the result on ``x``'s device; on a dry rank,
+    an empty ``meta`` result.  Either way the payload is counted."""
+    k = mesh.size(axis)
+    if mesh.backend == "dry":
+        mesh.count(kind, x.nbytes, 0.0, k)
+        return torch.empty(out_shape, dtype=x.dtype, device="meta")
+    g = mesh.group(axis)
     staged = mesh.backend == "gloo" and x.is_cuda
     t0 = time.perf_counter()
     (wire,) = stage_out(mesh, staged, x.device, [x.contiguous()])
     out = torch.empty(out_shape, dtype=wire.dtype, device=wire.device)
     t1 = time.perf_counter()
-    op(out, wire)
+    op(out, wire, g)
     mesh.wait_s += time.perf_counter() - t1
     res = stage_in(mesh, staged, x.device, out)
-    mesh.count(kind, x.nbytes, time.perf_counter() - t0)
+    mesh.count(kind, x.nbytes, time.perf_counter() - t0, k)
     return res
 
 
@@ -63,23 +72,23 @@ def all_reduce(x: torch.Tensor, mesh, axis, op=dist.ReduceOp.SUM) -> torch.Tenso
     """The sum (or ``op``) of ``x`` over the axis, on every rank."""
     if _trivial(mesh, axis):
         return x
-    g = mesh.group(axis)
 
-    def run(out, wire):
+    def run(out, wire, g):
         out.copy_(wire)
         dist.all_reduce(out, op=op, group=g)
 
-    return _collective(mesh, "all_reduce", x, x.shape, run)
+    return _collective(mesh, "all_reduce", axis, x, x.shape, run)
 
 
 def all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim``, in rank order."""
     if _trivial(mesh, axis):
         return x
-    k, g = mesh.size(axis), mesh.group(axis)
-    stacked = _collective(mesh, "all_gather", x.movedim(dim, 0), (k * x.shape[dim],)
-                          + tuple(x.movedim(dim, 0).shape[1:]),
-                          lambda out, wire: compat.all_gather_into_tensor(out, wire, g))
+    k = mesh.size(axis)
+    xm = x.movedim(dim, 0)
+    stacked = _collective(mesh, "all_gather", axis, xm,
+                          (k * xm.shape[0],) + tuple(xm.shape[1:]),
+                          lambda out, wire, g: compat.all_gather_into_tensor(out, wire, g))
     return stacked.movedim(0, dim)
 
 
@@ -87,12 +96,13 @@ def reduce_scatter(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of ``x`` over the axis."""
     if _trivial(mesh, axis):
         return x
-    k, g = mesh.size(axis), mesh.group(axis)
+    k = mesh.size(axis)
     xm = x.movedim(dim, 0)
     if xm.shape[0] % k:
         raise ValueError(f"dimension {dim} ({x.shape[dim]}) does not split over {k} ranks")
-    out = _collective(mesh, "reduce_scatter", xm, (xm.shape[0] // k,) + tuple(xm.shape[1:]),
-                      lambda out, wire: compat.reduce_scatter_tensor(out, wire, g))
+    out = _collective(mesh, "reduce_scatter", axis, xm,
+                      (xm.shape[0] // k,) + tuple(xm.shape[1:]),
+                      lambda out, wire, g: compat.reduce_scatter_tensor(out, wire, g))
     return out.movedim(0, dim)
 
 
@@ -101,11 +111,10 @@ def exchange(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     from rank j."""
     if _trivial(mesh, axis):
         return x
-    g = mesh.group(axis)
     if x.shape[0] != mesh.size(axis):
         raise ValueError(f"all_to_all over {mesh.size(axis)} ranks of a tensor {tuple(x.shape)}")
-    return _collective(mesh, "all_to_all", x, x.shape,
-                       lambda out, wire: dist.all_to_all_single(out, wire, group=g))
+    return _collective(mesh, "all_to_all", axis, x, x.shape,
+                       lambda out, wire, g: dist.all_to_all_single(out, wire, group=g))
 
 
 def _block(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:

@@ -15,7 +15,10 @@ looks up the tokens in its rows (clamped, the rest masked to zero) and
 the lookups are summed over ``model``, the lowering GSPMD picks for a
 vocab-sharded table.  A parameter that holds a block of a global tensor
 carries the block's slices as ``local``; ``fill_`` writes a global draw's
-block into it.
+block into it.  Under dense FSDP a weight split over ``data`` also
+carries ``fsdp_gather = (axis, dim)``, and ``whole`` all-gathers it just before
+use (its gradient reduce-scattered back), as GSPMD does for a weight whose
+spec names ``data``.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.collectives import copy_to, reduce_from
+from repro_torch.models.collectives import copy_to, gather_rs, reduce_from
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -51,6 +54,16 @@ def fill_(param: torch.Tensor, value: torch.Tensor) -> None:
     parameter holds one (``param.local``, the block's slices)."""
     block = getattr(param, "local", None)
     param.copy_(value[block] if block is not None else value)
+
+
+def whole(w: torch.Tensor, mesh) -> torch.Tensor:
+    """A weight as the layer uses it: under dense FSDP (``w.fsdp_gather``, set
+    by ``Model`` on a weight split over ``data``) its blocks all-gathered
+    over that axis, the gradient reduce-scattered back
+    (``collectives.gather_rs``); else the weight itself.  Inside a remat
+    region the recompute gathers again."""
+    g = getattr(w, "fsdp_gather", None)
+    return w if g is None else gather_rs(w, mesh, g[0], g[1])
 
 
 def tp_width(mesh) -> int:
@@ -136,14 +149,15 @@ class MLP(nn.Module):
 
 def mlp_apply(p: MLP, x: torch.Tensor, gated: bool, mesh=None, tp_reduce=None) -> torch.Tensor:
     x = copy_to(x, mesh, "model")
-    h = torch.einsum("...d,df->...f", x, p.w1)
+    h = torch.einsum("...d,df->...f", x, whole(p.w1, mesh))
     if gated:
-        h = F.silu(h) * torch.einsum("...d,df->...f", x, p.w3)
+        h = F.silu(h) * torch.einsum("...d,df->...f", x, whole(p.w3, mesh))
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    w2 = whole(p.w2, mesh)
     if tp_reduce is not None:
-        return tp_reduce(h, p.w2)
-    return row_parallel("...f,fd->...d", h, p.w2, mesh)
+        return tp_reduce(h, w2)
+    return row_parallel("...f,fd->...d", h, w2, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -35,12 +35,17 @@ attention and MLPs are column- then row-parallel, the embedding
 vocab-parallel, the LM head vocab-sharded with the loss's logsumexp
 taken across the shards, the MoE layer expert-parallel
 (``moe.moe_apply``), and the batch rows split over the data-parallel
-axes, whose ranks sum their gradients.  ``make_prefill`` and
-``make_decode_step`` return the full-vocabulary logits, gathered over
-``model``.  The SSM mixer under tensor parallelism and dense FSDP
-(weights split over ``data`` wider than 1) are not ported yet: a model
-that needs either raises ``ValueError`` when it is initialised or run
-(ROADMAP Queue 1 item 16b); its specs are there all the same.
+axes, whose ranks sum their gradients.  The SSM mixer is column- then
+row-parallel over its heads (``ssm.ssm_apply``).  Under dense FSDP
+(``ParallelConfig.fsdp``, the default, with ``data`` wider than 1) every
+weight whose spec names ``data`` is stored as this rank's block and
+all-gathered just before use, its gradient reduce-scattered back
+(``layers.whole``); the MoE experts keep their ``data`` block and run the
+expert-TP branch of ``moe.moe_apply`` instead.  A gradient that arrives
+summed over an axis its leaf is split on is not summed there again.
+``make_prefill`` and ``make_decode_step`` return the full-vocabulary
+logits, gathered over ``model``.  On a dry rank (``launch.mesh.dry_rank``)
+the same program runs on ``meta`` tensors (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import detection
-from repro_torch.launch.mesh import P, dp_axes_of, spec_slices
+from repro_torch.launch.mesh import P, dp_axes_of, spec_axes, spec_slices
 from repro_torch.models import collectives as col
 from repro_torch.models import layers as L
 from repro_torch.models.attention import q_valid_mask
@@ -72,9 +77,6 @@ class TrainState(NamedTuple):
     opt: AdamState                # moments keyed by parameter name
     monitor: detection.MonitorState
     step: torch.Tensor            # i32
-
-
-ITEM_16B = "ROADMAP Queue 1 item 16b"
 
 
 def tree_path(name: str, period: int = 1) -> Tuple[tuple, Optional[int]]:
@@ -106,6 +108,7 @@ class Model:
         self._masks: Dict[tuple, torch.Tensor] = {}
         self._specs: Optional[Dict[str, P]] = None
         self._blocks: Optional[Dict[str, Tuple[slice, ...]]] = None
+        self._split: Optional[Dict[str, Tuple[str, ...]]] = None
 
     @property
     def tp(self) -> int:
@@ -116,31 +119,45 @@ class Model:
         return tuple(a for a in self.dp_axes if self.mesh.size(a) > 1)
 
     def _check_runnable(self) -> None:
-        """Refuse what this slice does not run yet (and meshes that only
-        describe a layout)."""
+        """Refuse a mesh that only describes a layout."""
         mesh = self.mesh
-        if mesh is None:
-            return
-        if mesh.coords is None:
+        if mesh is not None and mesh.coords is None:
             raise ValueError(f"mesh {mesh.shape} describes a layout: no rank here has a "
-                             "place on it (specs only)")
-        if self.cfg.has_ssm and self.tp > 1:
-            raise ValueError(f"{self.cfg.name}: the SSM mixer under tensor parallelism "
-                             f"(tp={self.tp}) is not ported yet ({ITEM_16B})")
-        if self._fsdp is not None and mesh.size(self._fsdp) > 1:
-            raise ValueError(f"{self.cfg.name}: dense FSDP (weights split over "
-                             f"{self._fsdp!r} = {mesh.size(self._fsdp)}) is not ported yet "
-                             f"({ITEM_16B}); pass ParallelConfig(fsdp=False)")
+                             "place on it (specs only; a dry rank is launch.mesh.dry_rank)")
 
     # ------------------------------------------------------------------
     # Params
     # ------------------------------------------------------------------
+    def empty_params(self) -> Transformer:
+        """This rank's parameters on the model's device, allocated and not
+        drawn (the norms at one): a weight split over ``data`` under FSDP
+        carries ``fsdp_gather = ("data", dim)`` for ``layers.whole``.  On
+        ``meta`` nothing is allocated."""
+        self._check_runnable()
+        params = Transformer(self.plan, self.device, self.param_blocks())
+        gathers = self._gathers()
+        for name, p in params.named_parameters():
+            dim = gathers.get(name)
+            if dim is not None:
+                p.fsdp_gather = (self._fsdp, dim)
+        return params
+
     def init(self, generator: torch.Generator) -> Transformer:
         """Parameters on the model's device, drawn from ``generator`` (on
         any device) with the JAX initialisers' distributions; on a mesh,
         this rank's blocks of the same global draws."""
-        self._check_runnable()
-        return Transformer(self.plan, self.device, self.param_blocks()).init_(generator)
+        return self.empty_params().init_(generator)
+
+    def _gathers(self) -> Dict[str, int]:
+        """``{name: dim}`` of the dense weights stored split over a ``data``
+        axis wider than 1 (FSDP), each gathered along ``dim`` before use.
+        The MoE experts are not: their ``data`` block is the expert-TP
+        split ``moe.moe_apply`` runs on."""
+        if self._fsdp is None or self.mesh is None or self.mesh.size(self._fsdp) == 1:
+            return {}
+        return {n: next(d for d, a in enumerate(spec) if self._fsdp in spec_axes(a))
+                for n, spec in self.param_specs().items()
+                if ".moe." not in n and any(self._fsdp in spec_axes(a) for a in spec)}
 
     def _sublayer_specs(self, is_moe_layer: bool) -> Dict[str, P]:
         """JAX's ``_sublayer_specs`` without the stacked ``[steps]`` axis,
@@ -223,10 +240,16 @@ class Model:
             raise ValueError("param_shardings needs a mesh")
         return {n: (lambda t, sl=sl: t[sl]) for n, sl in self.param_blocks().items()}
 
-    def _model_sharded(self, name: str) -> bool:
-        self.param_specs()
-        return any("model" in ((a,) if isinstance(a, str) else tuple(a or ()))
-                   for a in self._specs[name])
+    def _split_axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes wider than 1 that parameter ``name`` is split
+        over, in the mesh's order."""
+        if self._split is None:
+            self._split = {}
+            for n, spec in self.param_specs().items():
+                named = {a for part in spec for a in spec_axes(part)}
+                self._split[n] = tuple(a for a in self.mesh.axis_names
+                                       if a in named and self.mesh.size(a) > 1)
+        return self._split[name]
 
     # ------------------------------------------------------------------
     # Forward context
@@ -412,34 +435,44 @@ class Model:
         return loss.detach(), metrics, grads
 
     def _sum_over_data(self, grads: Grads) -> Grads:
-        """Each gradient summed over the data-parallel ranks (the weights
-        are replicated there, each rank's gradient its rows' part): one
-        all-reduce a dtype, over the gradients laid end to end."""
+        """Each gradient summed over the data-parallel ranks it is not
+        split on (each rank's gradient its rows' part): one all-reduce per
+        (set of axes, dtype), over the gradients laid end to end.  A leaf
+        split over ``data`` arrives summed there already: a gathered weight's
+        gradient is reduce-scattered (``layers.whole``), and an expert's
+        ``data`` block saw every rank's tokens (``moe.moe_apply``)."""
         out = dict(grads)
-        for dt in sorted({g.dtype for g in grads.values()}, key=str):
-            names = [n for n, g in grads.items() if g.dtype == dt]
+        live = self._dp_live()
+        groups: Dict[tuple, List[str]] = {}
+        for n, g in grads.items():
+            axes = tuple(a for a in live if a not in self._split_axes(n))
+            if axes:
+                groups.setdefault((axes, str(g.dtype)), []).append(n)
+        for (axes, _), names in sorted(groups.items()):
             flat = col.all_reduce(torch.cat([grads[n].reshape(-1) for n in names]),
-                                  self.mesh, self._dp_live())
+                                  self.mesh, axes)
             for n, piece in zip(names, flat.split([grads[n].numel() for n in names])):
                 out[n] = piece.view_as(grads[n])
         return out
 
     def global_norm(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The norm of the global tensors of which ``tree`` holds this
-        rank's blocks: the squares of blocks split over ``model`` are summed
-        over its ranks, replicated ones counted once (``global_norm``
-        without a mesh)."""
-        if self.tp == 1:
+        rank's blocks: the squares of a leaf split over some axes are summed
+        over those axes' ranks, a replicated leaf counted once
+        (``global_norm`` without a mesh)."""
+        if self.mesh is None:
             return global_norm(tree)
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        split, whole = zero, zero
+        parts: Dict[Tuple[str, ...], torch.Tensor] = {}
         for name, g in tree.items():
+            axes = self._split_axes(name)
             sq = torch.sum(g.to(torch.float32) ** 2)
-            if self._model_sharded(name):
-                split = split + sq
-            else:
-                whole = whole + sq
-        return torch.sqrt(whole + col.all_reduce(split, self.mesh, "model"))
+            parts[axes] = parts[axes] + sq if axes in parts else sq
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for axes, sq in sorted(parts.items()):
+            for a in axes:
+                sq = col.all_reduce(sq, self.mesh, a)
+            total = total + sq
+        return torch.sqrt(total)
 
     def make_train_step(
         self,
@@ -504,10 +537,16 @@ class Model:
     def init_train_state(self, generator: torch.Generator, optimizer: AdamW,
                          monitor: Optional[detection.MonitorConfig] = None) -> TrainState:
         """A fresh training state with parameters drawn from ``generator``
-        (``init``): every parameter the JAX tree differentiates (the norms,
-        the embedding and the padded vocab rows included) gets
+        (``init``)."""
+        return self.train_state_of(self.init(generator), optimizer, monitor)
+
+    def train_state_of(self, params: Transformer, optimizer: AdamW,
+                       monitor: Optional[detection.MonitorConfig] = None) -> TrainState:
+        """A fresh training state around ``params`` (zero moments and
+        steps): every parameter the JAX tree differentiates (the norms, the
+        embedding and the padded vocab rows included) gets
         ``requires_grad``."""
-        params = self.init(generator).requires_grad_(True)
+        params = params.requires_grad_(True)
         monitor = monitor or self._default_monitor()
         return TrainState(
             params=params,
@@ -523,7 +562,7 @@ class Model:
                      as_struct: bool = False) -> Cache:
         """Zeroed decode caches, one entry per layer: ``{"kv": {"k", "v"}}``
         with attention, ``{"ssm": SSMCache}`` with an SSM; on a mesh, of
-        this rank's kv slots for its ``batch`` rows.  With ``as_struct``
+        this rank's kv slots and SSD heads for its ``batch`` rows.  With ``as_struct``
         the global ``(shape, dtype)`` of each leaf instead (JAX's
         ``ShapeDtypeStruct``s), ``batch`` the global batch."""
         cfg, plan = self.cfg, self.plan
@@ -553,7 +592,8 @@ class Model:
                         conv_x=mk((batch, W, sp.d_inner), dtype),
                         conv_B=mk((batch, W, gn), dtype), conv_C=mk((batch, W, gn), dtype))
                 else:
-                    entry["ssm"] = ssm_cache_init(plan.ssm, batch, dtype, self.device)
+                    entry["ssm"] = ssm_cache_init(plan.ssm, batch, dtype, self.device,
+                                                  tp=self.tp)
             cache.append(entry)
         return cache
 

@@ -8,6 +8,18 @@ padded heads are neutralised by zero (grad-masked) ``out_proj`` rows.  The
 weights are stored stream by stream (``w_z``, ``w_x``, ``w_B``, ``w_C``,
 ``w_dt``), with the JAX leaf names.
 
+On a mesh of ``model`` width tp (JAX's specs, ``Model.param_specs``) a rank
+holds its ``heads_padded / tp`` heads of ``w_z``, ``w_x``, ``w_dt``,
+``conv_x``, ``A_log``, ``D_skip``, ``dt_bias`` and ``norm``, and
+``out_proj``'s rows of them (row-parallel, its partial output summed over
+``model`` in f32); ``w_B``, ``w_C``, ``conv_B`` and ``conv_C`` are
+replicated (one group in every config), each rank's heads giving them a
+part of their gradient, which is summed over ``model``.  The SSD, the
+convolutions and the decode step run on the local heads; the gated norm's
+mean square is taken over the whole ``d_inner`` (padded heads included,
+as in JAX): Σy² is all-reduced over ``model`` in f32.  The decode cache
+holds the rank's heads of ``h`` and ``conv_x`` (JAX's ``cache_specs``).
+
 One departure from the JAX ``ssd_chunked``: the intra-chunk decay masks
 its exponent before ``exp``, ``exp(where(s ≤ t, cum_t − cum_s, −inf))``.
 JAX takes ``exp(cum_t − cum_s)`` for every (t, s) and masks s > t after;
@@ -27,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import ceil_to, normal, rmsnorm
+from repro_torch.models.collectives import copy_to, reduce_from
+from repro_torch.models.layers import ceil_to, fill_, normal, rmsnorm, row_parallel, \
+    tp_width, whole
 
 
 @dataclass(frozen=True)
@@ -101,21 +115,25 @@ class SSM(nn.Module):
     def init_(self, gen: torch.Generator) -> "SSM":
         """The JAX ``ssm_init``: N(0, 1/D) input projections, N(0, 0.2²)
         convolutions, A_log 0 (A = −1), D_skip 1, dt_bias 0, norm 1, and
-        N(0, 1/di) ``out_proj`` with the rows of padded heads zeroed."""
+        N(0, 1/di) ``out_proj`` with the rows of padded heads zeroed.  Each
+        weight is drawn at its global shape; a rank of a mesh keeps its
+        block (``layers.fill_``)."""
         plan = self.plan
-        s = 1.0 / math.sqrt(plan.d_model)
-        for w in (self.w_z, self.w_x, self.w_B, self.w_C, self.w_dt):
-            w.copy_(normal(tuple(w.shape), s, gen, w.dtype))
-        for w in (self.conv_x, self.conv_B, self.conv_C):
-            w.copy_(normal(tuple(w.shape), 0.2, gen, w.dtype))
+        D, di, nh, W = plan.d_model, plan.d_inner, plan.heads_padded, plan.conv_width
+        gn = plan.groups * plan.state
+        s = 1.0 / math.sqrt(D)
+        for w, shape in ((self.w_z, (D, di)), (self.w_x, (D, di)), (self.w_B, (D, gn)),
+                         (self.w_C, (D, gn)), (self.w_dt, (D, nh))):
+            fill_(w, normal(shape, s, gen, w.dtype))
+        for w, shape in ((self.conv_x, (W, di)), (self.conv_B, (W, gn)), (self.conv_C, (W, gn))):
+            fill_(w, normal(shape, 0.2, gen, w.dtype))
         self.A_log.zero_()
         self.D_skip.fill_(1.0)
         self.dt_bias.zero_()
         self.norm.fill_(1.0)
-        out = normal(tuple(self.out_proj.shape), 1.0 / math.sqrt(plan.d_inner), gen,
-                     torch.float32)
+        out = normal((di, D), 1.0 / math.sqrt(di), gen, torch.float32)
         rows = head_valid_mask(plan, out.device).repeat_interleave(plan.head_dim)
-        self.out_proj.copy_((out * rows[:, None]).to(self.out_proj.dtype))
+        fill_(self.out_proj, (out * rows[:, None]).to(self.out_proj.dtype))
         return self
 
 
@@ -238,16 +256,36 @@ class SSMCache(NamedTuple):
     conv_C: torch.Tensor     # [B, W−1, G·N]
 
 
-def ssm_cache_init(plan: SSMPlan, batch: int, dtype: torch.dtype, device=None) -> SSMCache:
+def ssm_cache_init(plan: SSMPlan, batch: int, dtype: torch.dtype, device=None,
+                   tp: int = 1) -> SSMCache:
+    """A zeroed cache; at ``tp`` > 1 of one rank's ``heads_padded / tp``
+    heads (``h``, ``conv_x``)."""
     W = plan.conv_width
     gn = plan.groups * plan.state
+    nh = plan.heads_padded // tp
     return SSMCache(
-        h=torch.zeros((batch, plan.heads_padded, plan.head_dim, plan.state),
+        h=torch.zeros((batch, nh, plan.head_dim, plan.state),
                       dtype=torch.float32, device=device),
-        conv_x=torch.zeros((batch, W - 1, plan.d_inner), dtype=dtype, device=device),
+        conv_x=torch.zeros((batch, W - 1, nh * plan.head_dim), dtype=dtype, device=device),
         conv_B=torch.zeros((batch, W - 1, gn), dtype=dtype, device=device),
         conv_C=torch.zeros((batch, W - 1, gn), dtype=dtype, device=device),
     )
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float,
+                d_inner: int, mesh) -> torch.Tensor:
+    """``rmsnorm(y · silu(z))`` over the whole ``d_inner``: at ``model``
+    width > 1 ``y`` holds this rank's heads, so Σy² is summed over
+    ``model`` in f32 and divided by the global width.  The sum enters every
+    rank's heads, so its gradient is summed too (``reduce_from`` then
+    ``copy_to``: an all-reduce each way)."""
+    g = y * F.silu(z)
+    if tp_width(mesh) == 1:
+        return rmsnorm(g, scale, eps)
+    g32 = g.float()
+    ss = copy_to(reduce_from((g32 * g32).sum(dim=-1, keepdim=True), mesh, "model"),
+                 mesh, "model")
+    return (g32 * torch.rsqrt(ss / d_inner + eps) * scale.float()).to(g.dtype)
 
 
 def ssm_apply(
@@ -257,22 +295,30 @@ def ssm_apply(
     chunk: int = 128,
     cache: Optional[SSMCache] = None,   # decode (S == 1) or continuation
     norm_eps: float = 1e-5,
+    mesh=None,                          # a ModelMesh: p holds this rank's heads
 ):
     """Returns (y [B, S, D], new_cache).  The JAX ``constrain`` hook has no
-    counterpart on one device."""
+    counterpart: on a mesh the layout is the parameters' blocks."""
     B, S, D = x.shape
-    nh, P, N, G = plan.heads_padded, plan.head_dim, plan.state, plan.groups
-    z = torch.einsum("bsd,di->bsi", x, p.w_z)
-    xs = torch.einsum("bsd,di->bsi", x, p.w_x)
-    Bs = torch.einsum("bsd,dg->bsg", x, p.w_B)
-    Cs = torch.einsum("bsd,dg->bsg", x, p.w_C)
-    dt = torch.einsum("bsd,dh->bsh", x, p.w_dt)
+    P, N, G = plan.head_dim, plan.state, plan.groups
+    nh = p.A_log.shape[0]                 # this rank's heads (all of them at tp 1)
+    x = copy_to(x, mesh, "model")
+    # the replicated B / C streams: each rank's heads give part of their
+    # gradient, summed over ``model`` by ``copy_to``
+    w_B = copy_to(whole(p.w_B, mesh), mesh, "model")
+    w_C = copy_to(whole(p.w_C, mesh), mesh, "model")
+    conv_B, conv_C = copy_to(p.conv_B, mesh, "model"), copy_to(p.conv_C, mesh, "model")
+    z = torch.einsum("bsd,di->bsi", x, whole(p.w_z, mesh))
+    xs = torch.einsum("bsd,di->bsi", x, whole(p.w_x, mesh))
+    Bs = torch.einsum("bsd,dg->bsg", x, w_B)
+    Cs = torch.einsum("bsd,dg->bsg", x, w_C)
+    dt = torch.einsum("bsd,dh->bsh", x, whole(p.w_dt, mesh))
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
 
     xs, ncx = causal_conv(xs, p.conv_x, cache.conv_x if cache is not None else None)
-    Bs, ncB = causal_conv(Bs, p.conv_B, cache.conv_B if cache is not None else None)
-    Cs, ncC = causal_conv(Cs, p.conv_C, cache.conv_C if cache is not None else None)
+    Bs, ncB = causal_conv(Bs, conv_B, cache.conv_B if cache is not None else None)
+    Cs, ncC = causal_conv(Cs, conv_C, cache.conv_C if cache is not None else None)
 
     xh = xs.reshape(B, S, nh, P)
     Bm = Bs.reshape(B, S, G, N)
@@ -286,7 +332,6 @@ def ssm_apply(
                                h0=cache.h if cache is not None else None)
 
     y = y + p.D_skip[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, S, nh * P)
-    y = rmsnorm(y * F.silu(z), p.norm, norm_eps)
-    out = torch.einsum("bsi,id->bsd", y, p.out_proj)
+    y = _gated_norm(y.reshape(B, S, nh * P), z, p.norm, norm_eps, plan.d_inner, mesh)
+    out = row_parallel("bsi,id->bsd", y, whole(p.out_proj, mesh), mesh)
     return out, SSMCache(h=h_new, conv_x=ncx, conv_B=ncB, conv_C=ncC)

@@ -227,7 +227,8 @@ def _attn_sublayer(p: Block, h, ctx: LayerCtx, positions, cache, cache_len):
 
 def _ssm_sublayer(p: Block, x, ctx: LayerCtx, cache):
     y, new_cache = ssm_mod.ssm_apply(p.ssm, x, ctx.plan.ssm, chunk=ctx.ssd_chunk,
-                                     cache=cache, norm_eps=ctx.plan.cfg.norm_eps)
+                                     cache=cache, norm_eps=ctx.plan.cfg.norm_eps,
+                                     mesh=ctx.mesh)
     return y, (None if ctx.mode == "train" else new_cache)
 
 

@@ -35,7 +35,7 @@ _PROGRAM = textwrap.dedent("""
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     assert not leaked, leaked
-    assert len(names) >= 79, names
+    assert len(names) >= 81, names
     assert "repro_torch.solvers.partition" in names, names
     assert "repro_torch.launch.serve" in names, names
     assert "repro_torch.runtime.api" in names, names
@@ -49,7 +49,7 @@ _PROGRAM = textwrap.dedent("""
                  "data.pipeline", "launch.train", "models.ssm", "models.moe",
                  "core.async_engine", "core.protocols", "core.scenarios", "core.reliability",
                  "sim", "sim.replay", "sim.calibrate", "core.compat", "models.collectives",
-                 "models.tp_reduce"):
+                 "models.tp_reduce", "launch.dryrun", "launch.hlo_analysis"):
         assert "repro_torch." + name in names, names
     print("ISOLATED", len(names))
 """)

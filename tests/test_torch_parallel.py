@@ -42,8 +42,8 @@ results; the gathered ones must agree across ranks.
   ``Model``'s initialiser patched to return it; qwen2 reduced, bf16, as
   ``train`` builds it, batch 4 ×
   32, 4 steps, so 3 losses are read): each loss within rtol 2e-3 of JAX's
-  ``train(mesh=…)`` (two bf16 models in another order, JAX's with FSDP
-  and the port's replicated over ``data``; the bf16 loss bar of
+  ``train(mesh=…)`` (two bf16 models in another order, both with JAX's
+  default layout, dense FSDP over ``data``; the bf16 loss bar of
   ``tests/test_torch_train.py`` is 1e-3 on one step, and Adam's updates
   carry each step's rounding into the next).
 """
@@ -448,12 +448,13 @@ def _train_case(z):
     tree = _bits_to_bf16(unflat(z, "train/param/"))
     init = ttrain.Model.init_train_state
 
-    def carried(self, gen, optimizer, monitor=None):   # JAX's initial draw
+    def carried(self, gen, optimizer, monitor=None):   # JAX's initial draw, this rank's blocks
         state = init(self, gen, optimizer, monitor)
         named = dict(state.params.named_parameters())
+        blocks = self.param_blocks()
         with torch.no_grad():
             for n, leaf in interop._named_from_tree(tree, named).items():
-                named[n].copy_(leaf)
+                named[n].copy_(leaf[blocks[n]])
         return state
 
     ttrain.Model.init_train_state = carried

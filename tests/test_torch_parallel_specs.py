@@ -305,8 +305,12 @@ def test_moe_plan_capacity_matches_jax():
 
 
 def test_deferred_layouts_raise():
-    """The SSM mixer under TP and dense FSDP raise, naming item 16b; a
-    mesh that only describes a layout cannot run."""
+    """The layouts once deferred now build and run: the SSM mixer under TP
+    (mamba2 at tp 2, hymba at tp 4) and dense FSDP over ``data`` (qwen2 on
+    (2, 1)), each on one rank's coordinates of its mesh (a dry rank: the
+    program runs on ``meta`` with no process group), a prefill giving the
+    full vocabulary's logits and a training step its metrics; a mesh that
+    only describes a layout still refuses ``init``."""
     from repro_torch.configs.base import reduced
 
     one = tmesh.make_model_mesh((1, 1), ("data", "model"), device="cpu")
@@ -314,13 +318,21 @@ def test_deferred_layouts_raise():
     for arch, shape, par in (("mamba2-130m", (1, 2), ParallelConfig()),
                              ("hymba-1.5b", (1, 4), ParallelConfig(fsdp=False)),
                              ("qwen2-1.5b", (2, 1), ParallelConfig(fsdp=True))):
-        mesh = tmesh.make_model_mesh(shape, ("data", "model"))
-        mesh.coords, mesh.rank = (0, 0), 0
-        m = Model(reduced(ARCHS[arch]), mesh=mesh, parallel=par, device="cpu")
-        with pytest.raises(ValueError, match="item 16b"):
-            m.init(gen)
-        with pytest.raises(ValueError, match="item 16b"):
-            m.make_prefill()
+        for coords in np.ndindex(*shape):
+            mesh = tmesh.dry_rank(tmesh.make_model_mesh(shape, ("data", "model")), coords)
+            m = Model(reduced(ARCHS[arch]), mesh=mesh, parallel=par)
+            params = m.init(gen)              # drawn on the CPU, kept on meta
+            assert {p.device.type for p in params.parameters()} == {"meta"}
+            logits, _ = m.make_prefill()(params, torch.zeros((2, 16), dtype=torch.long))
+            assert logits.shape == (2, 1, m.plan.vocab_padded)
+            opt = AdamW(constant_schedule(1e-3))
+            state = m.train_state_of(params, opt)
+            batch = {k: torch.zeros((2 // shape[0], 16), dtype=torch.int32, device="meta")
+                     for k in ("inputs", "labels")}
+            state, met = m.make_train_step(opt)[0](state, batch)
+            assert met["loss"].shape == () and int(mesh.moved_bytes["all_reduce"]) > 0
+            if shape[0] > 1:       # FSDP: the weights gathered and their gradients scattered
+                assert mesh.moved_bytes["all_gather"] > 0 and mesh.moved_bytes["reduce_scatter"] > 0
     described = Model(reduced(ARCHS["qwen2-1.5b"]), mesh=tmesh.make_production_mesh(),
                       device="cpu")
     with pytest.raises(ValueError, match="describes a layout"):
