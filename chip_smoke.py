@@ -230,7 +230,24 @@ Phases, each of which must pass or the script exits non-zero:
    reckoning, the peaks, the save and restore walls, and the dry peak
    estimate beside the measured step peak.
 
-Phases 4 to 9 and 11 to 18 are the main paths.  The kernels' launch counters are
+19. the paper's solver cell (``launch/dryrun.py:lower_solver_cell``: the
+   1-D shard runtime's convdiff solve at n = 1024, f32, PFAIT at ε̃ 1e-4,
+   margin 10, K = 4, the non-blocking reduction, 4 inner sweeps): (a) at
+   the cell's blocks (one of 256 and one of 512 shards, held against the
+   plain versions in phase 2) the work #1 (sweep and residual) and #5
+   report at a launch equals what their ``meta`` paths report, and #1 and
+   #5 are timed at the 256-shard block; (b) the solve at its own size,
+   stacked, p = 256 (b drawn on the card from a seeded generator), a few
+   outer iterations under ``launch.hlo_analysis.trace_program``: the
+   kernels' reported work over p must equal a dry rank's kernel work over
+   the same iterations exactly, every value finite and the exact residual
+   below b's; then ms per outer iteration from two more runs, and the
+   launches a shard makes an iteration (host-bound); (c)
+   ``lower_solver_cell`` on both meshes, each record printed; (d)
+   ``examples/torch/quickstart.py`` on the card: the CPU's outer counts
+   (sync 59, pfait 72, nfais2 66, nfais5 70), every row under ε̃.
+
+Phases 4 to 9 and 11 to 19 are the main paths.  The kernels' launch counters are
 set to 0 just before each of them and read just after; every kernel of a
 path must show launches there (phase 9's and phase 12's in the counters
 their ranks report; phase 11's graph replays add the launches their
@@ -249,6 +266,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 from collections import Counter
 import statistics
 from typing import NamedTuple
@@ -322,15 +340,16 @@ F64_UNIT = 2.0 ** -53
 # the whole 150³ grid of one at n = 150 (also a convdiff lane of the
 # detection service, in f32), the 38×152×152 block of one of 4 at
 # n = 152, make_sharded_solver's 50×75×150 block of the (3, 2) mesh, a
-# ragged block, and the event engine's (phase 16): the blocks of p = 50 and
+# ragged block, the event engine's (phase 16): the blocks of p = 50 and
 # p = 150 at n = 150, and at n = 24 the block of p = 8 and the whole grid
-# (its exact residual).  main() fails if a main path launches #1-#4 at a
-# block shape not listed here (or in HALO_SHAPES for #3/#4)
+# (its exact residual), and the paper's solver cell's (phase 19): one of 256
+# and one of 512 shards at n = 1024.  main() fails if a main path launches
+# #1-#4 at a block shape not listed here (or in HALO_SHAPES for #3/#4)
 SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p5": (30, 150, 150),
           "p2": (75, 150, 150), "p1": (150, 150, 150), "p4": (38, 152, 152),
           "mesh32": (50, 75, 150), "ragged": (13, 37, 19),
           "ev50": (15, 30, 150), "ev150": (10, 15, 150), "ev8": (6, 12, 24),
-          "ev1": (24, 24, 24)}
+          "ev1": (24, 24, 24), "cell256": (4, 1024, 1024), "cell512": (2, 1024, 1024)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
 # n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
 # (3, 2) mesh's two overlap face slabs.  The halo Jacobi sweep splits a
@@ -869,7 +888,8 @@ def _stencil_case(k, shape, st, rand, size=8):
     ``(kernel call, plain call, ghosted block for the library call, bytes,
     flops)``.  Bytes count each input read once and each output written
     once: the block (or the ghosted block) and the rhs in, the new block
-    and the partials out, the six face planes for the halo kernels."""
+    and the partials out, the six face planes for the halo kernels (#1's
+    from ``jacobi3d.work``, the formula its wrapper reports)."""
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
     from repro_torch.kernels.jacobi3d import ops as jops
     from repro_torch.kernels.jacobi3d import ref as jref
@@ -897,7 +917,7 @@ def _stencil_case(k, shape, st, rand, size=8):
     if k == "fused_sweep_residual":
         kern = lambda: jk.fused_sweep_residual(g, b, st.coefs)  # noqa: E731
         plain = lambda: jref.fused_sweep_residual_ref(g, b, st.coefs)  # noqa: E731
-        nbytes = size * (g.numel() + 2 * cells) + 4 * nx * ny
+        flops, nbytes = jk.work(shape, size)
     else:
         g2 = jops.ghost_pad2(x, ghosts)
         kern = lambda: jk.fused_rbgs_sweep_residual(g2, b, st.coefs, 0)  # noqa: E731
@@ -911,6 +931,12 @@ def _bound(nbytes, flops, peak=None):
     operations sets it (operations at ``peak``, f64 by default)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or PEAK_F64_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _work_bound(work, peak=None):
+    """``_bound`` of a wrapper's ``work(...)``, (operations, bytes)."""
+    flops, nbytes = work
+    return _bound(nbytes, flops, peak)
 
 
 def _shape_str(shape) -> str:
@@ -987,8 +1013,7 @@ def time_kernels(st, dev) -> dict:
         x, b = rand(shape), rand(shape)
         record("diff_norm_partials", shape, (
             lambda: rk.diff_norm_partials(x, b), lambda: rref.diff_norm_partials_ref(x, b),
-            lambda: torch.dist(x, b, INF)),
-            _bound(8 * 2 * cells + 4 * -(-cells // 65536), 3 * cells))
+            lambda: torch.dist(x, b, INF)), _work_bound(rk.work(cells, 8)))
         del x, b
     # the PageRank path's block: one shard's 4096 f64 in l1, one partial
     n = PAGERANK_N // PAGERANK_P
@@ -996,7 +1021,7 @@ def time_kernels(st, dev) -> dict:
     record("diff_norm_partials", (n,), (
         lambda: rk.diff_norm_partials(x, b, ord=1.0),
         lambda: rref.diff_norm_partials_ref(x, b, ord=1.0), lambda: torch.dist(x, b, 1)),
-        _bound(8 * 2 * n + 4, 3 * n), mode=" l1 (one partial)")
+        _work_bound(rk.work(n, 8)), mode=" l1 (one partial)")
     del x, b
     # the elastic path's PageRank block after its crash (one of 2 shards,
     # 8192 f64, l1), and the training path's replica stack (a partial per
@@ -1006,14 +1031,14 @@ def time_kernels(st, dev) -> dict:
     record("diff_norm_partials", (n,), (
         lambda: rk.diff_norm_partials(x, b, ord=1.0),
         lambda: rref.diff_norm_partials_ref(x, b, ord=1.0), lambda: torch.dist(x, b, 1)),
-        _bound(8 * 2 * n + 4, 3 * n), mode=" l1 (one partial)")
+        _work_bound(rk.work(n, 8)), mode=" l1 (one partial)")
     rows, n = TRAIN_STACKS[0]
     x, b = rand((rows, n)), rand((rows, n))
     record("diff_norm_partials", (rows, n), (
         lambda: rk.diff_norm_partials(x, b, block=n, ord=2.0),
         lambda: rref.diff_norm_partials_ref(x, b, block=n, ord=2.0),
         lambda: torch.linalg.vector_norm(x - b, dim=1)),
-        _bound(8 * 2 * rows * n + 4 * rows, 3 * rows * n), mode=" l2 (a partial per row)")
+        _work_bound(rk.work(rows * n, 8, block=n)), mode=" l2 (a partial per row)")
     del x, b
     # the runtime sweeps its six shards in turn, so each finds its block
     # gone from the L2: six shards' worth of inputs (> 50 MB), taken in turn
@@ -4723,6 +4748,233 @@ def verify_layouts(out) -> dict:
     return dict(launches=dict(launches), shapes=shapes)
 
 
+# phase 19: the paper's solver cell, JAX's ``lower_solver_cell``: the 1-D
+# shard runtime's convdiff solve at n = 1024 (f32) over p = 256 shards (the
+# 16×16 pod; 512 for 2×16×16).  (b) runs CELL_OUTER counted outer
+# iterations, then CELL_TIMED for the ms an iteration (their difference)
+CELL_N, CELL_P = 1024, 256
+CELL_OUTER = 3
+CELL_TIMED = (2, 6)
+CELL_KERNELS = ("fused_sweep_residual", "diff_norm_partials")
+# the CPU's table of examples/torch/quickstart.py (and of the JAX example)
+QUICKSTART_OUTER = {"sync": 59, "pfait": 72, "nfais2": 66, "nfais5": 70}
+
+
+def _reported(fn):
+    """The work (operations, bytes) ``fn`` reports to a counting mode, and
+    its result."""
+    from repro_torch.kernels import _build
+
+    sink = [0.0, 0.0]
+    _build.WORK_SINKS.append(sink)
+    try:
+        out = fn()
+    finally:
+        _build.WORK_SINKS.remove(sink)
+    return tuple(sink), out
+
+
+def check_cell_work(st, dev) -> dict:
+    """(a): at each cell block, #1 (both ops) and #5 report at a launch
+    the work their meta paths report; #1's sweep and #5 timed at the
+    256-shard block, f32, against their plain versions and bounds."""
+    import torch
+
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ref as jref
+    from repro_torch.kernels.residual_norm import ref as rref
+    from repro_torch.kernels.residual_norm import residual_norm as rk
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    f32 = torch.float32
+    times = {}
+    for name in ("cell256", "cell512"):
+        bx, by, bz = shape = SHAPES[name]
+        g = torch.rand((bx + 2, by + 2, bz + 2), generator=gen, device=dev, dtype=f32)
+        b = torch.rand(shape, generator=gen, device=dev, dtype=f32)
+        gm, bm = (torch.empty_like(t, device="meta") for t in (g, b))
+        for op in ("sweep", "residual"):
+            card, _ = _reported(lambda: jk.fused_sweep_residual(g, b, st.coefs, op=op))
+            meta, _ = _reported(lambda: jk.fused_sweep_residual(gm, bm, st.coefs, op=op))
+            _require(card == meta == jk.work(shape, 4, op),
+                     f"fused_sweep_residual {name} op={op}: reported {card} on the card, "
+                     f"{meta} on meta")
+        x = torch.rand(shape, generator=gen, device=dev, dtype=f32)
+        card, _ = _reported(lambda: rk.diff_norm_partials(x, b, ord=2.0))
+        meta, _ = _reported(lambda: rk.diff_norm_partials(
+            torch.empty_like(x, device="meta"), bm, ord=2.0))
+        _require(card == meta == rk.work(x.numel(), 4),
+                 f"diff_norm_partials {name}: reported {card} on the card, {meta} on meta")
+        if name == "cell256":
+            # the library calls as phase 3's: the off-diagonal apply as a
+            # convolution of the ghosted block, and torch.dist
+            w = torch.zeros((1, 1, 3, 3, 3), dtype=f32, device=dev)
+            w[0, 0, 0, 1, 1], w[0, 0, 2, 1, 1] = st.xm, st.xp
+            w[0, 0, 1, 0, 1], w[0, 0, 1, 2, 1] = st.ym, st.yp
+            w[0, 0, 1, 1, 0], w[0, 0, 1, 1, 2] = st.zm, st.zp
+            for k, kern, plain, lib, work in (
+                    ("fused_sweep_residual", lambda: jk.fused_sweep_residual(g, b, st.coefs),
+                     lambda: jref.fused_sweep_residual_ref(g, b, st.coefs),
+                     lambda: torch.nn.functional.conv3d(g[None, None], w), jk.work(shape, 4)),
+                    ("diff_norm_partials", lambda: rk.diff_norm_partials(x, b, ord=2.0),
+                     lambda: rref.diff_norm_partials_ref(x, b, ord=2.0),
+                     lambda: torch.dist(x, b, 2), rk.work(x.numel(), 4))):
+                (ms, call_ms), (plain_ms, _), (lib_ms, _) = map(_time_ms, (kern, plain, lib))
+                bound_ms, by_ = _work_bound(work, PEAK_F32_FLOPS)
+                times[k] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+                print(f"cell (a) time {k} at {_shape_str(shape)} f32: kernel {ms:.4f} ms (eager "
+                      f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by_}; {work[0] / 1e6:.1f} "
+                      f"Mop, {work[1] / 1e6:.2f} MB; warm L2 between replays)")
+        del g, b, x
+    torch.cuda.empty_cache()
+    print("cell (a): #1 (sweep, residual) and #5 report the same work at a launch as on "
+          f"meta at {', '.join(_shape_str(SHAPES[k]) for k in ('cell256', 'cell512'))} f32; "
+          "held against their plain versions there in phase 2")
+    return times
+
+
+class _OpCount:
+    """Counts the aten ops (views left out) a call dispatches: on a dry
+    rank each is a launch the card would make."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not func.is_view:
+                    counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self.mode = 0, Mode()
+
+
+def _dry_cell(outer: int):
+    """A dry rank's run of the cell at ``outer`` outer iterations: (kernel
+    work reported, aten ops dispatched, traced)."""
+    import torch
+
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import dry_shard_group
+
+    group = dry_shard_group(CELL_P, 0)
+    run = dryrun.solver_cell(group, CELL_N, max_outer=outer)
+    x0 = torch.zeros((CELL_N // CELL_P, CELL_N, CELL_N), device="meta")
+    ops = _OpCount()
+    with ops.mode:
+        work, traced = _reported(lambda: hlo_analysis.trace_program(
+            run, x0, torch.zeros_like(x0), mesh=group))
+    return work, ops.n, traced
+
+
+def run_cell(dev) -> dict:
+    """(b): the cell's solve at its own size on the card, stacked: the
+    counted run, then the two timed ones, the counters set to 0 just
+    before the first and read just after the last; then the exact residual
+    of the counted run's result (a launch at the whole grid, outside the
+    counted window)."""
+    import torch
+
+    from repro_torch.kernels.jacobi3d import jacobi3d as jk
+    from repro_torch.kernels.jacobi3d import ops as jops
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.solvers.convdiff import Stencil
+    from repro_torch.solvers.fixed_point import _zero_ghosts, ghosted
+
+    n, p = CELL_N, CELL_P
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = torch.rand((n, n, n), generator=gen, device=dev, dtype=torch.float32) * 2 - 1
+    x0 = torch.zeros_like(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    run = dryrun.solver_cell(p, n, max_outer=CELL_OUTER, device=dev)
+    work, traced = _reported(lambda: hlo_analysis.trace_program(run, x0, b))
+    res = traced.out
+    del traced
+    walls = {}
+    for outer in CELL_TIMED:
+        timed = dryrun.solver_cell(p, n, max_outer=outer, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = timed(x0, b)
+        torch.cuda.synchronize()
+        walls[outer] = time.perf_counter() - t0
+        _require(out.outer_iters == outer, f"cell (b): {out.outer_iters} outer iterations "
+                                           f"at max_outer {outer}")
+        del out
+    used, shapes = _launches(), Counter(jk.LAUNCH_SHAPES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(res.x.isfinite().all())
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), rho=0.95)   # the cell's
+    r_x = float(jops.residual_contribution(st, ghosted(res.x, _zero_ghosts(res.x)), b, ord=INF))
+    r_0 = float(b.abs().amax())   # the residual of x0 = 0
+    del res, x0, b
+    torch.cuda.empty_cache()
+    return dict(work=work, finite=finite, r_x=r_x, r_0=r_0, walls=walls, used=used,
+                shapes=shapes, peak=peak, seconds=time.perf_counter() - t_start)
+
+
+def verify_cell(out, times) -> dict:
+    """(b)'s checks against a dry rank, (c) the dry records, (d) the
+    quickstart example on the card."""
+    from repro_torch.launch import dryrun
+
+    card = nvidia_smi()
+    n, p, K = CELL_N, CELL_P, CELL_OUTER
+    dry, _, _ = _dry_cell(K)
+    per_shard = tuple(v / p for v in out["work"])
+    print(f"cell (b): stacked n = {n}, p = {p}, f32, {K} outer iterations under trace_program: "
+          f"kernels reported {out['work'][0]:.6e} operations and {out['work'][1]:.6e} bytes, "
+          f"over p {per_shard[0]:.6e} / {per_shard[1]:.6e}; a dry rank's kernels "
+          f"{dry[0]:.6e} / {dry[1]:.6e}; finite {out['finite']}; exact l∞ residual "
+          f"{out['r_x']:.6e} against b's {out['r_0']:.6e} [{card}]")
+    _require(per_shard == dry, "cell (b): the card's kernel work over p is not a dry rank's")
+    _require(out["finite"], "cell (b): a non-finite value in the solve")
+    _require(out["r_x"] < out["r_0"], "cell (b): the residual did not fall")
+    outers = K + sum(CELL_TIMED)
+    want = {"fused_sweep_residual": 4 * p * outers, "diff_norm_partials": p * outers}
+    got = {k: out["used"][k] for k in want}
+    _require(got == want and not any(v for k, v in out["used"].items() if k not in want),
+             f"cell (b): launches {out['used']}, want {want}")
+    (_, ops1, _), (_, ops2, _) = _dry_cell(1), _dry_cell(2)
+    a, b_ = CELL_TIMED
+    ms = 1e3 * (out["walls"][b_] - out["walls"][a]) / (b_ - a)
+    kernel_ms = p * (4 * times["fused_sweep_residual"]["ms"] + times["diff_norm_partials"]["ms"])
+    print(f"cell (b): {ms:.3f} ms per outer iteration (runs of {a} and {b_}: "
+          f"{out['walls'][a]:.3f} / {out['walls'][b_]:.3f} s), host-bound: a shard dispatches "
+          f"{ops2 - ops1} aten ops (views left out) and 5 kernel launches an iteration, "
+          f"{p * (ops2 - ops1 + 5)} over the {p} shards; the kernels' device time an "
+          f"iteration {kernel_ms:.3f} ms; launches {json.dumps(got)}; max_memory_allocated "
+          f"{out['peak'] / 2**30:.2f} GiB; (b) took {out['seconds']:.1f} s [{card}]")
+    for multi in (False, True):
+        rec = dryrun.lower_solver_cell(multi)
+        print(f"cell (c) lower_solver_cell {rec['mesh']}: {json.dumps(rec)}")
+        _require(rec["collectives"]["counts"] == {"collective-permute": 40002.0,
+                                                  "all-reduce": 20000.0},
+                 f"cell (c) {rec['mesh']}: collectives {rec['collectives']['counts']}")
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" / "quickstart.py")],
+                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    rows = {line.split()[0]: line.split() for line in ex.stdout.splitlines()
+            if line.split() and line.split()[0] in QUICKSTART_OUTER}
+    print(f"cell (d) examples/torch/quickstart.py on the card ({time.perf_counter() - t0:.1f} "
+          f"s, rc {ex.returncode}):")
+    for line in ex.stdout.splitlines():
+        if line.strip():
+            print("  " + line)
+    _require(ex.returncode == 0, f"cell (d): quickstart failed: {ex.stderr[-2000:]}")
+    got = {m: int(r[2]) for m, r in rows.items()}
+    _require(got == QUICKSTART_OUTER and all(r[-1] == "yes" for r in rows.values()),
+             f"cell (d): quickstart's outer counts {got}, want {QUICKSTART_OUTER}")
+    return out["used"]
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4926,6 +5178,21 @@ def main() -> int:
                          f"the plain version: {unheld}")
     print(f"every #6 shape the layout path launched ({dict(lay['shapes'])}) was held against "
           f"its plain version in phase 2")
+
+    # phase 19, the paper's solver cell: (a) the reported work at a launch,
+    # then (b)'s runs with the counters set to 0 just before and read just
+    # after, (c) the dry records and (d) the quickstart example
+    t0 = time.perf_counter()
+    cell_times = check_cell_work(st, dev)
+    cell = run_cell(dev)
+    print("main-path launches, solver cell:", json.dumps(cell["used"]))
+    for k in CELL_KERNELS:
+        _require(cell["used"][k] > 0, f"{k}: not launched on the solver cell's path")
+    for k in launches:
+        launches[k] += cell["used"][k]
+    _require_held(cell["shapes"], "on the solver cell's path")
+    verify_cell(cell, cell_times)
+    print(f"cell: phase 19 took {time.perf_counter() - t0:.1f} s [{nvidia_smi()}]")
 
     rows = []
     for k, (source, replaces) in KERNELS.items():

@@ -5,11 +5,12 @@ unghosted block and six face planes (``csrc/jacobi3d_halo.cu``).
 Every wrapper's ``ord`` picks what its residual partials reduce: max|r|
 (∞), Σr² (2) or Σ|r| (1); any other order raises.  A tensor on the CPU
 goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
-or raises.  ``LAUNCHES`` counts kernel launches (only
-launches — the CPU path does not count), so a run can show that its main
-path went through the kernels; ``LAUNCH_SHAPES`` counts the same launches
-by (kernel, block shape, dtype), so a run can price them at each shape's
-time in their own type.
+or raises; ``fused_sweep_residual`` on ``meta`` tensors (a dry rank)
+computes nothing and reports its ``work``, as it does at every launch.
+``LAUNCHES`` counts kernel launches (only launches — the CPU path does not
+count), so a run can show that its main path went through the kernels;
+``LAUNCH_SHAPES`` counts the same launches by (kernel, block shape,
+dtype), so a run can price them at each shape's time in their own type.
 """
 from __future__ import annotations
 
@@ -53,6 +54,22 @@ _SIGNATURES = {src: {f"{k}_{s}": sig for k in kernels for s in _SUFFIX.values()}
                for src, (kernels, sig) in _SOURCES.items()}
 
 _build.register_counters(LAUNCHES, LAUNCH_SHAPES)
+
+
+def work(shape: Sequence[int], itemsize: int, op: str = "sweep",
+         tile: Tuple[int, int] = DEFAULT_TILE):
+    """(operations, bytes) of one ``fused_sweep_residual`` launch on a block
+    of ``shape``: 14 operations a cell for r = b − A·x, 2 for its partial
+    and 2 more for the sweep's x + r / diag (18 a cell; the residual pass
+    16), the ghosted block and b read once, the new block written once
+    (not by the residual pass) and 4 bytes a partial."""
+    bx, by, bz = shape
+    cells = bx * by * bz
+    _, _, nx, ny = tile_grid(bx, by, tile)
+    sweep = op == "sweep"
+    return ((18 if sweep else 16) * cells,
+            itemsize * ((bx + 2) * (by + 2) * (bz + 2) + (2 if sweep else 1) * cells)
+            + 4 * nx * ny)
 
 
 def reset_launches() -> None:
@@ -125,16 +142,26 @@ def fused_sweep_residual(g: torch.Tensor, b: torch.Tensor,
 
     ``coefs`` is ``(diag, xm, xp, ym, yp, zm, zp)``.  ``op="residual"`` is
     the residual-only pass: the kernel writes no block, and the returned
-    block is a view of ``g``'s interior.
+    block is a view of ``g``'s interior.  On ``meta`` (a dry rank) nothing
+    is computed: the outputs are empty tensors of the plain version's
+    shapes and dtypes, and the launch's ``work`` goes to the counting mode.
     """
     if op not in ("sweep", "residual"):
         raise ValueError(f"op {op!r} not in ('sweep', 'residual')")
+    if g.device.type == b.device.type == "meta":
+        partial_mode(ord)
+        _validate(g, b, (2, 2, 2))
+        _build.report_work(*work(b.shape, b.element_size(), op, tile))
+        _, _, nx, ny = tile_grid(*b.shape[:2], tile)
+        parts = torch.empty((nx, ny), dtype=torch.float32, device="meta")
+        return (torch.empty_like(b) if op == "sweep" else g[1:-1, 1:-1, 1:-1]), parts
     if not _build.on_cuda(g, b):
         return fused_sweep_residual_ref(g, b, coefs, tile=tile, op=op, ord=ord)
     _validate(g, b, (2, 2, 2))
     out = torch.empty_like(b) if op == "sweep" else None
     parts = _launch("fused_sweep_residual", (g,), b, out, tile, int(op == "sweep"),
                     ord, coefs)
+    _build.report_work(*work(b.shape, b.element_size(), op, tile))
     return (g[1:-1, 1:-1, 1:-1] if out is None else out), parts
 
 

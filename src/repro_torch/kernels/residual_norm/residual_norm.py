@@ -1,7 +1,9 @@
 """Wrapper of the diff-norm partials CUDA kernel (``csrc/residual_norm.cu``).
 
 A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches only.
+launches the kernel or raises; ``meta`` tensors (a dry rank) compute nothing
+and report the launch's ``work``, as every launch does.  ``LAUNCHES``
+counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -24,6 +26,13 @@ _SIGNATURES = {f"diff_norm_partials_{s}": (PTR, PTR, PTR, LONG, LONG, INT, PTR)
 _build.register_counters(LAUNCHES)
 
 
+def work(n: int, itemsize: int, block: int = 65536):
+    """(operations, bytes) of one launch over ``n`` elements: 3 operations
+    an element (subtract, square or abs, reduce), both inputs read once and
+    4 bytes a partial written."""
+    return 3 * n, 2 * itemsize * n + 4 * -(-n // min(block, n))
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -33,7 +42,8 @@ def diff_norm_partials(a: torch.Tensor, b: torch.Tensor, block: int = 65536,
                        ord: float = float("inf")) -> torch.Tensor:
     """Flattens the inputs and returns per-``block`` partials ``[nblocks]``
     (f32) of ``max|a−b|`` (ord ∞), ``Σ(a−b)²`` (2) or ``Σ|a−b|`` (1)."""
-    if not _build.on_cuda(a, b):
+    meta = a.device.type == b.device.type == "meta"
+    if not meta and not _build.on_cuda(a, b):
         return diff_norm_partials_ref(a, b, block=block, ord=ord)
     mode = partial_mode(ord)
     if a.shape != b.shape or a.numel() == 0:
@@ -47,11 +57,15 @@ def diff_norm_partials(a: torch.Tensor, b: torch.Tensor, block: int = 65536,
     n = a.numel()
     block = min(block, n)
     parts = torch.empty((-(-n // block),), dtype=torch.float32, device=a.device)
+    if meta:
+        _build.report_work(*work(n, a.element_size(), block))
+        return parts
     fn = getattr(_build.load("residual_norm", _SIGNATURES),
                  f"diff_norm_partials_{_SUFFIX[a.dtype]}")
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), parts.data_ptr(), n, block,
                  mode, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "diff_norm_partials")
+    _build.report_work(*work(n, a.element_size(), block))
     LAUNCHES["diff_norm_partials"] += 1
     return parts

@@ -29,15 +29,26 @@ policy for ``train_*``, ``make_prefill`` for ``prefill_*``, and
   prefill counts the flash kernel's band FLOPs (causal and window
   skipping), where JAX's prefill counts its plain blocked attention.
 
-Skips are ``cell_is_runnable``'s.  The paper's solver cell (JAX's
-``--solver``, ``lower_solver_cell``) needs a dry path through the stencil
-kernels' dispatchers and a dry outer iteration of the shard runtime: it is
-ROADMAP Queue 1 item 16c, and ``--solver`` / ``--solver-only`` raise.
+Skips are ``cell_is_runnable``'s.
+
+``--solver`` (and ``--solver-only``) add the paper's own cell,
+``lower_solver_cell``: the 1-D shard runtime's convdiff solve at n = 1024
+under PFAIT with the non-blocking reduction, on rank 0 of 256 or 512
+shards (``launch.mesh.dry_shard_group``).  Its sweeps report kernel #1's
+work and its contribution #5's from their ``meta`` paths, and its
+transport counts each halo shift as a ``collective-permute`` and each
+reduction as an ``all-reduce``.  The loop cannot read ``converged`` on
+``meta``, so the solve is counted at ``max_outer`` 1 and 2: the
+difference is one outer iteration, scaled by ``max_outer`` as JAX's loop
+multiplier scales the while body.  The result is the rank's block and
+the monitor's scalars, as JAX's program returns the sharded state, so no
+all-gather is counted.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single        # 16×16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both          # and 2×16×16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --solver-only --mesh both
 """
 from __future__ import annotations
 
@@ -53,14 +64,16 @@ import torch
 
 from repro_torch.configs.base import ALL_SHAPES, ParallelConfig
 from repro_torch.configs.registry import ARCHS, cell_is_runnable, get_arch, get_shape
+from repro_torch.core import detection
 from repro_torch.launch import hlo_analysis
-from repro_torch.launch.mesh import dry_rank, make_production_mesh, spec_slices
+from repro_torch.launch.mesh import dry_rank, dry_shard_group, make_production_mesh, spec_slices
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.runtime.api import RuntimeConfig
+from repro_torch.runtime.shard_runtime import make_runtime
+from repro_torch.solvers.convdiff import Stencil
 
-SOLVER_DEFERRED = ("the solver cell (lower_solver_cell) is not ported: it needs a dry path "
-                   "through the stencil kernels' dispatchers and a dry outer iteration of the "
-                   "shard runtime (ROADMAP Queue 1 item 16c)")
+SOLVER_MAX_OUTER = 20_000
 
 
 def _moment_dtype(cfg) -> Optional[str]:
@@ -169,6 +182,77 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
     }
 
 
+def solver_cell(p, n: int = 1024, mode: str = "pfait",
+                max_outer: int = SOLVER_MAX_OUTER, device=None):
+    """The paper's solve, JAX's ``lower_solver_cell`` configuration, built
+    through ``make_runtime``: ``run(x0, b)`` over ``p`` (a shard count,
+    stacked on ``device``, or a ``ShardGroup``, such as a dry one)."""
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), rho=0.95)
+    mon = detection.for_mode(mode, eps_tilde=1e-4, margin=10.0, staleness=4)
+    rcfg = RuntimeConfig(monitor=mon, reduction="nonblocking", inner_sweeps=4,
+                         max_outer=max_outer)
+    return make_runtime("convdiff", rcfg.to_shard_config(), p, n, stencil=st, device=device)
+
+
+def _scaled(one: float, two: float, outer: int) -> float:
+    """A count at ``outer`` outer iterations from the counts at 1 and 2:
+    the work before the loop (and after it) once, and the difference, one
+    iteration, ``outer`` times."""
+    return one + (outer - 1) * (two - one)
+
+
+def lower_solver_cell(multi_pod: bool, n: int = 1024, mode: str = "pfait") -> Dict[str, Any]:
+    """The paper's own workload: the 1-D shard runtime's convdiff solve on
+    shard 0 of 256 (16×16) or 512 (2×16×16) shards, on ``meta``;
+    the record has JAX's keys (no ``xla_*`` ones) and is counted at
+    ``max_outer`` 1 and 2 and scaled to ``SOLVER_MAX_OUTER``."""
+    p = 512 if multi_pod else 256
+    t0 = time.time()
+    cells = []
+    for outer in (1, 2):
+        group = dry_shard_group(p)
+        run = solver_cell(group, n, mode, outer)
+        x0 = torch.zeros((n // p, n, n), dtype=torch.float32, device="meta")
+        cells.append((group, run, (x0, torch.zeros_like(x0))))
+    t_lower = time.time() - t0
+    t0 = time.time()
+    traced = [hlo_analysis.trace_program(run, *args, mesh=group)
+              for group, run, args in cells]
+    t_compile = time.time() - t0
+
+    one, two = (t.stats for t in traced)
+    coll = hlo_analysis.CollectiveStats(
+        **{name: {k: _scaled(getattr(one, attr).get(k, 0.0), v, SOLVER_MAX_OUTER)
+                  for k, v in getattr(two, attr).items()}
+           for name, attr in (("counts", "coll_counts"), ("bytes_alg", "coll_bytes_alg"),
+                              ("bytes_wire", "coll_bytes_wire"))})
+    arg = _nbytes(cells[1][2])
+    out = _nbytes(traced[1].out)
+    temp = max(t.temp_bytes for t in traced)
+    return {
+        "arch": f"convdiff-n{n}-{mode}",
+        "solver_max_outer": SOLVER_MAX_OUTER,
+        "shape": "solver",
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "shards": p,
+        "kind": "solver",
+        "lower_s": round(t_lower, 2),
+        "compile_s": round(t_compile, 2),
+        "memory": {
+            "argument_bytes": int(arg),
+            "output_bytes": int(out),
+            "temp_bytes": int(temp),
+            "alias_bytes": 0,
+            "peak_estimate_bytes": int(arg + out + temp),
+        },
+        "cost": {
+            "flops_per_device": _scaled(one.flops, two.flops, SOLVER_MAX_OUTER),
+            "hbm_bytes_per_device": _scaled(one.hbm_bytes, two.hbm_bytes, SOLVER_MAX_OUTER),
+        },
+        "collectives": coll.as_dict(),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
@@ -179,8 +263,6 @@ def main() -> None:
     ap.add_argument("--out", default="experiments/dryrun_torch.json")
     ap.add_argument("--append", action="store_true")
     args = ap.parse_args()
-    if args.solver or args.solver_only:
-        raise ValueError(SOLVER_DEFERRED)
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")
@@ -195,7 +277,7 @@ def main() -> None:
     t_start = time.time()
     for multi in meshes:
         mesh_name = "2x16x16" if multi else "16x16"
-        for a in archs:
+        for a in archs if not args.solver_only else ():
             for s in shapes:
                 ok, why = cell_is_runnable(get_arch(a), get_shape(s))
                 key = (a, s, mesh_name)
@@ -223,6 +305,17 @@ def main() -> None:
                     print(f"[FAIL] {a} × {s} × {mesh_name}: {e}", flush=True)
                     traceback.print_exc()
                 _save(records, args.out)
+        if args.solver or args.solver_only:
+            try:
+                rec = lower_solver_cell(multi)
+                records.append(rec)
+                print(f"[ok]   solver × {mesh_name}: dry pass {rec['compile_s']}s", flush=True)
+            except Exception as e:  # noqa: BLE001 — recorded, the run fails at its end
+                records.append({"arch": "convdiff", "shape": "solver", "mesh": mesh_name,
+                                "error": f"{type(e).__name__}: {e}"})
+                print(f"[FAIL] solver × {mesh_name}: {e}", flush=True)
+                traceback.print_exc()
+            _save(records, args.out)
 
     n_ok = sum(1 for r in records if "error" not in r and not r.get("skipped"))
     n_fail = sum(1 for r in records if "error" in r)

@@ -21,11 +21,12 @@ three things are added up:
   transfer, and the process-group ops are the collectives' own entries; on a
   live gloo rank the copies that stage a CUDA tensor through host memory
   count, which a dry rank does not make;
-* **collectives**, from the mesh's counter (``ModelMesh.calls``: calls and
-  input bytes by kind and group size), converted here, in one place, to
-  JAX's convention: the **result** bytes of each collective, keyed
-  ``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"`` and
-  ``"all-to-all"``, with wire bytes = result bytes × ``_wire_factor``.
+* **collectives**, from the mesh's counter (``ModelMesh.calls``, or a dry
+  ``ShardGroup``'s: calls and input bytes by kind and group size),
+  converted here, in one place, to JAX's convention: the **result** bytes
+  of each collective, keyed ``"all-reduce"``, ``"all-gather"``,
+  ``"reduce-scatter"``, ``"all-to-all"`` and ``"collective-permute"``, with
+  wire bytes = result bytes × ``_wire_factor``.
 
 JAX's HLO parser (``parse_module``, ``execution_multipliers``,
 ``_trip_count``, the fusion-byte heuristics) has no counterpart: the
@@ -53,7 +54,8 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 # the mesh counter's kind names (``models/collectives.py``) → JAX's
 _KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+         "collective_permute": "collective-permute"}
 
 # allocations: no data moves
 _ALLOC = {torch.ops.aten.empty, torch.ops.aten.empty_strided, torch.ops.aten.empty_like,

@@ -28,7 +28,8 @@ axis name, a tuple of names or None per tensor dimension;
 ``spec_slices`` says which block of a global tensor a rank holds under
 it.  ``make_production_mesh`` only describes the 16×16 or 2×16×16 mesh (no
 group, no device), as the JAX function touches no device at import;
-``dry_rank`` puts one rank on such a layout, on ``meta``.
+``dry_rank`` puts one rank on such a layout, on ``meta``, and
+``dry_shard_group`` one shard of a shard mesh (the solver's dry cell).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import queue
 import time
 import traceback
 import uuid
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -84,7 +85,9 @@ class ShardGroup:
     ``staged_bytes``, the bytes gloo staged between the card and the host,
     ``staged_s`` the host seconds that took (stream synchronisations
     included), and ``wait_s`` the host seconds blocked in transfers and
-    collectives."""
+    collectives.  A dry group (``dry_shard_group``) counts the calls and
+    payload bytes of each (collective kind, group size) in ``calls``, as a
+    ``ModelMesh`` does, for ``launch.hlo_analysis``."""
 
     shape: Tuple[int, ...]
     rank: int
@@ -94,6 +97,7 @@ class ShardGroup:
     staged_bytes: int = 0
     staged_s: float = 0.0
     wait_s: float = 0.0
+    calls: Dict[Tuple[str, int], Tuple[int, int]] = field(default_factory=dict)
 
     @property
     def p(self) -> int:
@@ -102,6 +106,12 @@ class ShardGroup:
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return shard_axis_names(self.axis, len(self.shape))
+
+    def count(self, kind: str, nbytes: int, group_size: int) -> None:
+        """One collective of ``kind`` over ``group_size`` ranks whose input
+        (this rank's payload) holds ``nbytes``."""
+        n, b = self.calls.get((kind, group_size), (0, 0))
+        self.calls[kind, group_size] = (n + 1, b + int(nbytes))
 
 
 def shard_axes_of(group: ShardGroup) -> Tuple[str, ...]:
@@ -500,6 +510,18 @@ def dry_rank(mesh: ModelMesh, coords: Optional[Sequence[int]] = None) -> ModelMe
     rank = int(np.ravel_multi_index(coords, mesh.devices_shape))
     return ModelMesh(mesh.axis_names, mesh.devices_shape, coords=coords, rank=rank,
                      backend="dry", device=torch.device("meta"))
+
+
+def dry_shard_group(shape: Union[int, Sequence[int]], rank: int = 0) -> ShardGroup:
+    """Shard ``rank`` of a shard mesh of ``shape`` that computes no value:
+    device ``meta``, backend ``"dry"``, no process group.  A shard runtime
+    over it runs this rank's program on ``meta`` tensors, its transport
+    staging and waiting for nothing and counting each collective in
+    ``calls`` (``launch/dryrun.py:lower_solver_cell``)."""
+    shape = mesh_shape(shape)
+    if not 0 <= int(rank) < math.prod(shape):
+        raise ValueError(f"rank {rank} is not on the shard mesh {shape}")
+    return ShardGroup(shape=shape, rank=int(rank), backend="dry", device=torch.device("meta"))
 
 
 def make_host_mesh(model_axis: int = 1, *, device: DeviceLike = None) -> ModelMesh:

@@ -155,7 +155,11 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] 
     y = 0
     for i in range(W):   # the JAX sum's order
         y = y + xp[:, i:i + S, :] * w[i][None, None, :]
-    new_state = xp[:, -(W - 1):, :] if W > 1 else x.new_zeros((x.shape[0], 0, x.shape[2]))
+    # a copy of the W − 1 tail rows, as JAX's slice is: a view would keep the
+    # whole padded input alive in the cache (``.contiguous()`` copies
+    # nothing at B = 1)
+    new_state = xp[:, -(W - 1):, :].clone() if W > 1 else \
+        x.new_zeros((x.shape[0], 0, x.shape[2]))
     return F.silu(y), new_state
 
 

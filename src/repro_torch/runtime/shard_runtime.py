@@ -77,6 +77,7 @@ from repro_torch.kernels.jacobi3d.jacobi3d import fused_sweep_residual_halo
 from repro_torch.kernels.residual_norm import ops as rn_ops
 from repro_torch.launch.mesh import ShardGroup, local_slices, mesh_shape, place_blocks
 from repro_torch.runtime.transport import (
+    DryTransport,
     Pending,
     ReductionPipeline,
     make_transport,
@@ -260,8 +261,10 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
     runs the local shards (``xs``, updated in place) to detection or
     ``max_outer`` and returns ``(outer_iters, monitor_state, trace)``.
     Both transports run this loop; every rank leaves it at the same step,
-    since ``converged`` is decided from the reduced value."""
+    since ``converged`` is decided from the reduced value.  A dry rank
+    (``meta``) cannot read ``converged`` and runs ``max_outer`` steps."""
     p, device = transport.p, transport.device
+    dry = isinstance(transport, DryTransport)
     mon_cfg = cfg.effective_monitor()
     ord_ = mon_cfg.ord
     inner = _per_shard(cfg.inner_sweeps, p, "inner_sweeps", mesh_shape)
@@ -322,7 +325,7 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
                 mon_cfg, mon, reductions.consume(),
                 exact_residual_fn=lambda: transport.exact(prob.exact_all(xs, fresh), ord_))
             k += 1
-            if bool(mon.converged):  # the loop's one device→host sync
+            if not dry and bool(mon.converged):  # the loop's one device→host sync
                 break
         return k, mon, reductions.drain()
 
@@ -360,7 +363,14 @@ def _blocks(a, transport, slices: Sequence[tuple], gshape: Tuple[int, ...],
 def _result(transport, xs, assemble, mon, k: int, inner: np.ndarray,
             trace: torch.Tensor) -> ShardRunResult:
     """The run's result, the same on every rank: ``x`` gathered to the
-    global layout, ``local_sweeps`` the per-shard vector."""
+    global layout, ``local_sweeps`` the per-shard vector.  A dry rank
+    returns its own block and the monitor's tensors as they lie, as the
+    JAX program returns its sharded state: no gather."""
+    if isinstance(transport, DryTransport):
+        (x,) = xs.values()
+        return ShardRunResult(
+            x=x, residual=mon.detected_residual, outer_iters=k, converged=mon.converged,
+            local_sweeps=k * inner, verifications=mon.verifications, trace=trace)
     return ShardRunResult(
         x=assemble(transport.all_gather(xs)), residual=mon.detected_residual,
         outer_iters=k, converged=bool(mon.converged), local_sweeps=k * inner,
@@ -417,9 +427,10 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
         zy = torch.zeros((bx, n), dtype=dtype, device=dev)
 
         def exchange(xs):
+            # two shift directions, the JAX program's two permutes
             got = transport.route({i: {**({(i - 1, 0): xs[i][0]} if i > 0 else {}),
                                        **({(i + 1, 0): xs[i][-1]} if i < p - 1 else {})}
-                                   for i in xs}).wait()
+                                   for i in xs}, permutes=2).wait()
             return {i: (got[i].get((i - 1, 0), zx), got[i].get((i + 1, 0), zx))
                     for i in xs}
 

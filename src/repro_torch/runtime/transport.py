@@ -8,7 +8,10 @@ shard loops (``runtime/shard_runtime.py:_make_loop``,
   device; a message is a reference to the sender's tensor and a reduction a
   sum/max over the stacked lanes (the JAX package's ``psum``/``pmax``).
 * ``GroupTransport`` — one shard per rank of a ``torch.distributed``
-  process group (``launch.mesh.ShardGroup``, gloo or NCCL).
+  process group (``launch.mesh.ShardGroup``, gloo or NCCL); on a dry
+  group (``launch.mesh.dry_shard_group``, ``meta``) a ``DryTransport``,
+  which moves nothing and counts each collective as XLA's SPMD program
+  would hold it.
 
 Every shard is keyed by its row-major rank; a transport's ``local`` shards
 are all ``p`` of them (stacked) or the rank's own (group).  The operations,
@@ -20,12 +23,14 @@ each taking and returning ``{shard: value}`` maps over the local shards:
   the paper's ``MPI_Iallreduce``.
 * ``exact(contribs, ord) -> Tensor`` — σ of a blocking reduction (NFAIS2's
   verification), issued on every rank.
-* ``route(sends) -> Pending`` — point-to-point messages.  ``sends[i]``
-  maps ``(j, key)`` to the tensor shard i sends shard j; the pattern is
-  symmetric (j sends i a tensor of the same shape under the same key), and
-  the result maps ``(j, key)`` to what shard i received from j.  Face
-  planes and recursive doubling's XOR-partner round go through it, over a
-  group as one ``batch_isend_irecv``.
+* ``route(sends, permutes=None) -> Pending`` — point-to-point messages.
+  ``sends[i]`` maps ``(j, key)`` to the tensor shard i sends shard j; the
+  pattern is symmetric (j sends i a tensor of the same shape under the
+  same key), and the result maps ``(j, key)`` to what shard i received
+  from j.  Face planes and recursive doubling's XOR-partner round go
+  through it, over a group as one ``batch_isend_irecv``.  ``permutes`` is
+  the number of shift directions of the exchange, which only a dry
+  transport reads (default: one a message).
 * ``all_gather(blocks) -> list`` — every shard's block, in rank order.
 
 ``replica_mean`` averages equal-shaped blocks over the shards (the JAX
@@ -98,7 +103,7 @@ class StackedTransport:
     def exact(self, contribs: Dict[int, torch.Tensor], ord: float) -> torch.Tensor:
         return res.psum_sigma(self._stack(contribs), ord)
 
-    def route(self, sends: Msgs) -> Pending:
+    def route(self, sends: Msgs, permutes=None) -> Pending:
         recvs: Msgs = {i: {} for i in self.local}
         for j, msgs in sends.items():
             for (i, key), t in msgs.items():
@@ -175,7 +180,7 @@ class GroupTransport:
         self._wait([dist.all_reduce(wire, op=self._op(ord), async_op=True)])
         return res.sigma(self._in(wire), ord)
 
-    def route(self, sends: Msgs) -> Pending:
+    def route(self, sends: Msgs, permutes=None) -> Pending:
         msgs = self._own(sends)
         keys = list(msgs)
         wires = self._out([msgs[k] for k in keys])
@@ -196,6 +201,34 @@ class GroupTransport:
         return [self._in(o) for o in outs]
 
 
+class DryTransport(GroupTransport):
+    """One shard of a dry group (``launch.mesh.dry_shard_group``): tensors
+    are on ``meta``, nothing is staged, sent or waited for, and each call
+    counts its collective in the group's ``calls`` as XLA's SPMD program of
+    the JAX runtime holds it: a reduction is one ``all_reduce`` of the lane,
+    and an exchange one ``collective_permute`` of one message a shift
+    direction, whether or not this rank has a peer that way (every device
+    takes part in each of the program's permutes; rank 0 of a 1-D chain
+    sends one face, and the program has two permutes).  It carries what
+    the solver cell runs (``launch/dryrun.py:lower_solver_cell``): its
+    ``exact`` and ``all_gather`` are a live group's, which need a process
+    group."""
+
+    def reduce(self, lanes: Dict[int, torch.Tensor], ord: float) -> Pending:
+        lane = self._own(lanes).reshape(1)
+        self.group.count("all_reduce", lane.nbytes, self.p)
+        return Pending.done(torch.empty_like(lane).reshape(()))
+
+    def route(self, sends: Msgs, permutes=None) -> Pending:
+        msgs = self._own(sends)
+        if msgs:
+            nbytes = max(t.nbytes for t in msgs.values())
+            for _ in range(len(msgs) if permutes is None else permutes):
+                self.group.count("collective_permute", nbytes, self.p)
+        return Pending.done({self.group.rank: {k: torch.empty_like(t)
+                                               for k, t in msgs.items()}})
+
+
 def replica_mean(transport, blocks: Dict[int, torch.Tensor]) -> torch.Tensor:
     """The mean over all shards of their equal-shaped blocks, on every
     shard: the JAX package's ``pmean``.  An all-gather and a local mean, so
@@ -205,10 +238,11 @@ def replica_mean(transport, blocks: Dict[int, torch.Tensor]) -> torch.Tensor:
 
 
 def make_transport(p, device: torch.device):
-    """The transport of ``p``: a ``ShardGroup`` (one shard per rank), or a
-    shard count (all shards stacked on ``device``)."""
+    """The transport of ``p``: a ``ShardGroup`` (one shard per rank; a dry
+    one counts and moves nothing), or a shard count (all shards stacked on
+    ``device``)."""
     if hasattr(p, "backend"):
-        return GroupTransport(p)
+        return DryTransport(p) if p.backend == "dry" else GroupTransport(p)
     return StackedTransport(int(p), device)
 
 

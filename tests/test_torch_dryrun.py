@@ -25,7 +25,8 @@
 * ``lower_cell`` completes on every reduced arch × the four shape kinds
   on a small dry layout, and on one full-width cell at 16×16; the record
   has every key ``benchmarks/roofline.py:analyze_record`` reads, and the
-  skips are ``cell_is_runnable``'s; ``--solver`` raises naming item 16c.
+  skips are ``cell_is_runnable``'s; ``--solver-only --mesh single`` writes
+  one solver record (``tests/test_torch_solver_cell.py`` holds it to JAX's).
 """
 import math
 import sys
@@ -288,15 +289,18 @@ def test_full_width_cell_and_roofline():
 
 
 def test_cli_skips_and_solver(monkeypatch, tmp_path):
+    import json
+
     out = tmp_path / "dry.json"
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--solver", "--out", str(out)])
-    with pytest.raises(ValueError, match="item 16c"):
-        dryrun.main()
+    monkeypatch.setattr(sys, "argv", ["dryrun", "--solver-only", "--mesh", "single",
+                                      "--out", str(out)])
+    dryrun.main()
+    (rec,) = json.loads(out.read_text())
+    assert rec["kind"] == "solver" and rec["mesh"] == "16x16" and "error" not in rec
     # a skipped cell is JAX's, word for word
     monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "qwen2-1.5b", "--shape", "long_500k",
                                       "--mesh", "single", "--out", str(out)])
     dryrun.main()
-    import json
 
     rec = json.loads(out.read_text())
     assert rec == [{"arch": "qwen2-1.5b", "shape": "long_500k", "mesh": "16x16",

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke.py`` loads neither ``jax`` nor any module of ``repro``; entry
-points default to the card and refuse to fall back to the CPU."""
+``chip_smoke.py`` loads neither ``jax`` nor any module of ``repro``, and no
+example under ``examples/torch/`` imports either; entry points default to
+the card and refuse to fall back to the CPU."""
 import dataclasses
 import os
 import shutil
@@ -62,6 +63,40 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "ISOLATED" in out.stdout
+
+
+_EXAMPLES = textwrap.dedent("""
+    import ast, pathlib, runpy, sys
+    root = pathlib.Path("examples/torch")
+    files = sorted(root.glob("*.py"))
+    assert [f.name for f in files] == sorted(
+        ["quickstart.py", "convdiff_async.py", "shard_runtime_demo.py",
+         "reliability_sweep.py", "serve_lm.py", "train_lm.py", "elastic_restart.py"]), files
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (f.name, name)
+        runpy.run_path(str(f), run_name="example")   # module level only: main() is not run
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.") or m == "repro"
+                    or m.startswith("repro."))
+    assert not leaked, leaked
+    print("EXAMPLES", len(files))
+""")
+
+
+def test_examples_import_no_jax_and_no_repro():
+    """Every ``examples/torch/`` twin imports neither ``jax`` nor ``repro``,
+    in its source and once loaded."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "EXAMPLES 7" in out.stdout
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

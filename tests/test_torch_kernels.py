@@ -526,6 +526,10 @@ def test_default_solver_config_on_card_launches_kernels(fake_card, sweep, fuse,
 
 
 def test_tensors_off_cpu_and_cuda_raise():
+    # ``meta`` alone is a dry rank's path (tests/test_torch_solver_cell.py);
+    # inputs that mix it with the CPU raise
     a = torch.empty((4, 4, 4), device="meta")
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
-        trk.diff_norm_partials(a, a)
+        trk.diff_norm_partials(a, torch.empty((4, 4, 4)))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        trk.diff_norm_partials(torch.empty((4, 4, 4)), a)
