@@ -1,0 +1,287 @@
+"""The harness's pieces on the CPU: finding files by name, the result
+line, the isolation of what runs on the card, the copied work counts and
+the profiler-trace reduction."""
+from __future__ import annotations
+
+import ast
+import hashlib
+import json
+import math
+import re
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from perfbench import harness, profile, spec
+from perfbench.metrics import _roofline
+from perfbench.tests._tiny import cells, tiny_root
+from perfbench.traffic import Mix, solve_seed
+
+BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+@pytest.mark.parametrize("workload", cells())
+def test_cell_files_are_found_by_name(workload):
+    cell = spec.load(workload)
+    assert cell.config["family"] == "convdiff"
+    Mix.read(cell.traffic)
+    assert hasattr(spec.family(cell), "Problem")
+    readers = spec.readers(cell)
+    assert set(readers) == {m["name"] for m in cell.per_layer}
+    assert all(callable(r.read) for r in readers.values())
+    assert {"outer_ms", "setup_s"} <= {m["name"] for m in cell.end_to_end}
+
+
+def test_names_units_and_lengths_keep_to_the_contract():
+    items = BENCH["configs"] + BENCH["workloads"] + BENCH["end_to_end"] + BENCH["per_layer"]
+    for it in items:
+        assert NAME.match(it["name"]), it["name"]
+    for w in BENCH["workloads"]:
+        assert NAME.match(w["traffic"]) and NAME.match(w["config"])
+        assert len(w["why"]) <= 200 and w["chips"] == 1
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+    for m in BENCH["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+    for c in BENCH["configs"]:
+        assert all(NAME.match(k) for k in c["reduced"])
+        assert (spec.ROOT / c["file"]).is_file()
+    assert len((spec.ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    layers = {m["layer"] for m in BENCH["per_layer"]}
+    perf = (spec.ROOT / "PERF.md").read_text()
+    assert all(f"**{layer}**" in perf for layer in layers)
+
+
+def _digest(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted((root / "perfbench").rglob("*")) if p.is_file()}
+
+
+def test_a_new_config_mix_and_metric_need_only_new_files(tmp_path):
+    root = tiny_root(tmp_path)
+    before = _digest(root)
+    cfg = json.loads((root / "perfbench/configs/tiny-convdiff-n1024-p256.json").read_text())
+    cfg["n"] = 8
+    (root / "perfbench/configs/convdiff-n8-p2.json").write_text(json.dumps(dict(cfg, shards=2)))
+    mix = json.loads((root / "perfbench/traffic/pfait-k4-inner4.json").read_text())
+    mix["knobs"]["inner_sweeps"] = 2
+    (root / "perfbench/traffic/pfait-k2-inner2.json").write_text(json.dumps(mix))
+    (root / "perfbench/metrics/outer_count.py").write_text(
+        "def read(ctx):\n    return ctx.outers\n")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "convdiff-n8-p2", "source": "https://arxiv.org/abs/2206.15418",
+                             "file": "perfbench/configs/convdiff-n8-p2.json", "reduced": ["n"],
+                             "why": "a new configuration"})
+    bench["workloads"].append({"name": "convdiff-n8-p2.k2", "config": "convdiff-n8-p2",
+                               "traffic": "pfait-k2-inner2", "chips": 1, "why": "a new cell"})
+    bench["per_layer"].append({"name": "outer_count", "unit": "outer", "better": "higher",
+                               "source": "program_counter", "layer": "shard loop",
+                               "moves": "outer_ms", "workloads": ["convdiff-n8-p2.k2"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    files = {k: v for k, v in _digest(root).items() if k in before}
+    assert files == before
+    cell = spec.load("convdiff-n8-p2.k2", root)
+    run = harness.run_cell(cell, 5, 0.2, False, "cpu", time.perf_counter(), root=root)
+    assert harness.passes(run.checks), run.checks
+    run.traced = {"outers": 7, "window_s": 1.0, "busy_s": 0.5, "kernel_count": 70,
+                  "kernel_s": 0.4, "syncs": 7, "sync_outers": 7, "breakdown": {}}
+    got = harness.per_layer(cell, run, "cpu", root)
+    assert got["outer_count"] == 7 and got["launches_per_outer"] == 10
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_result_line_format(tmp_path, trace):
+    root = tiny_root(tmp_path)
+    cell = spec.load("tiny-convdiff-n1024-p256.blocking", root)
+    run = harness.run_cell(cell, 2 ** 31 + 17, 0.3, False, "cpu", time.perf_counter(), root=root)
+    if trace:
+        run.traced = {"outers": 20, "window_s": 0.5, "busy_s": 0.2, "kernel_count": 400,
+                      "kernel_s": 0.15, "syncs": 21, "sync_outers": 20,
+                      "breakdown": {"device_ops": [["k", 0.1]], "idle_gaps": [["aten::mv", 0.2]]}}
+    res = json.loads(json.dumps(harness.result(cell, run, bool(trace), "NVIDIA H100 80GB HBM3",
+                                               root)))
+    keys = list(res)
+    assert keys[:5] == ["correct", "attempted", "failed", "metrics", "device"]
+    assert keys[-1] == "checks"
+    assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 1
+    assert res["device"]["platform"] == "gpu" and res["device"]["count"] == 1
+    want = cell.per_layer if trace else cell.end_to_end
+    assert set(res["metrics"]) == {m["name"] for m in want}
+    for m in want:
+        if m["name"] in res["metrics"]:
+            assert res["metrics"][m["name"]]["unit"] == m["unit"]
+            assert res["metrics"][m["name"]]["value"] > 0
+    assert ("breakdown" in res) == bool(trace)
+    if trace:
+        assert {"busy_s", "window_s"} <= set(res["device"])
+    assert all({"value", "limit"} == set(c) for c in res["checks"].values())
+
+
+def test_run_refuses_without_a_card(capsys, monkeypatch):
+    from perfbench import run as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--workload", "convdiff-n1024-p256.blocking", "--seed", "1",
+                   "--seconds", "1", "--trace", "0"])
+    assert rc != 0 and capsys.readouterr().out == ""
+
+
+def test_forbidden_modules_are_named_by_whole_top_level_name(monkeypatch):
+    from perfbench import run as cli
+
+    for name in [m for m in list(sys.modules) if m.split(".")[0] in cli.FORBIDDEN]:
+        monkeypatch.delitem(sys.modules, name)
+    assert cli.forbidden_loaded() == []
+    monkeypatch.setitem(sys.modules, "repro_torch_like", sys)
+    assert cli.forbidden_loaded() == []
+    monkeypatch.setitem(sys.modules, "repro.core", sys)
+    assert cli.forbidden_loaded() == ["repro"]
+
+
+def _imports(path: Path) -> set:
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            out.add(node.module)
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(spec.ROOT).as_posix() for p in
+                                        (spec.ROOT / "perfbench").rglob("*.py")
+                                        if "tests" not in p.parts))
+def test_nothing_that_runs_on_the_card_imports_jax_or_the_jax_package(path):
+    tops = {m.split(".")[0] for m in _imports(spec.ROOT / path)}
+    assert not tops & {"jax", "jaxlib", "flax", "repro"}, tops
+    if "/reference/" in path:
+        assert "repro_torch" not in tops, tops
+
+
+def test_copied_work_counts_match_the_kernels_at_the_cell_block():
+    from repro_torch.kernels.jacobi3d import jacobi3d
+    from repro_torch.kernels.residual_norm import residual_norm
+
+    cell = spec.load("convdiff-n1024-p256.pfait")
+    cfg, mix = cell.config, Mix.read(cell.traffic)
+    n, p = cfg["n"], cfg["shards"]
+    block = (n // p, n, n)
+    cells_ = math.prod(block)
+    item = _roofline.ITEMSIZE[cfg["dtype"]]
+    sweep_ops, sweep_bytes = jacobi3d.work(block, item, "sweep")
+    res_ops, _ = jacobi3d.work(block, item, "residual")
+    norm_ops, _ = residual_norm.work(cells_, item)
+    nbytes, ops = _roofline.convdiff_outer(cfg, mix)
+    assert ops == p * (mix.inner_sweeps * sweep_ops + norm_ops)
+    blocking = Mix.read(spec.load("convdiff-n1024-p256.blocking").traffic)
+    assert _roofline.convdiff_outer(cfg, blocking)[1] == p * (4 * sweep_ops + res_ops)
+    # the least bytes: x and b read and x written once; the kernels move more
+    assert nbytes == 3 * item * n ** 3 < p * mix.inner_sweeps * sweep_bytes
+
+
+def test_solve_seeds_are_distinct_and_fit_63_bits():
+    seeds = {solve_seed(s, i) for s in (0, 1, 2 ** 31 + 5, 2 ** 40) for i in range(-1, 50)}
+    assert len(seeds) == 4 * 51 and max(seeds) < 2 ** 63
+
+
+def test_trace_reduction_unions_device_time_and_labels_gaps():
+    ev = [{"ph": "X", "cat": "user_annotation", "name": profile.WINDOW, "ts": 0, "dur": 100,
+           "tid": 1},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::cat", "ts": 10, "dur": 30, "tid": 1},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::copy_", "ts": 15, "dur": 5, "tid": 1},
+          {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 10},
+          {"ph": "X", "cat": "kernel", "name": "k2", "ts": 5, "dur": 10},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 40, "dur": 20},
+          {"ph": "X", "cat": "kernel", "name": "k1", "ts": 90, "dur": 10}]
+    got = profile.read_trace(ev)
+    assert got["window_s"] == pytest.approx(100e-6)
+    assert got["busy_s"] == pytest.approx(45e-6)
+    assert got["kernel_count"] == 3 and got["kernel_s"] == pytest.approx(30e-6)
+    gaps = dict(got["breakdown"]["idle_gaps"])
+    assert gaps["aten::cat"] == pytest.approx(25e-6)
+    assert gaps["host, outside any operator"] == pytest.approx(30e-6)
+    assert dict(got["breakdown"]["device_ops"])["k1"] == pytest.approx(20e-6)
+
+
+def _linear(outers: int) -> dict:
+    """Readings of a sub-window: a fixed cost for the solve's start and
+    result, and a steady cost an outer iteration."""
+    return {"outers": outers, "window_s": 0.3 + 0.2 * outers, "busy_s": 0.1 + 0.05 * outers,
+            "kernel_count": 40 + 7 * outers, "kernel_s": 0.01 + 0.04 * outers,
+            "breakdown": {"device_ops": [["k", 0.04 * outers]], "idle_gaps": []}}
+
+
+@pytest.mark.parametrize("workload", cells())
+def test_traced_readings_are_the_long_sub_window_less_the_short(tmp_path, monkeypatch, workload):
+    root = tiny_root(tmp_path)
+    cell = spec.load(f"tiny-{workload}", root)
+    mix = Mix.read(cell.traffic)
+    prob = spec.family(cell, root).Problem(cell.config, mix, 11, "cpu")
+    program = harness.Program(prob, prob.inputs)
+    monkeypatch.setattr(harness, "PROFILE_S", 0.0)
+    monkeypatch.setattr(harness, "SYNC_S", 0.0)
+    monkeypatch.setattr(profile, "profiled", lambda work: _linear(work()))
+    monkeypatch.setattr(profile, "count_syncs", lambda work: (lambda o: (o + 2, o))(work()))
+    got = harness._traced(program, mix, 1.0, 0)
+    assert got["outers"] == harness.PROFILE_OUTER
+    assert got["kernel_count"] == 7 * harness.PROFILE_OUTER
+    assert got["window_s"] == pytest.approx(0.2 * harness.PROFILE_OUTER)
+    assert got["breakdown"] == _linear(2 * harness.PROFILE_OUTER)["breakdown"]
+    # syncs over one whole solve, as the window runs it
+    whole = program.run(0, mix.max_outer, torch.device("cpu"))
+    assert whole.converged and got["sync_outers"] == whole.outer
+    assert got["syncs"] == whole.outer + 2
+    assert sorted(program._built) == [harness.PROFILE_OUTER, 2 * harness.PROFILE_OUTER,
+                                      mix.max_outer]
+
+
+@pytest.mark.parametrize("left,rate,cap", [(51.0, 0.2, 255), (0.01, 0.2, 1), (51.0, 1e-4, 20000),
+                                           (0.5, 0.25, 2)])
+def test_a_solve_is_capped_at_the_outer_iterations_left(left, rate, cap):
+    mix = Mix.read(json.loads((spec.ROOT / "perfbench/traffic/pfait-k4-inner4.json").read_text()))
+    assert harness._cap(mix, left, rate) == cap
+
+
+@pytest.mark.parametrize("workload", cells())
+def test_set_up_stages_are_timed_in_order(tmp_path, workload):
+    root = tiny_root(tmp_path)
+    cell = spec.load(f"tiny-{workload}", root)
+    t0 = time.perf_counter()
+    run = harness.run_cell(cell, 2 ** 31 + 3, 0.2, False, "cpu", t0, root=root)
+    assert list(run.setup_stages) == ["process and imports", "CUDA context",
+                                      "first warm-up solve", "second warm-up solve",
+                                      "the window's first runtime"]
+    assert all(v >= 0 for v in run.setup_stages.values())
+    assert sum(run.setup_stages.values()) <= run.setup_s + 1e-3
+    assert harness.passes(run.checks), run.checks
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_a_reader_with_nothing_to_read_returns_nothing(metric):
+    reader = spec.load_module(spec.ROOT / "perfbench" / "metrics" / f"{metric}.py")
+    cell = spec.load(cells()[0])
+    empty = dict(outers=0, window_s=0.0, busy_s=0.0, kernel_count=0, kernel_s=0.0, syncs=0,
+                 sync_outers=0, outer_s=0.0)
+    for kind in ("NVIDIA H100 80GB HBM3", "a card with no peaks in the table"):
+        ctx = SimpleNamespace(config=cell.config, mix=Mix.read(cell.traffic), device_kind=kind,
+                              **empty)
+        assert reader.read(ctx) is None
+
+
+def test_device_time_past_the_window_annotation_still_counts():
+    # the device's clock a little ahead of the host's: the last kernel
+    # seems to start after the annotation ends
+    ev = [{"ph": "X", "cat": "user_annotation", "name": profile.WINDOW, "ts": 0, "dur": 100,
+           "tid": 1},
+          {"ph": "X", "cat": "kernel", "name": "k1", "ts": 20, "dur": 30},
+          {"ph": "X", "cat": "kernel", "name": "cat", "ts": 101, "dur": 9}]
+    got = profile.read_trace(ev)
+    assert got["kernel_count"] == 2 and got["kernel_s"] == pytest.approx(39e-6)
+    assert got["window_s"] == pytest.approx(110e-6) and got["busy_s"] == pytest.approx(39e-6)
