@@ -45,6 +45,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import residual as res
+from repro_torch.core.spans import host_read
 from repro_torch.kernels import _build
 
 MODES = ("sync", "pfait", "nfais2", "nfais5")
@@ -194,7 +195,7 @@ def decide(
             # no verifier supplied: the stale value stands in (the caller
             # accepts NFAIS5-like semantics)
             exact = torch.where(fire, visible, inf)
-        elif bool(fire):
+        elif host_read(fire):
             exact = exact_residual_fn().to(torch.float32).reshape(())
         else:
             exact = inf

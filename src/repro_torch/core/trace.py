@@ -20,9 +20,10 @@ accept.  ``EngineTraceObserver`` records an event-engine run
 (``core/async_engine.py``) with the engine's virtual timestamps.
 ``trace_from_shard_run``
 (and ``trace_from_train_run``) turns a shard (training) run into a trace:
-the runtime's loop does not timestamp its own events, so per-step
-timestamps are the measured wall interpolated over the outer steps, marked
-``synthetic_t`` in the header.  ``trace_from_elastic_report`` writes the
+per-step timestamps stay the measured wall interpolated over the outer
+steps, marked ``synthetic_t`` in the header; the loop's measured phase
+times are its spans' (``core/spans.py``), which a trace does not carry.
+``trace_from_elastic_report`` writes the
 elastic driver's segments and membership events.
 """
 from __future__ import annotations

@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels.jacobi3d.jacobi3d import (
     fused_rbgs_sweep_residual,
     fused_rbgs_sweep_residual_halo,
@@ -76,6 +77,11 @@ def _assemble(x: torch.Tensor, ghosts, pad: int, buf) -> torch.Tensor:
     for face, idx in zip(ghosts, ((lo, ys, z), (hi, ys, z), (xs, ylo, z), (xs, yhi, z))):
         if face is not None:
             g[idx] = face
+    if spans.counting():
+        # a fresh block's zero fill, then the interior and each face written
+        spans.count("ghost_bytes", g.element_size() * (
+            (g.numel() if buf is None else 0) + x.numel()
+            + sum(face.numel() for face in ghosts if face is not None)))
     return g
 
 

@@ -72,6 +72,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import detection
 from repro_torch.core import residual as res
 from repro_torch.core.reduction import get_reduction
+from repro_torch.core.spans import host_read, span
 from repro_torch.kernels.jacobi3d import ops as jac_ops
 from repro_torch.kernels.jacobi3d.jacobi3d import fused_sweep_residual_halo
 from repro_torch.kernels.residual_norm import ops as rn_ops
@@ -291,42 +292,51 @@ def _make_loop(cfg: ShardRuntimeConfig, transport,
         partial = visible = dict.fromkeys(local, inf)
         reductions = ReductionPipeline(mon_cfg.staleness, ord_, cfg.trace_len, device)
         mon = detection.init_state(mon_cfg, device)
-        k = 0
-        while k < cfg.max_outer:
-            if prob.begin is not None:
-                prob.begin(k)
-            ghosts = {i: _ring_read(gring, k - int(delay[i]))[i] for i in local}
-            for i in local:
-                for _ in range(int(inner[i]) - (0 if blocking else 1)):
-                    xs[i] = prob.sweep(i, xs[i], ghosts[i])
-            # overlap: the new faces are shipped while the full blocks sweep
-            shipped = prob.ship({i: prob.faces(i, xs[i], ghosts[i]) for i in local}) \
-                if overlapped else None
-            if not blocking:
-                news, contribs = prob.sweep_all(xs, ghosts)
-                xs.update(news)
-            fresh = shipped.wait() if overlapped else prob.exchange(xs)
-            _ring_write(gring, fresh, k + 1)
-            # barrier mode: detection pays a residual-only pass over the
-            # fresh post-exchange state, every check
-            if blocking:
-                contribs = prob.exact_all(xs, fresh)
-            lanes = {}
-            for i in local:
-                _ring_write(crings[i], contribs[i], k)
-                lanes[i] = _ring_read(crings[i], k - int(lag[i]))
-            if butterfly:
-                partial, visible = _butterfly_step(transport, lanes, partial, visible,
-                                                   k, rounds, ord_)
-                reductions.launch(Pending.done(visible[local[0]]))
-            else:
-                reductions.launch(transport.reduce(lanes, ord_))
-            mon = detection.decide(
-                mon_cfg, mon, reductions.consume(),
-                exact_residual_fn=lambda: transport.exact(prob.exact_all(xs, fresh), ord_))
-            k += 1
-            if not dry and bool(mon.converged):  # the loop's one device→host sync
-                break
+        k, stop = 0, False
+        while k < cfg.max_outer and not stop:
+            with span("shard.outer"):
+                if prob.begin is not None:
+                    prob.begin(k)
+                ghosts = {i: _ring_read(gring, k - int(delay[i]))[i] for i in local}
+                with span("shard.sweeps"):
+                    for i in local:
+                        for _ in range(int(inner[i]) - (0 if blocking else 1)):
+                            xs[i] = prob.sweep(i, xs[i], ghosts[i])
+                    # overlap: the new faces are shipped while the full blocks sweep
+                    shipped = prob.ship({i: prob.faces(i, xs[i], ghosts[i]) for i in local}) \
+                        if overlapped else None
+                if not blocking:
+                    with span("shard.contrib"):
+                        news, contribs = prob.sweep_all(xs, ghosts)
+                        xs.update(news)
+                with span("shard.exchange"):
+                    fresh = shipped.wait() if overlapped else prob.exchange(xs)
+                    _ring_write(gring, fresh, k + 1)
+                # barrier mode: detection pays a residual-only pass over the
+                # fresh post-exchange state, every check
+                if blocking:
+                    with span("shard.exact"):
+                        contribs = prob.exact_all(xs, fresh)
+                with span("shard.reduce"):
+                    lanes = {}
+                    for i in local:
+                        _ring_write(crings[i], contribs[i], k)
+                        lanes[i] = _ring_read(crings[i], k - int(lag[i]))
+                    if butterfly:
+                        partial, visible = _butterfly_step(transport, lanes, partial,
+                                                           visible, k, rounds, ord_)
+                        reductions.launch(Pending.done(visible[local[0]]))
+                    else:
+                        reductions.launch(transport.reduce(lanes, ord_))
+                with span("shard.decide"):
+                    mon = detection.decide(
+                        mon_cfg, mon, reductions.consume(),
+                        exact_residual_fn=lambda: transport.exact(prob.exact_all(xs, fresh),
+                                                                  ord_))
+                k += 1
+                if not dry:
+                    with span("shard.sync"):   # the loop's one device→host sync
+                        stop = host_read(mon.converged)
         return k, mon, reductions.drain()
 
     return loop
@@ -360,6 +370,14 @@ def _blocks(a, transport, slices: Sequence[tuple], gshape: Tuple[int, ...],
                         dtype, gshape=gshape, what=what)
 
 
+def _solve_span(run: Callable) -> Callable:
+    """``run`` inside a ``shard.solve`` span."""
+    def solve(*args) -> ShardRunResult:
+        with span("shard.solve"):
+            return run(*args)
+    return solve
+
+
 def _result(transport, xs, assemble, mon, k: int, inner: np.ndarray,
             trace: torch.Tensor) -> ShardRunResult:
     """The run's result, the same on every rank: ``x`` gathered to the
@@ -371,10 +389,11 @@ def _result(transport, xs, assemble, mon, k: int, inner: np.ndarray,
         return ShardRunResult(
             x=x, residual=mon.detected_residual, outer_iters=k, converged=mon.converged,
             local_sweeps=k * inner, verifications=mon.verifications, trace=trace)
-    return ShardRunResult(
-        x=assemble(transport.all_gather(xs)), residual=mon.detected_residual,
-        outer_iters=k, converged=bool(mon.converged), local_sweeps=k * inner,
-        verifications=int(mon.verifications), trace=trace)
+    with span("shard.result"):
+        return ShardRunResult(
+            x=assemble(transport.all_gather(xs)), residual=mon.detected_residual,
+            outer_iters=k, converged=host_read(mon.converged), local_sweeps=k * inner,
+            verifications=host_read(mon.verifications), trace=trace)
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +480,7 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
             _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
         return _result(transport, xs, torch.cat, mon, k, inner, trace)
 
-    return run
+    return _solve_span(run)
 
 
 # ---------------------------------------------------------------------------
@@ -602,7 +621,7 @@ def _make_convdiff_mesh_runtime(cfg: ShardRuntimeConfig,
         k, mon, trace = loop(prob, xs)   # sweeps return new blocks
         return _result(transport, xs, assemble, mon, k, inner, trace)
 
-    return run
+    return _solve_span(run)
 
 
 # ---------------------------------------------------------------------------
@@ -682,7 +701,7 @@ def make_pagerank_runtime(cfg: ShardRuntimeConfig,
             _ShardProblem(exchange, sweep, sweep_contrib, exact_contrib), xs)
         return _result(transport, xs, torch.cat, mon, k, inner, trace)
 
-    return run
+    return _solve_span(run)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import detection
 from repro_torch.core import residual as res
+from repro_torch.core import spans
 from repro_torch.kernels import _build
 from repro_torch.kernels.jacobi3d import ops as jac_ops
 from repro_torch.launch.mesh import (
@@ -84,6 +85,10 @@ def ghosted6(x: torch.Tensor, ghosts) -> torch.Tensor:
     g[1:-1, -1, 1:-1] = gyp
     g[1:-1, 1:-1, 0] = gzm
     g[1:-1, 1:-1, -1] = gzp
+    if spans.counting():
+        # the fresh block's zero fill, then the interior and the six faces
+        spans.count("ghost_bytes", g.element_size() * (
+            g.numel() + x.numel() + 2 * (by * bz + bx * bz + bx * by)))
     return g
 
 

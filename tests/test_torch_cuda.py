@@ -39,7 +39,9 @@ norms within rtol 1e-4, launch none of the kernels, and ``train`` on the
 card fires where the detection rule replayed on its loss series fires.
 Tensor parallelism over two gloo ranks sharing the card gives the
 one-device prefill logits of a reduced f32 qwen2 within 1e-5 of the
-largest, #6 launching once a layer in each rank.
+largest, #6 launching once a layer in each rank.  A stacked solve under
+the span recorder counts as many host syncs as torch's sync debug mode
+sees, and its ghost-assembly and kernel bytes exactly.
 """
 import numpy as np
 import pytest
@@ -1040,3 +1042,54 @@ def test_tp_prefill_world_on_card_matches_one_device(card, tmp_path):
         assert logits.shape == want.shape
         assert float(np.abs(logits - want).max()) <= 1e-5 * float(np.abs(want).max())
         assert flash == cfg.num_layers and staged > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,reduction", [("pfait", "nonblocking"), ("sync", "blocking"),
+                                            ("nfais2", "nonblocking")])
+def test_span_counters_on_card_match_sync_debug_mode_and_kernel_work(card, mode, reduction):
+    """A stacked solve on the card under a recorder (``core/spans.py``): its
+    ``host_syncs`` equal the synchronising calls torch's sync debug mode
+    sees in the same solve, its ``ghost_bytes`` the assemblies' bytes, and
+    the kernels' reported bytes their ``work`` at each launch; the result
+    is bitwise the solve with tracing off."""
+    import warnings
+
+    from repro_torch.core import spans
+    from repro_torch.kernels import _build
+
+    n, p, inner = 16, 4, 3
+    st = Stencil.for_contraction(n, 1.0, (1.0, 1.0, 1.0), 0.9)
+    mon = detection.for_mode(mode, eps_tilde=1e-6, margin=10.0, ord=2.0,
+                             staleness=0 if reduction == "blocking" else 2)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, inner_sweeps=inner,
+                                 max_outer=500, trace_len=500)
+    b = torch.as_tensor(make_rhs(n, seed=0), device=card)
+    x0 = torch.zeros_like(b)
+    run = tsr.make_convdiff_runtime(cfg, p, st, n, device=card)
+    off = run(x0, b)
+    sink = [0.0, 0.0]
+    _build.WORK_SINKS.append(sink)
+    torch.cuda.synchronize()
+    # set before the record: torch's one-time notice that the mode is a
+    # prototype names "synchronizing operations" without being one
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with spans.recording() as rec:
+                on = run(x0, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        _build.WORK_SINKS.remove(sink)
+    k, v = on.outer_iters, on.verifications
+    assert on.converged and k == off.outer_iters and torch.equal(on.x, off.x)
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    assert rec.counts["host_syncs"] == syncs == (2 if mode == "nfais2" else 1) * k + 2
+    bx, exact = n // p, reduction == "blocking"
+    assembly = 8 * ((bx + 2) * (n + 2) ** 2 + bx * n * n + 2 * n * n + 2 * bx * n)
+    # each sweep assembles, as do the blocking pass and NFAIS2's verification
+    assert rec.counts["ghost_bytes"] == p * assembly * (k * (inner + exact) + v)
+    sweep, residual = (tk.work((bx, n, n), 8, op)[1] for op in ("sweep", "residual"))
+    tail = residual if exact else trk.work(bx * n * n, 8)[1]
+    assert sink[1] == p * (k * (inner * sweep + tail) + v * residual)
