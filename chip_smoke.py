@@ -67,7 +67,7 @@ Phases, each of which must pass or the script exits non-zero:
    4's PFAIT hybrid run): every run must equal its stacked twin (same
    iterations, detection and verifications, x bitwise, the trace bitwise
    at l∞ and within p·2^-24 relative at l1), every rank must report the
-   same outcome, and #1-#5 must launch inside the worlds (the ranks' own
+   same outcome, and #2-#5 must launch inside the worlds (the ranks' own
    counters; a world that reports none fails the phase); ms per step and
    the host-staged bytes per step are printed beside the stacked twin's;
 10. require that every (stencil kernel, block shape, dtype) the main paths
@@ -234,14 +234,16 @@ Phases, each of which must pass or the script exits non-zero:
    1-D shard runtime's convdiff solve at n = 1024, f32, PFAIT at ε̃ 1e-4,
    margin 10, K = 4, the non-blocking reduction, 4 inner sweeps): (a) at
    the cell's blocks (one of 256 and one of 512 shards, held against the
-   plain versions in phase 2) the work #1 (sweep and residual) and #5
-   report at a launch equals what their ``meta`` paths report, and #1 and
-   #5 are timed at the 256-shard block; (b) the solve at its own size,
+   plain versions in phase 2) the work #1 and #3 (sweep and residual) and
+   #5 report at a launch equals what their ``meta`` paths report, and #1,
+   #3 (on the 1-D runtime's planes: two x faces, four zero planes) and #5
+   are timed at the 256-shard block; (b) the solve at its own size,
    stacked, p = 256 (b drawn on the card from a seeded generator), a few
    outer iterations under ``launch.hlo_analysis.trace_program``: the
    kernels' reported work over p must equal a dry rank's kernel work over
-   the same iterations exactly, every value finite and the exact residual
-   below b's; then ms per outer iteration from two more runs, and the
+   the same iterations exactly, #3 and #5 the only kernels launched, every
+   value finite and the exact residual below b's; then ms per outer
+   iteration from two more runs, and the
    launches a shard makes an iteration (host-bound); (c)
    ``lower_solver_cell`` on both meshes, each record printed; (d)
    ``examples/torch/quickstart.py`` on the card: the CPU's outer counts
@@ -351,13 +353,17 @@ SHAPES = {"main": (185, 185, 185), "shard": (25, 150, 150), "p5": (30, 150, 150)
           "ev50": (15, 30, 150), "ev150": (10, 15, 150), "ev8": (6, 12, 24),
           "ev1": (24, 24, 24), "cell256": (4, 1024, 1024), "cell512": (2, 1024, 1024)}
 # and the halo kernels': the blocks of the (3, 2) and (2, 2, 2) meshes at
-# n = 150, the 1-D shard block, the 185³ grid, the ragged block and the
-# (3, 2) mesh's two overlap face slabs.  The halo Jacobi sweep splits a
-# tile over a cluster at the mesh blocks, the shard block and the x slab,
-# and keeps one CTA per tile at 185³, the ragged block and the y slab
+# n = 150, the 185³ grid, the ragged block, the (3, 2) mesh's two overlap
+# face slabs, and the 1-D runtime's Jacobi blocks (its sweeps and residual
+# passes read their face planes where they lie): one of 6, 5, 2 and 1
+# shards at n = 150, one of 4 at n = 152 and the solver cell's one of
+# 256.  The halo Jacobi sweep splits a tile over a cluster at the mesh
+# blocks, the shard block and the x slab, and keeps one CTA per tile at
+# 185³, the ragged block and the y slab
 HALO_SHAPES = {"mesh32": (50, 75, 150), "mesh222": (75, 75, 75), "shard": (25, 150, 150),
                "main": (185, 185, 185), "ragged": (13, 37, 19), "slab": (1, 75, 150),
-               "slab_y": (50, 1, 150)}
+               "slab_y": (50, 1, 150), "p5": (30, 150, 150), "p2": (75, 150, 150),
+               "p1": (150, 150, 150), "p4": (38, 152, 152), "cell256": (4, 1024, 1024)}
 # stated tolerances, relative to the largest magnitude of the plain result:
 # f64 blocks differ by FMA contraction only; f32 sums differ by summation
 # order (at most ~150 sequential adds per thread, then a tree)
@@ -1003,6 +1009,8 @@ def time_kernels(st, dev) -> dict:
         del x, b, h
     for name in ("slab", "slab_y"):   # the (3, 2) mesh's overlap face slabs
         stencil("fused_sweep_residual_halo", HALO_SHAPES[name])
+    # the 1-D runtime's hybrid sweep at its p = 6 shard block
+    stencil("fused_rbgs_sweep_residual_halo", HALO_SHAPES["shard"])
     for name in ("main", "shard", "p2"):
         for k in ("fused_sweep_residual", "fused_rbgs_sweep_residual"):
             if (k, name) != ("fused_rbgs_sweep_residual", "p2"):   # hybrid runs at p = 6
@@ -1043,7 +1051,7 @@ def time_kernels(st, dev) -> dict:
     # the runtime sweeps its six shards in turn, so each finds its block
     # gone from the L2: six shards' worth of inputs (> 50 MB), taken in turn
     for k, shape in (("fused_sweep_residual_halo", HALO_SHAPES["mesh32"]),
-                     ("fused_rbgs_sweep_residual", SHAPES["shard"])):
+                     ("fused_rbgs_sweep_residual_halo", HALO_SHAPES["shard"])):
         cases = [_stencil_case(k, shape, st, rand) for _ in range(6)]
         nbytes = cases[0][3]
         ms, call_ms = _time_ms([c[0] for c in cases], calls=12)
@@ -1449,9 +1457,10 @@ DIST_MESH_RUNS = ("(a) mesh (3,2) blocking/jacobi", "(b) mesh (3,2) nonblocking/
                   "(e) mesh (3,2) nfais2/jacobi")
 DIST_SOLVER_RUN = "pfait/hybrid/fused"     # phase 4's, again on a (1, 1) NCCL group
 DIST_N4 = 152                              # 1-D p = 4 needs 4 | n
-DIST_KERNELS = ("fused_sweep_residual", "fused_rbgs_sweep_residual",
-                "fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo",
-                "diff_norm_partials")
+# #1 launches in no world: the 1-D runs' sweeps read their planes through
+# #3 and #4, and the sharded solver's runs are hybrid (#2)
+DIST_KERNELS = ("fused_rbgs_sweep_residual", "fused_sweep_residual_halo",
+                "fused_rbgs_sweep_residual_halo", "diff_norm_partials")
 
 
 class DistRun(NamedTuple):
@@ -4755,7 +4764,7 @@ def verify_layouts(out) -> dict:
 CELL_N, CELL_P = 1024, 256
 CELL_OUTER = 3
 CELL_TIMED = (2, 6)
-CELL_KERNELS = ("fused_sweep_residual", "diff_norm_partials")
+CELL_KERNELS = ("fused_sweep_residual_halo", "diff_norm_partials")
 # the CPU's table of examples/torch/quickstart.py (and of the JAX example)
 QUICKSTART_OUTER = {"sync": 59, "pfait": 72, "nfais2": 66, "nfais5": 70}
 
@@ -4775,9 +4784,10 @@ def _reported(fn):
 
 
 def check_cell_work(st, dev) -> dict:
-    """(a): at each cell block, #1 (both ops) and #5 report at a launch
-    the work their meta paths report; #1's sweep and #5 timed at the
-    256-shard block, f32, against their plain versions and bounds."""
+    """(a): at each cell block, #1 and #3 (both ops) and #5 report at a
+    launch the work their meta paths report; #1's sweep, #3's on the 1-D
+    runtime's planes and #5 timed at the 256-shard block, f32, against
+    their plain versions and bounds."""
     import torch
 
     from repro_torch.kernels.jacobi3d import jacobi3d as jk
@@ -4793,13 +4803,26 @@ def check_cell_work(st, dev) -> dict:
         g = torch.rand((bx + 2, by + 2, bz + 2), generator=gen, device=dev, dtype=f32)
         b = torch.rand(shape, generator=gen, device=dev, dtype=f32)
         gm, bm = (torch.empty_like(t, device="meta") for t in (g, b))
+        # the 1-D runtime's planes: the x faces of the neighbours, the y and
+        # z faces the boundary
+        x = torch.rand(shape, generator=gen, device=dev, dtype=f32)
+        zy = torch.zeros((bx, by), device=dev, dtype=f32)
+        halos = (g[0, 1:-1, 1:-1].contiguous(), g[-1, 1:-1, 1:-1].contiguous()) + (zy,) * 4
+        xm, hm = torch.empty_like(x, device="meta"), [torch.empty_like(h, device="meta")
+                                                     for h in halos]
         for op in ("sweep", "residual"):
             card, _ = _reported(lambda: jk.fused_sweep_residual(g, b, st.coefs, op=op))
             meta, _ = _reported(lambda: jk.fused_sweep_residual(gm, bm, st.coefs, op=op))
             _require(card == meta == jk.work(shape, 4, op),
                      f"fused_sweep_residual {name} op={op}: reported {card} on the card, "
                      f"{meta} on meta")
-        x = torch.rand(shape, generator=gen, device=dev, dtype=f32)
+            card, _ = _reported(lambda: jk.fused_sweep_residual_halo(x, halos, b, st.coefs,
+                                                                     op=op))
+            meta, _ = _reported(lambda: jk.fused_sweep_residual_halo(xm, hm, bm, st.coefs,
+                                                                     op=op))
+            _require(card == meta == jk.work_halo(shape, 4, op),
+                     f"fused_sweep_residual_halo {name} op={op}: reported {card} on the card, "
+                     f"{meta} on meta")
         card, _ = _reported(lambda: rk.diff_norm_partials(x, b, ord=2.0))
         meta, _ = _reported(lambda: rk.diff_norm_partials(
             torch.empty_like(x, device="meta"), bm, ord=2.0))
@@ -4816,6 +4839,11 @@ def check_cell_work(st, dev) -> dict:
                     ("fused_sweep_residual", lambda: jk.fused_sweep_residual(g, b, st.coefs),
                      lambda: jref.fused_sweep_residual_ref(g, b, st.coefs),
                      lambda: torch.nn.functional.conv3d(g[None, None], w), jk.work(shape, 4)),
+                    ("fused_sweep_residual_halo",
+                     lambda: jk.fused_sweep_residual_halo(x, halos, b, st.coefs),
+                     lambda: jref.fused_sweep_residual_halo_ref(x, halos, b, st.coefs),
+                     lambda: torch.nn.functional.conv3d(g[None, None], w),
+                     jk.work_halo(shape, 4)),
                     ("diff_norm_partials", lambda: rk.diff_norm_partials(x, b, ord=2.0),
                      lambda: rref.diff_norm_partials_ref(x, b, ord=2.0),
                      lambda: torch.dist(x, b, 2), rk.work(x.numel(), 4))):
@@ -4826,9 +4854,9 @@ def check_cell_work(st, dev) -> dict:
                       f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
                       f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by_}; {work[0] / 1e6:.1f} "
                       f"Mop, {work[1] / 1e6:.2f} MB; warm L2 between replays)")
-        del g, b, x
+        del g, b, x, halos
     torch.cuda.empty_cache()
-    print("cell (a): #1 (sweep, residual) and #5 report the same work at a launch as on "
+    print("cell (a): #1 and #3 (sweep, residual) and #5 report the same work at a launch as on "
           f"meta at {', '.join(_shape_str(SHAPES[k]) for k in ('cell256', 'cell512'))} f32; "
           "held against their plain versions there in phase 2")
     return times
@@ -4937,14 +4965,15 @@ def verify_cell(out, times) -> dict:
     _require(out["finite"], "cell (b): a non-finite value in the solve")
     _require(out["r_x"] < out["r_0"], "cell (b): the residual did not fall")
     outers = K + sum(CELL_TIMED)
-    want = {"fused_sweep_residual": 4 * p * outers, "diff_norm_partials": p * outers}
+    want = {"fused_sweep_residual_halo": 4 * p * outers, "diff_norm_partials": p * outers}
     got = {k: out["used"][k] for k in want}
     _require(got == want and not any(v for k, v in out["used"].items() if k not in want),
              f"cell (b): launches {out['used']}, want {want}")
     (_, ops1, _), (_, ops2, _) = _dry_cell(1), _dry_cell(2)
     a, b_ = CELL_TIMED
     ms = 1e3 * (out["walls"][b_] - out["walls"][a]) / (b_ - a)
-    kernel_ms = p * (4 * times["fused_sweep_residual"]["ms"] + times["diff_norm_partials"]["ms"])
+    kernel_ms = p * (4 * times["fused_sweep_residual_halo"]["ms"]
+                     + times["diff_norm_partials"]["ms"])
     print(f"cell (b): {ms:.3f} ms per outer iteration (runs of {a} and {b_}: "
           f"{out['walls'][a]:.3f} / {out['walls'][b_]:.3f} s), host-bound: a shard dispatches "
           f"{ops2 - ops1} aten ops (views left out) and 5 kernel launches an iteration, "
@@ -5000,18 +5029,19 @@ KERNELS = {
 PATHS = (
     ("solve_single", run_solver, ("fused_sweep_residual", "fused_rbgs_sweep_residual")),
     ("1-D shard runtime", run_shards,
-     ("fused_sweep_residual", "fused_rbgs_sweep_residual", "diff_norm_partials")),
+     ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo", "diff_norm_partials")),
     ("mesh shard runtime", run_mesh,
      ("fused_sweep_residual_halo", "fused_rbgs_sweep_residual_halo")),
     ("serve", run_serve, ("flash_attention_flat",)),
-    ("pagerank shard runtime", run_pagerank, ("diff_norm_partials", "fused_sweep_residual")),
+    ("pagerank shard runtime", run_pagerank,
+     ("diff_norm_partials", "fused_sweep_residual_halo")),
     # the stacked twins run in this process; the kernels are required of
     # the launches inside the worlds
     ("distributed shard runtime", run_distributed, DIST_KERNELS),
     ("detection service", run_service, SERVICE_KERNELS),
     # the training path's worlds report their own launches, like phase 9's
     ("training runtime", run_training, ("diff_norm_partials",)),
-    ("elastic driver", run_elastic_driver, ("fused_sweep_residual", "diff_norm_partials")),
+    ("elastic driver", run_elastic_driver, ("fused_sweep_residual_halo", "diff_norm_partials")),
 )
 
 

@@ -5,8 +5,9 @@ unghosted block and six face planes (``csrc/jacobi3d_halo.cu``).
 Every wrapper's ``ord`` picks what its residual partials reduce: max|r|
 (∞), Σr² (2) or Σ|r| (1); any other order raises.  A tensor on the CPU
 goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
-or raises; ``fused_sweep_residual`` on ``meta`` tensors (a dry rank)
-computes nothing and reports its ``work``, as it does at every launch.
+or raises; ``fused_sweep_residual`` and ``fused_sweep_residual_halo`` on
+``meta`` tensors (a dry rank) compute nothing and report their ``work`` /
+``work_halo``, as they do at every launch.
 ``LAUNCHES`` counts kernel launches (only launches — the CPU path does not
 count), so a run can show that its main path went through the kernels;
 ``LAUNCH_SHAPES`` counts the same launches by (kernel, block shape,
@@ -69,6 +70,21 @@ def work(shape: Sequence[int], itemsize: int, op: str = "sweep",
     sweep = op == "sweep"
     return ((18 if sweep else 16) * cells,
             itemsize * ((bx + 2) * (by + 2) * (bz + 2) + (2 if sweep else 1) * cells)
+            + 4 * nx * ny)
+
+
+def work_halo(shape: Sequence[int], itemsize: int, op: str = "sweep",
+              tile: Tuple[int, int] = DEFAULT_TILE):
+    """(operations, bytes) of one ``fused_sweep_residual_halo`` launch on a
+    block of ``shape``: the operations of ``work``, the block, its six face
+    planes and b read once, the new block written once (not by the
+    residual pass) and 4 bytes a partial."""
+    bx, by, bz = shape
+    cells = bx * by * bz
+    _, _, nx, ny = tile_grid(bx, by, tile)
+    sweep = op == "sweep"
+    return ((18 if sweep else 16) * cells,
+            itemsize * (2 * (by * bz + bx * bz + bx * by) + (3 if sweep else 2) * cells)
             + 4 * nx * ny)
 
 
@@ -161,7 +177,8 @@ def fused_sweep_residual(g: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(b) if op == "sweep" else None
     parts = _launch("fused_sweep_residual", (g,), b, out, tile, int(op == "sweep"),
                     ord, coefs)
-    _build.report_work(*work(b.shape, b.element_size(), op, tile))
+    if _build.WORK_SINKS:   # the work is counted only in a counting mode
+        _build.report_work(*work(b.shape, b.element_size(), op, tile))
     return (g[1:-1, 1:-1, 1:-1] if out is None else out), parts
 
 
@@ -193,10 +210,20 @@ def fused_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
 
     Planes are cast to the block's dtype.  ``op="residual"`` is the
     residual-only pass: the kernel writes no block and ``x`` is returned.
+    On ``meta`` (a dry rank) nothing is computed, as for
+    ``fused_sweep_residual``; the launch's ``work_halo`` goes to the
+    counting mode, as it does at every launch.
     """
     if op not in ("sweep", "residual"):
         raise ValueError(f"op {op!r} not in ('sweep', 'residual')")
     halos = _planes(halos, b)
+    if all(t.device.type == "meta" for t in (x, b, *halos)):
+        partial_mode(ord)
+        _validate(x, b, (0, 0, 0))
+        _build.report_work(*work_halo(b.shape, b.element_size(), op, tile))
+        _, _, nx, ny = tile_grid(*b.shape[:2], tile)
+        parts = torch.empty((nx, ny), dtype=torch.float32, device="meta")
+        return (torch.empty_like(b) if op == "sweep" else x), parts
     if not _build.on_cuda(x, b, *halos):
         return fused_sweep_residual_halo_ref(x, halos, b, coefs, tile=tile, op=op,
                                              ord=ord)
@@ -204,6 +231,8 @@ def fused_sweep_residual_halo(x: torch.Tensor, halos, b: torch.Tensor,
     out = torch.empty_like(b) if op == "sweep" else None
     parts = _launch("fused_sweep_residual_halo", (x, *halos), b, out, tile,
                     int(op == "sweep"), ord, coefs)
+    if _build.WORK_SINKS:
+        _build.report_work(*work_halo(b.shape, b.element_size(), op, tile))
     return (x if out is None else out), parts
 
 

@@ -9,8 +9,9 @@ swept block and the detection layer's local contribution (the residual of
 the *input* state).  The kernel wrappers pick the device: CPU tensors run
 the plain versions, CUDA tensors the kernels.
 
-The ``*_halo`` entries are the mesh runtime's: an unghosted block and six
-face planes go to the halo-consuming kernels as they are, with no ghost
+The ``*_halo`` entries are the shard runtimes' (every sweep and residual
+pass of the 1-D and the mesh runtime): an unghosted block and six face
+planes go to the halo-consuming kernels as they are, with no ghost
 assembly at all.
 
 ``PASS_COUNTS`` counts calls per entry kind so tests can check that the
@@ -158,8 +159,8 @@ def residual_contribution(st: Stencil, g: torch.Tensor, b: torch.Tensor,
 
 
 def _sweep_halo_impl(st: Stencil, x, halos, b, sweep, ox, oy, oz, tile, ord):
-    """Twin of ``_sweep_impl`` for the mesh runtime, where any of x/y/z may
-    be partitioned: ``halos = (gxm, gxp, gym, gyp, gzm, gzp)``."""
+    """Twin of ``_sweep_impl`` for the shard runtimes, where any of x/y/z
+    may be partitioned: ``halos = (gxm, gxp, gym, gyp, gzm, gzp)``."""
     if sweep == "jacobi":
         return fused_sweep_residual_halo(x, halos, b, st.coefs, tile=tile,
                                          op="sweep", ord=ord)

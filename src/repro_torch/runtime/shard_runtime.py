@@ -57,7 +57,10 @@ all-gather of the blocks, and its sweep a row-block matvec.
 
 Every sweep and contribution goes through the kernel ops (``jacobi3d``
 sweeps and residual passes, ``residual_norm.update_contribution``), so on
-the card the main path runs the CUDA kernels.
+the card the main path runs the CUDA kernels.  The convdiff sweeps and
+residual passes read the block and its face planes where they lie (the
+halo-consuming ops), on the 1-D path as on the mesh: no ghosted block is
+assembled.
 """
 from __future__ import annotations
 
@@ -412,7 +415,9 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
     are global (n, n, n) tensors or numpy arrays (over a group, or the
     rank's block; each rank places its block only).  With a 1-D ``p`` each
     of the ``p`` shards owns an x-pencil of ``n // p`` planes and exchanges
-    its two x-faces per outer step (y/z faces are the physical boundary).
+    its two x-faces per outer step (y/z faces are the physical boundary);
+    its sweeps and residual passes take the block and the six face planes
+    as they lie (``sweep_halo`` / ``residual_contribution_halo``).
     A mesh shape ``(px, py[, pz])`` — or ``cfg.overlap`` — routes to the
     block-decomposed mesh runtime, as the JAX package routes a multi-axis
     mesh; ``cfg.mesh_shape``, when set, must name the same mesh.
@@ -443,37 +448,35 @@ def make_convdiff_runtime(cfg: ShardRuntimeConfig,
         dtype = next(iter(bs.values())).dtype
         xs = _blocks(x0, transport, slices, (n, n, n), what, dtype)
         zx = torch.zeros((n, n), dtype=dtype, device=dev)
-        zy = torch.zeros((bx, n), dtype=dtype, device=dev)
+        zy = torch.zeros((bx, n), dtype=dtype, device=dev)  # a y or z face: [bx, n]
 
         def exchange(xs):
-            # two shift directions, the JAX program's two permutes
+            # two shift directions, the JAX program's two permutes; each
+            # shard's six face planes (gxm, gxp, gym, gyp, gzm, gzp), built
+            # once an exchange: the y and z faces are the boundary, 0
             got = transport.route({i: {**({(i - 1, 0): xs[i][0]} if i > 0 else {}),
                                        **({(i + 1, 0): xs[i][-1]} if i < p - 1 else {})}
                                    for i in xs}, permutes=2).wait()
-            return {i: (got[i].get((i - 1, 0), zx), got[i].get((i + 1, 0), zx))
+            return {i: (got[i].get((i - 1, 0), zx), got[i].get((i + 1, 0), zx), zy, zy, zy, zy)
                     for i in xs}
 
-        def ghosts4(ghosts):
-            return ghosts + (zy, zy)  # y ghosts = BC = 0
+        # every sweep and residual pass reads the block and its six planes
+        # where they lie (#3, #4), with no ghosted block
+        def sweep(i, x, halos):
+            return jac_ops.sweep_halo(st, x, halos, bs[i], sweep=cfg.sweep, ox=i * bx)
 
-        def sweep(i, x, ghosts):
-            return jac_ops.sweep(st, x, ghosts4(ghosts), bs[i],
-                                 sweep=cfg.sweep, ox=i * bx, oy=0)
-
-        def sweep_contrib(i, x, ghosts):
+        def sweep_contrib(i, x, halos):
             if cfg.sweep == "jacobi":
-                new = jac_ops.sweep(st, x, ghosts4(ghosts), bs[i])
+                new = jac_ops.sweep_halo(st, x, halos, bs[i])
                 # Jacobi residual is the update difference scaled by the
                 # diagonal: fused diff-norm via the residual_norm kernel ops
                 return new, rn_ops.update_contribution(new, x, ord=ord_,
                                                        scale=st.diag)
-            return jac_ops.sweep_with_contribution(
-                st, x, ghosts4(ghosts), bs[i], sweep="hybrid", ox=i * bx,
-                oy=0, ord=ord_)
+            return jac_ops.sweep_with_contribution_halo(st, x, halos, bs[i], sweep="hybrid",
+                                                        ox=i * bx, ord=ord_)
 
-        def exact_contrib(i, x, ghosts):
-            return jac_ops.residual_contribution(
-                st, ghosted(x, ghosts4(ghosts)), bs[i], ord=ord_)
+        def exact_contrib(i, x, halos):
+            return jac_ops.residual_contribution_halo(st, x, halos, bs[i], ord=ord_)
 
         # sweeps return new blocks: x0 is not written
         k, mon, trace = loop(

@@ -41,7 +41,8 @@ Tensor parallelism over two gloo ranks sharing the card gives the
 one-device prefill logits of a reduced f32 qwen2 within 1e-5 of the
 largest, #6 launching once a layer in each rank.  A stacked solve under
 the span recorder counts as many host syncs as torch's sync debug mode
-sees, and its ghost-assembly and kernel bytes exactly.
+sees, no ghost-assembly bytes, and its kernel bytes exactly; #3 at the
+1-D runtime's planes matches #1 on the block assembled from them.
 """
 import numpy as np
 import pytest
@@ -286,6 +287,68 @@ def test_halo_kernel_face_slab_is_bitwise_the_block_face(card):
                     x.narrow(d, idx, 1).contiguous(), sg, b.narrow(d, idx, 1).contiguous(),
                     st.coefs)
                 assert torch.equal(slab, full.narrow(d, idx, 1)), (shape, d, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 1024), (3, 37, 19)])
+def test_halo_kernel_at_the_1d_planes_matches_the_ghosted_kernel(card, shape):
+    """#3 on a block and the 1-D runtime's planes (two x faces, four zero
+    planes) against #1 on the block ``ghost_pad1`` assembles from the same
+    planes, at the solver cell's shard block and a ragged one, f64 and
+    f32, both ops, every partial mode.  Not bitwise: #1 is compiled with
+    FMA contraction and #3 with round-to-nearest intrinsics that are never
+    contracted, so an update differs in its last bits and an f32 partial
+    sums slightly different values in the same order.  Held at
+    ``test_halo_kernels_match_plain_on_card``'s bars: blocks 1e-12 (f64) /
+    1e-5 (f32) of the largest, partials 2e-5 relative."""
+    from repro_torch.kernels.jacobi3d import ops as jops
+
+    st = Stencil.for_contraction(1024, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(7)
+    bx, by, bz = shape
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        x, b = (torch.rand(shape, generator=gen, device=card, dtype=dtype) for _ in range(2))
+        gxm, gxp = (torch.rand((by, bz), generator=gen, device=card, dtype=dtype)
+                    for _ in range(2))
+        zy = torch.zeros((bx, by), device=card, dtype=dtype)   # by == bz or not: y and z
+        zz = torch.zeros((bx, bz), device=card, dtype=dtype)
+        halos = (gxm, gxp, zz, zz, zy, zy)
+        g = jops.ghost_pad1(x, (gxm, gxp, zz, zz))
+        for ord in ORDS:
+            for op in ("sweep", "residual"):
+                got = tk.fused_sweep_residual_halo(x, halos, b, st.coefs, op=op, ord=ord)
+                want = tk.fused_sweep_residual(g, b, st.coefs, op=op, ord=ord)
+                assert _rel_close(got[0], want[0], tol), (shape, dtype, ord, op)
+                torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 1024), (3, 37, 19)])
+def test_halo_kernel_reports_its_meta_work_on_card(card, shape):
+    """#3's work reported at a launch on the card equals what its ``meta``
+    path reports and ``work_halo``, both ops, f64 and f32."""
+    from repro_torch.kernels import _build
+
+    def reported(fn):
+        sink = [0.0, 0.0]
+        _build.WORK_SINKS.append(sink)
+        try:
+            fn()
+        finally:
+            _build.WORK_SINKS.remove(sink)
+        return tuple(sink)
+
+    st = Stencil.for_contraction(1024, 1.0, (1.0, 1.0, 1.0), 0.95)
+    gen = torch.Generator(device=card).manual_seed(8)
+    for dtype in (torch.float64, torch.float32):
+        x, b = (torch.rand(shape, generator=gen, device=card, dtype=dtype) for _ in range(2))
+        h = _halo_planes(shape, gen, card, dtype)
+        xm, bm = (torch.empty_like(t, device="meta") for t in (x, b))
+        hm = [torch.empty_like(t, device="meta") for t in h]
+        for op in ("sweep", "residual"):
+            on_card = reported(lambda: tk.fused_sweep_residual_halo(x, h, b, st.coefs, op=op))
+            on_meta = reported(lambda: tk.fused_sweep_residual_halo(xm, hm, bm, st.coefs, op=op))
+            assert on_card == on_meta == tk.work_halo(shape, x.element_size(), op)
 
 
 def _rel_close(got, want, tol):
@@ -1050,9 +1113,10 @@ def test_tp_prefill_world_on_card_matches_one_device(card, tmp_path):
 def test_span_counters_on_card_match_sync_debug_mode_and_kernel_work(card, mode, reduction):
     """A stacked solve on the card under a recorder (``core/spans.py``): its
     ``host_syncs`` equal the synchronising calls torch's sync debug mode
-    sees in the same solve, its ``ghost_bytes`` the assemblies' bytes, and
-    the kernels' reported bytes their ``work`` at each launch; the result
-    is bitwise the solve with tracing off."""
+    sees in the same solve, its ``ghost_bytes`` are 0 (the Jacobi sweeps
+    and residual passes read their face planes where they lie), and the
+    kernels' reported bytes are #3's ``work_halo`` and #5's ``work`` at each
+    launch; the result is bitwise the solve with tracing off."""
     import warnings
 
     from repro_torch.core import spans
@@ -1070,6 +1134,7 @@ def test_span_counters_on_card_match_sync_debug_mode_and_kernel_work(card, mode,
     off = run(x0, b)
     sink = [0.0, 0.0]
     _build.WORK_SINKS.append(sink)
+    tk.reset_launches()
     torch.cuda.synchronize()
     # set before the record: torch's one-time notice that the mode is a
     # prototype names "synchronizing operations" without being one
@@ -1087,9 +1152,10 @@ def test_span_counters_on_card_match_sync_debug_mode_and_kernel_work(card, mode,
     syncs = sum("synchronizing" in str(w.message) for w in caught)
     assert rec.counts["host_syncs"] == syncs == (2 if mode == "nfais2" else 1) * k + 2
     bx, exact = n // p, reduction == "blocking"
-    assembly = 8 * ((bx + 2) * (n + 2) ** 2 + bx * n * n + 2 * n * n + 2 * bx * n)
-    # each sweep assembles, as do the blocking pass and NFAIS2's verification
-    assert rec.counts["ghost_bytes"] == p * assembly * (k * (inner + exact) + v)
-    sweep, residual = (tk.work((bx, n, n), 8, op)[1] for op in ("sweep", "residual"))
+    # no sweep, residual pass or NFAIS2 verification assembles a block
+    assert rec.counts["ghost_bytes"] == 0
+    assert tk.LAUNCHES["fused_sweep_residual"] == 0
+    assert tk.LAUNCHES["fused_sweep_residual_halo"] == p * (k * (inner + exact) + v)
+    sweep, residual = (tk.work_halo((bx, n, n), 8, op)[1] for op in ("sweep", "residual"))
     tail = residual if exact else trk.work(bx * n * n, 8)[1]
     assert sink[1] == p * (k * (inner * sweep + tail) + v * residual)

@@ -501,6 +501,36 @@ def test_mesh_runtime_on_card_launches_halo_kernels(fake_card, shape, overlap, s
     assert trk.LAUNCHES == {"diff_norm_partials": 0}
 
 
+@pytest.mark.parametrize("reduction,sweep,per_step", [
+    # per outer step of 4 shards, 2 sweeps a shard: the last one fused with
+    # #5's contribution (non-blocking Jacobi) or with the kernel's own
+    # partials (non-blocking hybrid), or followed by #3's residual pass
+    # (blocking)
+    ("nonblocking", "jacobi", {"fused_sweep_residual_halo": 4 * 2, "diff_norm_partials": 4}),
+    ("blocking", "jacobi", {"fused_sweep_residual_halo": 4 * (2 + 1)}),
+    ("nonblocking", "hybrid", {"fused_rbgs_sweep_residual_halo": 4 * 2}),
+    ("blocking", "hybrid", {"fused_rbgs_sweep_residual_halo": 4 * 2,
+                            "fused_sweep_residual_halo": 4}),
+])
+def test_1d_runtime_on_card_launches_halo_kernels(fake_card, reduction, sweep, per_step):
+    """The 1-D runtime's sweeps, contributions and residual passes go
+    through the halo kernels on the card (#3 Jacobi, #4 hybrid, #3 every
+    residual pass), never #1 or #2.  The fake kernels write nothing, so
+    only the count per outer step is checked."""
+    from repro_torch.runtime import shard_runtime as tsr
+
+    _, st = _stencil()
+    mon = tdet.for_mode("sync" if reduction == "blocking" else "pfait", 1e-6, ord=INF)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, max_outer=3,
+                                 inner_sweeps=2, sweep=sweep)
+    out = tsr.make_convdiff_runtime(cfg, 4, st, 8, device="cpu")(
+        np.zeros((8, 8, 8)), np.ones((8, 8, 8)))
+    assert 1 <= out.outer_iters <= 3
+    want = dict.fromkeys([*tk.LAUNCHES, *trk.LAUNCHES], 0)
+    want.update({k: v * out.outer_iters for k, v in per_step.items()})
+    assert {**tk.LAUNCHES, **trk.LAUNCHES} == want
+
+
 @pytest.mark.parametrize("sweep,fuse,per_iter", [
     ("hybrid", True, {"fused_sweep_residual": 0, "fused_rbgs_sweep_residual": 2}),
     ("jacobi", True, {"fused_sweep_residual": 2, "fused_rbgs_sweep_residual": 0}),

@@ -153,6 +153,35 @@ def test_stacked_runtime_drives_the_kernel_ops():
         assert tops.PASS_COUNTS == {k: 3 * p * v for k, v in {**want, "residual": 0}.items()}
 
 
+@pytest.mark.parametrize("reduction,sweep,mode", [
+    ("nonblocking", "jacobi", "pfait"),
+    ("blocking", "jacobi", "sync"),
+    ("nonblocking", "jacobi", "nfais2"),
+    ("nonblocking", "hybrid", "pfait"),
+    ("blocking", "hybrid", "sync"),
+    ("nonblocking", "hybrid", "nfais2"),
+])
+def test_stacked_runtime_assembles_no_ghosted_block(monkeypatch, reduction, sweep, mode):
+    """The 1-D runtime's sweeps (Jacobi and hybrid), contributions,
+    residual passes and NFAIS2's verifications read the block and its face
+    planes where they lie: assembling a ghosted block (``ghost_pad1``,
+    ``ghost_pad2``, ``ghosted``) raises."""
+    n, p = 12, 4
+    _, st, b = _setup(n)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the 1-D runtime assembled a ghosted block")
+
+    monkeypatch.setattr(tops, "_assemble", refuse)
+    monkeypatch.setattr(tsr, "ghosted", refuse)
+    mon = tdet.for_mode(mode, eps_tilde=EPS_TILDE, margin=10.0,
+                        staleness=0 if reduction == "blocking" else 2, ord=INF)
+    cfg = tsr.ShardRuntimeConfig(monitor=mon, reduction=reduction, sweep=sweep,
+                                 inner_sweeps=2, max_outer=2000)
+    r = tsr.make_convdiff_runtime(cfg, p, st, n, device="cpu")(np.zeros((n, n, n)), b)
+    assert r.converged and r.verifications >= (mode == "nfais2")
+
+
 def test_butterfly_matches_flat_reduction():
     lanes = dict(enumerate(torch.tensor([3.0, 1.0, 4.0, 1.5])))
     transport = StackedTransport(4, torch.device("cpu"))

@@ -1,12 +1,13 @@
 """The paper's solver cell in the port's dry run (``launch/dryrun.py:
 lower_solver_cell``) against the JAX package's, and the pieces it runs on.
 
-* The ``meta`` paths of kernel #1 (``fused_sweep_residual``, both ops)
-  and #5 (``diff_norm_partials``): at the cell's blocks (4 × 1024 × 1024
-  and 2 × 1024 × 1024 f32, #1 on the ghosted block) and a small ragged
-  one, the outputs have the plain version's shapes and dtypes, the work
-  reported is ``work(...)``, and inputs that mix ``meta`` with the CPU
-  raise.
+* The ``meta`` paths of kernels #1 (``fused_sweep_residual``) and #3
+  (``fused_sweep_residual_halo``), both ops, and #5
+  (``diff_norm_partials``): at the cell's blocks (4 × 1024 × 1024 and
+  2 × 1024 × 1024 f32, #1 on the ghosted block, #3 on the block and its
+  six face planes) and a small ragged one, the outputs have the plain
+  version's shapes and dtypes, the work reported is ``work(...)`` /
+  ``work_halo(...)``, and inputs that mix ``meta`` with the CPU raise.
 * The dry transport (``launch.mesh.dry_shard_group``): at p = 4, n = 16,
   the solve with ``max_outer`` K counts 2K + 2 collective-permutes of one
   face and K all-reduces of 4 bytes, on rank 0 and on an interior rank,
@@ -18,9 +19,13 @@ lower_solver_cell``) against the JAX package's, and the pieces it runs on.
   rank's block and the monitor's scalars); FLOPs within ``FLOP_RATIO`` of
   JAX's ``xla_flops_per_device`` × 20000 (XLA counts 70 operations a cell an
   outer iteration, the kernels report 4 sweeps × 18 + #5's 3 = 75: 75/70 =
-  1.0714); HBM bytes within ``HBM_RATIO`` of JAX's (the port's ghost
-  assembly copies and XLA's fusions differ: 0.988 and 1.001 when this test
-  was written).
+  1.0714); HBM bytes exactly the port's own count: 20000 × (4 sweeps of #3
+  at ``work_halo`` + #5's ``work``) plus what the dry trace counts outside
+  the kernels, scaled as the record scales it.  The sweeps read their
+  faces where they lie, so the port moves fewer bytes than XLA's program
+  (0.39 of JAX's when this test was written, 0.988 and 1.001 while each
+  sweep assembled a ghosted block): JAX's figure is an upper bound, at
+  ``HBM_CAP``.
 """
 import json
 import os
@@ -44,7 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CELL_BLOCKS = ((4, 1024, 1024), (2, 1024, 1024))
 SMALL_BLOCK = (3, 9, 5)
 FLOP_RATIO = (1.05, 1.10)
-HBM_RATIO = (0.95, 1.05)
+HBM_CAP = 1.05
 OUTPUT_SLACK = 1024
 COEFS = Stencil.for_contraction(16, 1.0, (1.0, 1.0, 1.0), rho=0.95).coefs
 
@@ -93,6 +98,38 @@ def test_sweep_meta_path(shape, op):
     assert st.flops == work[0] and st.hbm_bytes >= work[1]
 
 
+def _planes(shape, device):
+    bx, by, bz = shape
+    return tuple(torch.zeros(s, dtype=torch.float32, device=device)
+                 for s in ((by, bz),) * 2 + ((bx, bz),) * 2 + ((bx, by),) * 2)
+
+
+@pytest.mark.parametrize("op", ["sweep", "residual"])
+@pytest.mark.parametrize("shape", [*CELL_BLOCKS, SMALL_BLOCK])
+def test_halo_sweep_meta_path(shape, op):
+    x = torch.zeros(shape, dtype=torch.float32, device="meta")
+    b = torch.zeros(shape, dtype=torch.float32, device="meta")
+    halos = _planes(shape, "meta")
+    work, got = _counted(lambda: jk.fused_sweep_residual_halo(x, halos, b, COEFS, op=op,
+                                                             ord=2.0))
+    assert all(t.device.type == "meta" for t in got)
+    want = jref.fused_sweep_residual_halo_ref(torch.zeros(shape), _planes(shape, "cpu"),
+                                              torch.zeros(shape), COEFS, op=op, ord=2.0)
+    _like(got, want)
+    assert work == jk.work_halo(shape, 4, op)
+    bx, by, bz = shape
+    cells, nx, ny = bx * by * bz, *jref.tile_grid(bx, by, jref.DEFAULT_TILE)[2:]
+    assert work == ((18 if op == "sweep" else 16) * cells,
+                    4 * (2 * (by * bz + bx * bz + bx * by) + (3 if op == "sweep" else 2) * cells)
+                    + 4 * nx * ny)
+    # the block, b and the new block as #1 moves them; the six planes in
+    # place of the ghosted block's two extra layers a side
+    assert work[0] == jk.work(shape, 4, op)[0] and work[1] < jk.work(shape, 4, op)[1]
+    st = hlo_analysis.count_program(
+        lambda x, b: jk.fused_sweep_residual_halo(x, halos, b, COEFS, op=op), x, b)
+    assert st.flops == work[0] and st.hbm_bytes >= work[1]
+
+
 @pytest.mark.parametrize("shape", [*CELL_BLOCKS, SMALL_BLOCK])
 def test_diff_norm_meta_path(shape):
     a = torch.zeros(shape, dtype=torch.float32, device="meta")
@@ -115,6 +152,14 @@ def test_meta_paths_refuse_mixed_devices():
     with pytest.raises(ValueError, match="ghosted block"):
         jk.fused_sweep_residual(torch.zeros((6, 11, 8), device="meta"),
                                 torch.zeros((4, 9, 5), device="meta"), COEFS)
+    x = torch.zeros((4, 9, 5), device="meta")
+    for halos, b_ in ((_planes((4, 9, 5), "meta"), b), (_planes((4, 9, 5), "cpu"), x),
+                      (_planes((4, 9, 5), "meta")[:5] + (torch.zeros((4, 9)),), x)):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            jk.fused_sweep_residual_halo(x, halos, b_, COEFS)
+    with pytest.raises(ValueError, match="face plane gzp"):
+        jk.fused_sweep_residual_halo(x, _planes((4, 9, 5), "meta")[:5]
+                                     + (torch.zeros((4, 8), device="meta"),), x, COEFS)
 
 
 @pytest.mark.parametrize("rank", [0, 2])
@@ -136,7 +181,7 @@ def test_dry_transport_counts(rank, outer):
     res = traced.out
     assert res.x.shape == (n // p, n, n) and res.x.device.type == "meta"
     assert res.outer_iters == outer and list(res.local_sweeps) == [4 * outer] * p
-    # 4 sweeps (#1) and one contribution (#5) an outer iteration
+    # 4 sweeps (#3) and one contribution (#5) an outer iteration
     cells = (n // p) * n * n
     assert st.flops == outer * (4 * 18 * cells + 3 * cells)
 
@@ -152,6 +197,22 @@ def jax_records():
                          text=True, timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-4000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _dry_bytes(multi: bool):
+    """The solver cell's dry rank at ``max_outer`` 1 and 2, as
+    ``lower_solver_cell`` traces it: the bytes the kernels report and the
+    bytes the trace counts outside them."""
+    p, n = (512 if multi else 256), 1024
+    out = []
+    for outer in (1, 2):
+        group = dry_shard_group(p)
+        run = dryrun.solver_cell(group, n, max_outer=outer)
+        x0 = torch.zeros((n // p, n, n), device="meta")
+        work, traced = _counted(lambda: hlo_analysis.trace_program(
+            run, x0, torch.zeros_like(x0), mesh=group))
+        out.append((work[1], traced.stats.hbm_bytes - work[1]))
+    return out
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -174,8 +235,19 @@ def test_solver_cell_matches_jax(jax_records, multi):
     flops = got["cost"]["flops_per_device"] / (
         want["cost"]["xla_flops_per_device"] * want["solver_max_outer"])
     assert FLOP_RATIO[0] <= flops <= FLOP_RATIO[1], flops
+    # the kernels an outer iteration: 4 sweeps of #3 and #5's contribution,
+    # no ghost assembly
+    shard = (1024 // got["shards"], 1024, 1024)
+    kernel = 4 * jk.work_halo(shard, 4)[1] + rk.work(shard[0] * 1024 * 1024, 4)[1]
+    (k1, o1), (k2, o2) = _dry_bytes(multi)
+    assert (k1, k2) == (kernel, 2 * kernel)
+    # outside the kernels an iteration moves the monitor's scalars: less
+    # than one f32 face plane, so nothing is copied or assembled
+    assert 0 <= o2 - o1 < 4 * 1024 * 1024
+    outer = want["solver_max_outer"]
+    assert got["cost"]["hbm_bytes_per_device"] == dryrun._scaled(o1, o2, outer) + outer * kernel
     hbm = got["cost"]["hbm_bytes_per_device"] / want["cost"]["hbm_bytes_per_device"]
-    assert HBM_RATIO[0] <= hbm <= HBM_RATIO[1], hbm
+    assert hbm <= HBM_CAP, hbm
     mem = got["memory"]
     assert mem["peak_estimate_bytes"] == mem["argument_bytes"] + mem["output_bytes"] \
         + mem["temp_bytes"] - mem["alias_bytes"]
