@@ -1,7 +1,9 @@
-"""Convection–diffusion on the stacked x-pencil shard runtime.
+"""Convection–diffusion on the x-pencil shard runtime: the shards stacked
+on one card, or one a rank of a world (a ``ShardGroup``).
 
 Set-up places nothing large: a solve's right-hand side is drawn on the
-device from the solve's seed (``rhs``), and its start is zero.  The
+device from the solve's seed (``rhs``), and its start is zero; every rank
+draws the same global ones, and the runtime places the rank's block.  The
 program's entry is ``repro_torch.runtime.shard_runtime.make_runtime``; the
 plain reference is ``reference/convdiff.py``."""
 from __future__ import annotations
@@ -14,6 +16,15 @@ from perfbench import traffic as tr
 from perfbench.reference import convdiff as ref
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def tiny(config: dict) -> dict:
+    """What makes ``config`` a twin that the CPU's plain paths run in a
+    second: n = 16 on 4 stacked shards, or a world's shards, one a rank,
+    over gloo."""
+    if "backend" in config:
+        return {"n": 16, "backend": "gloo"}
+    return {"n": 16, "shards": 4}
 
 
 def rhs(n: int, seed: int, dtype: torch.dtype, device, noise: float) -> torch.Tensor:
@@ -35,14 +46,16 @@ def rhs(n: int, seed: int, dtype: torch.dtype, device, noise: float) -> torch.Te
 
 
 class Problem:
-    """One configuration's solves under one mix, on ``device``."""
+    """One configuration's solves under one mix, on ``device``: over the
+    stacked transport, or over ``group``, this rank's ``ShardGroup``."""
 
-    def __init__(self, config: dict, mix: tr.Mix, seed: int, device):
+    def __init__(self, config: dict, mix: tr.Mix, seed: int, device, group=None):
         if config["norm"] != 2:
             raise ValueError("the convdiff reference runs the l2 norm")
         self.n, self.p = int(config["n"]), int(config["shards"])
         self.dtype = DTYPES[config["dtype"]]
         self.config, self.mix, self.seed, self.device = config, mix, seed, torch.device(device)
+        self.group = group
         self.eps_tilde = float(config["eps_tilde"])
         self.coefs = ref.coefficients(self.n, config["nu"], config["a"], config["rho"])
 
@@ -69,8 +82,8 @@ class Problem:
                            halo_delay=m.halo_delay, contrib_lag=m.contrib_lag,
                            max_outer=max_outer, trace_len=max_outer)
         st = Stencil.for_contraction(self.n, c["nu"], tuple(c["a"]), c["rho"])
-        return make_runtime("convdiff", rc.to_shard_config(), self.p, self.n, stencil=st,
-                            device=self.device)
+        return make_runtime("convdiff", rc.to_shard_config(), self.group or self.p, self.n,
+                            stencil=st, device=self.device)
 
     def reference(self, index: int, max_outer: int) -> ref.Solve:
         """The plain reference's solve ``index``."""

@@ -10,31 +10,46 @@ near the end is cut by the window.  Set-up builds the runtime of the
 window's first solve; a later solve with a new cap builds its own
 (``make_runtime``: closures over the configuration, nothing to compile)
 inside the window.  The window closes at the first return after
-``seconds``.  ``memory_peak_bytes`` is the program's: each solve's peak
-less the states of earlier solves that the harness holds for the check.
+``seconds`` on its clock.  ``memory_peak_bytes`` is the program's: each
+solve's peak less the states of earlier solves that the harness holds for
+the check.  A traced run's window also records the program's spans and
+counters (``spans.recording()``) for the per-layer readers:
+``span_totals`` (``Recorder.totals()``) and ``counts`` (``host_syncs``,
+``ghost_bytes``).
 
-After the window (``memory_peak_bytes`` read first, the program's state
-freed), the reference is run on the same inputs:
+The check compares with the plain reference on the same inputs:
 
 * every detection's exact residual must be under ε̃, the guarantee, to
   the rounding of the monitor's float32 values (the limit of
-  ``r_over_eps``);
-* a sample of the solves (drawn from the seed, the longest always in it)
-  is solved again by the plain reference: the outer iteration it stops
-  at and whether it converged, its state and the monitor's series."""
+  ``r_over_eps``).  It is read right after the detection's solve, once
+  that solve's peak is read, with the window's clock stopped, and the
+  state is then let go: a window of many solves need not hold every
+  state on the card until it closes;
+* after the window (``memory_peak_bytes`` read first, the program's state
+  freed), a sample of the solves (drawn from the seed, the longest always
+  in it) is solved again by the plain reference: the outer iteration it
+  stops at and whether it converged, its state and the monitor's series.
+
+A configuration that names a ``backend`` runs as a world of ranks, one a
+card (``world.py``): this process is rank 0, which alone times, traces
+and checks; the program's state it checks is the one ``_result`` gathered
+to it.  ``memory_peak_bytes`` is then the fullest rank's."""
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import random
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from perfbench import profile, spec
+from perfbench import profile, spec, world as wd
 from perfbench.traffic import Mix
 
 #: the profiled pair of sub-windows, the short one at least this many outer
@@ -42,9 +57,11 @@ from perfbench.traffic import Mix
 #: one's less the short one's, so a solve's start and its result, which a
 #: capped solve holds more of than the window's, drop out.
 PROFILE_OUTER, PROFILE_S = 4, 0.5
-#: the sub-window under sync debug mode: whole solves, as the window runs
-#: them, for at least this many seconds
+#: the sub-window under sync debug mode, with the kernels' work sink open:
+#: whole solves, as the window runs them, for at least this many seconds
 SYNC_S = 1.0
+#: the profiled readings of a world that are the means over its ranks
+RANK_MEANS = ("window_s", "busy_s", "kernel_count", "kernel_s")
 
 
 @dataclass
@@ -57,6 +74,8 @@ class Solve:
     wall: float
     x: Optional[torch.Tensor]
     trace: torch.Tensor
+    #: a detection's exact residual over ε̃, read right after its solve
+    r_over_eps: Optional[float] = None
 
 
 @dataclass
@@ -72,6 +91,11 @@ class Run:
     traced: Optional[Dict] = None
     #: seconds of each stage of set-up, in order
     setup_stages: Dict[str, float] = field(default_factory=dict)
+    #: the forbidden modules (``world.FORBIDDEN``) a follower rank loaded
+    forbidden: List[str] = field(default_factory=list)
+    #: the program's peak bytes on each rank, rank 0 first (``memory_peak``
+    #: is the largest)
+    memory_peaks: List[int] = field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -81,20 +105,59 @@ def _sync(device: torch.device) -> None:
 
 class Program:
     """The program's runtime for a cell, one build for each ``max_outer``
-    it is asked for (the mix's, the warm-up's, a cap)."""
+    it is asked for (the mix's, the warm-up's, a cap).  On a ``world``,
+    every follower rank builds, draws and calls as this rank does."""
 
-    def __init__(self, prob, inputs: Callable):
-        self.prob, self.inputs = prob, inputs
+    def __init__(self, prob, inputs: Callable, world: Optional[wd.World] = None):
+        self.prob, self.inputs, self.world = prob, inputs, world
         self._built: Dict[int, Callable] = {}
+
+    def _ask(self, cmd: str, arg=None) -> None:
+        if self.world is not None:
+            self.world.send(cmd, arg)
+
+    def _answers(self) -> None:
+        if self.world is not None:
+            self.world.answers()
+
+    @property
+    def follower_peaks(self) -> List[int]:
+        """Each follower's peak bytes in the last call, in rank order."""
+        return self.world.peaks if self.world is not None else []
+
+    def profiled(self, work: Callable[[], int]) -> Dict:
+        """``profile.profiled(work)``, every rank traced alike: the window,
+        the busy time, and the kernel count and time are the ranks' means
+        (the ``breakdown`` is this rank's)."""
+        self._ask("trace")
+        self._answers()
+        out = profile.profiled(work)
+        if self.world is not None:
+            self.world.send("untrace")
+            ranks = [out] + self.world.answers()
+            out.update({k: sum(r[k] for r in ranks) / len(ranks) for k in RANK_MEANS})
+        return out
+
+    def draw(self, index: int) -> tuple:
+        """Solve ``index``'s inputs, on every rank's card once this returns."""
+        self._ask("inputs", index)
+        x = self.inputs(index)
+        self._answers()
+        return x
 
     def build(self, max_outer: int) -> Callable:
         if max_outer not in self._built:
-            self._built[max_outer] = self.prob.runtime(max_outer)
+            self._ask("build", max_outer)
+            run = self.prob.runtime(max_outer)
+            self._answers()
+            if self.world is not None:
+                run = functools.partial(self.world.call, run, max_outer)
+            self._built[max_outer] = run
         return self._built[max_outer]
 
     def run(self, index: int, max_outer: int, device: torch.device) -> Solve:
         """Solve ``index``: its inputs drawn, then the timed call."""
-        x0, arg = self.inputs(index)
+        x0, arg = self.draw(index)
         _sync(device)
         t0 = time.perf_counter()
         res = self.build(max_outer)(x0, arg)
@@ -107,6 +170,8 @@ class Program:
 
     def free(self) -> None:
         self._built.clear()
+        self._ask("free")
+        self._answers()
 
 
 def _cap(mix: Mix, seconds: float, rate: float) -> int:
@@ -115,30 +180,42 @@ def _cap(mix: Mix, seconds: float, rate: float) -> int:
 
 
 def _window(program: Program, mix: Mix, seconds: float, rate: float, first: int,
-            device: torch.device, keep_all: bool):
+            device: torch.device, keep_all: bool, certify: Callable[[Solve], float]):
     """The closed loop: solves ``first``, ``first + 1``, … until the first
-    return after ``seconds``; (solves, wall, the program's peak bytes).  A
-    solve's state is kept for the check where it has a detection to
-    certify, where ``keep_all``, or where it is the longest so far (the one
-    sample that is always drawn)."""
+    return after ``seconds`` on the window's clock; (solves, the clock's
+    seconds, the program's peak bytes on each rank).  Each detection's
+    ``r_over_eps`` is ``certify(solve)``, read with the clock stopped.  A
+    solve's state is then kept for the check only where ``keep_all``, or
+    where it is the longest so far (the one sample that is always drawn)."""
     cuda = device.type == "cuda"
     solves: List[Solve] = []
-    peak = 0
+    longest: Optional[Solve] = None
+    peaks: List[int] = []   # this rank's, then each follower's
+    stopped = 0.0           # seconds the clock stood while detections were certified
     t0 = time.perf_counter()
-    end = t0 + seconds
     now = t0
-    while now < end:
+    while now - stopped < t0 + seconds:
         if cuda:
             held = sum(t.x.numel() * t.x.element_size() for t in solves if t.x is not None)
             torch.cuda.reset_peak_memory_stats(device)
-        s = program.run(first + len(solves), _cap(mix, end - now, rate), device)
-        if cuda:
-            peak = max(peak, torch.cuda.max_memory_allocated(device) - held)
-        if not (keep_all or s.converged or s.outer > max((t.outer for t in solves), default=-1)):
+        s = program.run(first + len(solves), _cap(mix, t0 + seconds - now + stopped, rate),
+                        device)
+        got = [torch.cuda.max_memory_allocated(device) - held if cuda else 0,
+               *program.follower_peaks]
+        peaks = [max(a, b) for a, b in zip(got, peaks or got)]
+        if s.converged:
+            mark = time.perf_counter()
+            s.r_over_eps = certify(s)
+            stopped += time.perf_counter() - mark
+        if longest is None or s.outer > longest.outer:
+            if longest is not None and not keep_all:
+                longest.x = None
+            longest = s
+        elif not keep_all:
             s.x = None
         solves.append(s)
         now = time.perf_counter()
-    return solves, now - t0, peak
+    return solves, now - t0 - stopped, peaks
 
 
 def _sample(solves: List[Solve], count: int, seed: int) -> List[Solve]:
@@ -152,12 +229,9 @@ def _sample(solves: List[Solve], count: int, seed: int) -> List[Solve]:
 
 def _check(prob, solves: List[Solve], limits: Dict, seed: int, count: int) -> tuple:
     """Compare with the plain reference; (checks, failed)."""
-    r_max, false_det = 0.0, 0
-    for s in solves:
-        if s.converged:
-            r = prob.exact_residual(s.index, s.x) / prob.eps_tilde
-            r_max = max(r_max, r)
-            false_det += not r < limits["r_over_eps"]
+    r = [s.r_over_eps for s in solves if s.converged]
+    r_max = max(r, default=0.0)
+    false_det = sum(not v < limits["r_over_eps"] for v in r)
     unconverged = sum(not s.converged and not s.cut for s in solves)
     sample = _sample(solves, count, seed)
     for s in solves:   # only the sample's states are needed from here
@@ -194,8 +268,12 @@ def _traced(program: Program, mix: Mix, rate: float, index: int):
     profiled sub-window runs solves capped at ``cap`` outer iterations
     until it has run ``cap`` and ``PROFILE_S`` seconds; the long one
     doubles all three.  Its readings are the long one's less the short
-    one's, with the long one's ``breakdown``."""
-    x0, arg = program.inputs(index)
+    one's, with the long one's ``breakdown``.  In the sync sub-window,
+    which no profiler reads, the kernels also report their work to a sink
+    (rank 0's): ``kernel_flops`` and ``kernel_bytes``."""
+    from repro_torch.kernels import _build
+
+    x0, arg = program.draw(index)
 
     def work(cap: int, least: int, min_s: float) -> Callable[[], int]:
         run = program.build(cap)
@@ -208,27 +286,62 @@ def _traced(program: Program, mix: Mix, rate: float, index: int):
         return go
 
     cap = _cap(mix, max(PROFILE_OUTER * rate, PROFILE_S), rate)
-    short = profile.profiled(work(cap, cap, PROFILE_S))
-    long = profile.profiled(work(min(mix.max_outer, 2 * cap), 2 * cap, 2 * PROFILE_S))
+    short = program.profiled(work(cap, cap, PROFILE_S))
+    long = program.profiled(work(min(mix.max_outer, 2 * cap), 2 * cap, 2 * PROFILE_S))
     steady = {k: long[k] - short[k]
               for k in ("outers", "window_s", "busy_s", "kernel_count", "kernel_s")}
     steady["breakdown"] = long["breakdown"]
-    steady["syncs"], steady["sync_outers"] = profile.count_syncs(
-        work(mix.max_outer, 1, SYNC_S))
+    sink = [0.0, 0.0]
+    _build.WORK_SINKS.append(sink)
+    try:
+        steady["syncs"], steady["sync_outers"] = profile.count_syncs(
+            work(mix.max_outer, 1, SYNC_S))
+    finally:
+        _build.WORK_SINKS.remove(sink)
+    steady.update(kernel_flops=sink[0], kernel_bytes=sink[1])
     return steady
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float, root=spec.ROOT, control: Optional[torch.dtype] = None) -> Run:
-    """One run of ``cell``.  ``control``: run the program on its inputs
-    cast to this lower precision, the comparison unchanged."""
+             t_start: float, root=spec.ROOT, control: Optional[torch.dtype] = None,
+             plant: Optional[Callable] = None) -> Run:
+    """One run of ``cell`` on ``device``, or on a world of ``cell.chips``
+    ranks where its configuration names a ``backend`` (``device`` then
+    gives the type: rank r runs on ``cuda:r``, or on the CPU).
+    ``control``: run the program on its inputs cast to this lower
+    precision, the comparison unchanged.  ``plant``: a picklable function
+    that every rank calls with ``patch(obj, name, value)`` before set-up
+    (``world.planted``), to plant a fault underneath the program; this
+    process undoes its patches at the end."""
     device = torch.device(device)
+    k = wd.ranks(cell)
+    world = None
+    with wd.planted(plant):
+        try:
+            stages = {"process and imports": time.perf_counter() - t_start}
+            job = wd.Job(cell, Path(root), seed, control, plant, device.type,
+                         torch.get_num_threads())
+            if k:
+                mark = time.perf_counter()
+                world = wd.World(job)
+                device = job.device(0)
+                stages["the world's ranks"] = time.perf_counter() - mark
+            prob, inputs = job.problem(device, world.group if world else None)
+            run = _run(cell, prob, Program(prob, inputs, world), seed, seconds, trace,
+                       device, t_start, stages)
+            if world is not None:
+                run.forbidden = world.close()
+            return run
+        finally:
+            if world is not None:
+                world.kill()
+
+
+def _run(cell: spec.Cell, prob, program: Program, seed: int, seconds: float, trace: bool,
+         device: torch.device, t_start: float, stages: Dict[str, float]) -> Run:
+    """Set-up, the window, the traced sub-windows, and the check."""
     mix = Mix.read(cell.traffic)
-    prob = spec.family(cell, root).Problem(cell.config, mix, seed, device)
-    inputs = prob.inputs if control is None else \
-        (lambda i: tuple(t.to(control) for t in prob.inputs(i)))
-    program = Program(prob, inputs)
-    stages, mark = {"process and imports": time.perf_counter() - t_start}, time.perf_counter()
+    mark = time.perf_counter()
 
     def stage(name: str) -> None:
         nonlocal mark
@@ -247,16 +360,26 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     stage("the window's first runtime")
     setup_s = time.perf_counter() - t_start
     count = int(cell.config.get("reference_sample", 1))
-    solves, window_s, peak = _window(program, mix, seconds, rate, 0, device,
-                                     keep_all=count > 1)
-    traced = _traced(program, mix, rate, len(solves)) if trace else None
+    # a traced run's window also records the program's spans and counters
+    # (rank 0's), with nothing else watching: a flag check and a clock read
+    # a phase
+    from repro_torch.core import spans
+    with spans.recording() if trace else contextlib.nullcontext() as rec:
+        solves, window_s, peaks = _window(
+            program, mix, seconds, rate, 0, device, keep_all=count > 1,
+            certify=lambda s: prob.exact_residual(s.index, s.x) / prob.eps_tilde)
+    traced = None
+    if trace:
+        traced = _traced(program, mix, rate, len(solves))
+        traced.update(span_totals=rec.totals(), counts=dict(rec.counts))
     program.free()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     checks, failed = _check(prob, solves, cell.config["limits"], seed, count)
     for s in solves:
         s.x = None
-    return Run(setup_s, window_s, solves, peak, checks, failed, traced, stages)
+    return Run(setup_s, window_s, solves, max(peaks), checks, failed, traced, stages,
+               memory_peaks=peaks)
 
 
 def end_to_end(run: Run) -> Dict[str, float]:

@@ -8,12 +8,13 @@ to every device interval the trace holds; an idle gap is labelled with
 the innermost host operator running at its middle."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
 import warnings
 from collections import defaultdict
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -93,16 +94,23 @@ def read_trace(events: List[dict]) -> Dict:
                 breakdown={"device_ops": top(by_name), "idle_gaps": top(gaps)})
 
 
-def profiled(work: Callable[[], int]) -> Dict:
-    """Run ``work`` (which returns the outer iterations it ran) under the
-    profiler; its readings."""
+@contextlib.contextmanager
+def tracing() -> Iterator[Dict]:
+    """Profile the code inside, in a ``WINDOW`` annotation that ends once
+    the card has synchronised; the dict it yields receives the readings of
+    ``read_trace`` on the way out.  On a card the profiler records its
+    kernels, copies and fills too."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    out: Dict = {}
+    with profile(activities=[ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda) as prof:
         with record_function(WINDOW):
-            outers = work()
-            torch.cuda.synchronize()
+            yield out
+            if cuda:
+                torch.cuda.synchronize()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -111,21 +119,30 @@ def profiled(work: Callable[[], int]) -> Dict:
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
-    out = read_trace(events)
+    out.update(read_trace(events))
+
+
+def profiled(work: Callable[[], int]) -> Dict:
+    """Run ``work`` (which returns the outer iterations it ran) under the
+    profiler; its readings."""
+    with tracing() as out:
+        outers = work()
     out["outers"] = outers
     return out
 
 
 def count_syncs(work: Callable[[], int]) -> Tuple[int, int]:
     """(synchronising calls, outer iterations) of ``work`` under
-    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    ``torch.cuda.set_sync_debug_mode("warn")``.  The mode is switched on
+    before the warnings are recorded: switching it gives torch's one-time
+    notice that the mode is a prototype, which is no sync."""
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             outers = work()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     n = sum("synchronizing" in str(w.message) for w in caught)
     return n, outers

@@ -9,7 +9,8 @@ cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 number compared with the plain reference beside its limit, which also end
 standard error.  Exits non-zero with no result where there is no CUDA
 device, fewer than the cell asks for, or once the window has closed any
-of JAX, jaxlib, flax or the JAX package ``repro`` is loaded."""
+of JAX, jaxlib, flax or the JAX package ``repro`` is loaded, on this
+rank or on any other of the cell's world (``world.py``)."""
 from __future__ import annotations
 
 import time
@@ -20,6 +21,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -29,12 +31,7 @@ os.environ["TORCH_EXTENSIONS_DIR"] = str(ROOT / "build" / "torch_extensions")
 os.environ["TRITON_CACHE_DIR"] = str(ROOT / "build" / "triton")
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-#: modules that must not be loaded in a run, by whole top-level name
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-
-
-def forbidden_loaded() -> list:
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+from perfbench.world import FORBIDDEN, forbidden_loaded  # noqa: E402,F401
 
 
 def main(argv=None) -> int:
@@ -59,7 +56,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(1)   # one process, one host thread: the steadiest load
     run = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda:0", T_START)
-    loaded = forbidden_loaded()
+    loaded = sorted(set(forbidden_loaded()) | set(run.forbidden))
     if loaded:
         print(f"forbidden modules loaded in the run: {loaded}", file=sys.stderr)
         return 3
@@ -67,6 +64,10 @@ def main(argv=None) -> int:
     result = harness.result(cell, run, bool(args.trace), torch.cuda.get_device_name(0))
     for k, v in run.setup_stages.items():
         print(f"setup {k}: {v!r} s", file=sys.stderr)
+    for r, peak in enumerate(run.memory_peaks):
+        print(f"memory peak rank {r}: {peak} bytes", file=sys.stderr)
+    print(f"window: {len(run.solves)} solves, {sum(s.outer for s in run.solves)} outer "
+          f"iterations in {run.window_s!r} s", file=sys.stderr)
     for k, c in run.checks.items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result))
@@ -74,4 +75,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception:
+        # a world's teardown can hold the interpreter's exit for minutes
+        # after a failure: the traceback, then out at once
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.exit(code)

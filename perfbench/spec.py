@@ -6,7 +6,12 @@ a new entry, and no file here changes:
 
 * a configuration is ``configs/<config>.json`` (the entry's ``file``),
   whose ``family`` names the module in ``families/`` that sets up its
-  problem and its plain reference in ``reference/``;
+  problem and its plain reference in ``reference/``: its
+  ``Problem(config, mix, seed, device, group=None)`` and its
+  ``tiny(config)``, the changes that make the tests' CPU twin.  A
+  configuration that names a ``backend`` (``nccl``, ``gloo``) runs as a
+  world of one rank a chip, its ``shards`` the cell's ``chips``
+  (``world.py``); one without runs its shards stacked on one card;
 * a traffic mix is ``traffic/<traffic>.json``, read by ``traffic.py``;
 * a per-layer metric is ``metrics/<metric>.py``, whose ``read(ctx)``
   returns the value or None where it finds nothing to read.

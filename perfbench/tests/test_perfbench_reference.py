@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from perfbench import spec
-from perfbench.tests._tiny import TINY
+from perfbench.tests._tiny import tiny
 from perfbench.traffic import Mix
 
 #: a mix with every knob uneven across shards, beside the cells' own
@@ -30,7 +30,7 @@ def test_reference_follows_the_program(config, traffic, index):
     cell = spec.Cell(name="t", chips=1, config=read(f"configs/{config}.json"),
                      traffic=traffic if isinstance(traffic, dict)
                      else read(f"traffic/{traffic}.json"))
-    cell.config.update(TINY[cell.config["family"]])
+    cell.config.update(tiny(cell.config))
     mix = Mix.read(cell.traffic)
     prob = spec.family(cell).Problem(cell.config, mix, 2 ** 33 + 1, "cpu")
     got = prob.runtime(1000)(*prob.inputs(index))

@@ -4,12 +4,12 @@ the profiler-trace reduction."""
 from __future__ import annotations
 
 import ast
-import hashlib
 import json
 import math
 import re
 import sys
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from perfbench import harness, profile, spec
+from perfbench import world as wd
 from perfbench.metrics import _roofline
-from perfbench.tests._tiny import cells, tiny_root
+from perfbench.tests._tiny import cells, digest, tiny_root
 from perfbench.traffic import Mix, solve_seed
 
 BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
@@ -44,7 +45,8 @@ def test_names_units_and_lengths_keep_to_the_contract():
         assert NAME.match(it["name"]), it["name"]
     for w in BENCH["workloads"]:
         assert NAME.match(w["traffic"]) and NAME.match(w["config"])
-        assert len(w["why"]) <= 200 and w["chips"] == 1
+        assert len(w["why"]) <= 200 and w["chips"] in (1, 4)
+        assert wd.ranks(spec.load(w["name"])) in (0, w["chips"])
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in BENCH["end_to_end"]:
@@ -58,14 +60,9 @@ def test_names_units_and_lengths_keep_to_the_contract():
     assert all(f"**{layer}**" in perf for layer in layers)
 
 
-def _digest(root: Path) -> dict:
-    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted((root / "perfbench").rglob("*")) if p.is_file()}
-
-
 def test_a_new_config_mix_and_metric_need_only_new_files(tmp_path):
     root = tiny_root(tmp_path)
-    before = _digest(root)
+    before = digest(root)
     cfg = json.loads((root / "perfbench/configs/tiny-convdiff-n1024-p256.json").read_text())
     cfg["n"] = 8
     (root / "perfbench/configs/convdiff-n8-p2.json").write_text(json.dumps(dict(cfg, shards=2)))
@@ -84,7 +81,7 @@ def test_a_new_config_mix_and_metric_need_only_new_files(tmp_path):
                                "source": "program_counter", "layer": "shard loop",
                                "moves": "outer_ms", "workloads": ["convdiff-n8-p2.k2"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    files = {k: v for k, v in _digest(root).items() if k in before}
+    files = {k: v for k, v in digest(root).items() if k in before}
     assert files == before
     cell = spec.load("convdiff-n8-p2.k2", root)
     run = harness.run_cell(cell, 5, 0.2, False, "cpu", time.perf_counter(), root=root)
@@ -103,6 +100,11 @@ def test_result_line_format(tmp_path, trace):
     if trace:
         run.traced = {"outers": 20, "window_s": 0.5, "busy_s": 0.2, "kernel_count": 400,
                       "kernel_s": 0.15, "syncs": 21, "sync_outers": 20,
+                      "span_totals": {"shard.outer": {"count": 20, "seconds": 2.1,
+                                                      "self_seconds": 0.1},
+                                      "shard.sync": {"count": 20, "seconds": 0.2,
+                                                     "self_seconds": 0.2}},
+                      "counts": {"host_syncs": 22}, "kernel_flops": 1e9, "kernel_bytes": 1e9,
                       "breakdown": {"device_ops": [["k", 0.1]], "idle_gaps": [["aten::mv", 0.2]]}}
     res = json.loads(json.dumps(harness.result(cell, run, bool(trace), "NVIDIA H100 80GB HBM3",
                                                root)))
@@ -228,7 +230,14 @@ def test_traced_readings_are_the_long_sub_window_less_the_short(tmp_path, monkey
     monkeypatch.setattr(harness, "PROFILE_S", 0.0)
     monkeypatch.setattr(harness, "SYNC_S", 0.0)
     monkeypatch.setattr(profile, "profiled", lambda work: _linear(work()))
-    monkeypatch.setattr(profile, "count_syncs", lambda work: (lambda o: (o + 2, o))(work()))
+    from repro_torch.core import spans as program_spans
+    from repro_torch.kernels import _build
+
+    def count_syncs(work):
+        # the sync sub-window has the work sink and no span recorder
+        assert len(_build.WORK_SINKS) == 1 and not program_spans.counting()
+        return (lambda o: (o + 2, o))(work())
+    monkeypatch.setattr(profile, "count_syncs", count_syncs)
     got = harness._traced(program, mix, 1.0, 0)
     assert got["outers"] == harness.PROFILE_OUTER
     assert got["kernel_count"] == 7 * harness.PROFILE_OUTER
@@ -240,6 +249,95 @@ def test_traced_readings_are_the_long_sub_window_less_the_short(tmp_path, monkey
     assert got["syncs"] == whole.outer + 2
     assert sorted(program._built) == [harness.PROFILE_OUTER, 2 * harness.PROFILE_OUTER,
                                       mix.max_outer]
+    assert got["kernel_flops"] >= 0 and got["kernel_bytes"] >= 0
+    assert _build.WORK_SINKS == []
+
+
+@pytest.mark.parametrize("workload", cells())
+def test_a_traced_runs_window_records_the_programs_spans(tmp_path, monkeypatch, workload):
+    root = tiny_root(tmp_path)
+    cell = spec.load(f"tiny-{workload}", root)
+    monkeypatch.setattr(harness, "PROFILE_S", 0.0)
+    monkeypatch.setattr(harness, "SYNC_S", 0.0)
+    monkeypatch.setattr(profile, "profiled", lambda work: _linear(work()))
+    from repro_torch.core import spans as program_spans
+
+    def count_syncs(work):
+        assert not program_spans.counting()   # the recorder is the window's alone
+        return (lambda o: (o + 2, o))(work())
+    monkeypatch.setattr(profile, "count_syncs", count_syncs)
+    run = harness.run_cell(cell, 2 ** 31 + 17, 1.5, True, "cpu", time.perf_counter(), root=root)
+    assert harness.passes(run.checks), run.checks
+    spans, outers = run.traced["span_totals"], sum(s.outer for s in run.solves)
+    # the window's solves, each detection's certification outside every span
+    assert spans["shard.solve"]["count"] == len(run.solves) > 1
+    assert any(s.converged for s in run.solves)
+    assert spans["shard.outer"]["count"] == outers
+    assert run.traced["counts"]["host_syncs"] == spans["shard.sync"]["count"] + 2 * len(run.solves)
+    per = harness.per_layer(cell, run, "cpu", root)
+    assert per["sync_wait_ms_per_outer"] > 0
+    assert per["dispatch_ms_per_outer"] + per["sync_wait_ms_per_outer"] == pytest.approx(
+        1e3 * spans["shard.outer"]["seconds"] / outers)
+    # the outer iterations hold all but the solves' starts, results and draws
+    assert 1e3 * spans["shard.outer"]["seconds"] / outers <= 1e3 * run.window_s / outers
+
+
+def test_syncs_are_counted_without_the_modes_notice(monkeypatch):
+    # torch warns once, on switching the mode on, that the mode is a prototype
+    # "that does not yet detect all synchronizing operations": no sync
+    noticed = []
+
+    def set_mode(mode):
+        if not noticed:
+            noticed.append(mode)
+            warnings.warn("Synchronization debug mode is a prototype feature and does not "
+                          "yet detect all synchronizing operations")
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", set_mode)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def work():
+        for _ in range(5):   # five host reads of a device value, over two outer iterations
+            warnings.warn("called a synchronizing CUDA operation")
+        return 2
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert profile.count_syncs(work) == (5, 2)
+    assert noticed == ["warn"]
+
+
+class _Stub:
+    """A program whose solve ``i`` returns at once, converged where ``i`` is
+    even, with ``i % 5 + 1`` outer iterations and a one-element state."""
+
+    follower_peaks: list = []
+
+    def run(self, index, max_outer, device):
+        return harness.Solve(index, max_outer, index % 5 + 1, index % 2 == 0, False, 0.0,
+                             torch.zeros(1), torch.zeros(1))
+
+
+def test_the_window_certifies_each_detection_with_its_clock_stopped():
+    mix = Mix.read(json.loads((spec.ROOT / "perfbench/traffic/pfait-k4-inner4.json").read_text()))
+    seen = []
+
+    def certify(s):
+        # the state is there to be read; the clock stands meanwhile
+        assert s.x is not None and s.converged
+        seen.append(s.index)
+        time.sleep(0.01)
+        return s.index / 100
+
+    t0 = time.perf_counter()
+    solves, window_s, _ = harness._window(_Stub(), mix, 0.05, 1e-3, 0, torch.device("cpu"),
+                                          keep_all=False, certify=certify)
+    detections = [s for s in solves if s.converged]
+    assert len(detections) > 3 and seen == [s.index for s in detections]
+    assert all(s.r_over_eps == s.index / 100 for s in detections)
+    assert all(s.r_over_eps is None for s in solves if not s.converged)
+    assert 0.05 <= window_s < time.perf_counter() - t0 - 0.01 * len(detections) + 1e-3
+    # only the longest solve's state is held for the check
+    longest = max(solves, key=lambda s: s.outer)
+    assert all((s.x is not None) == (s is longest) for s in solves)
 
 
 @pytest.mark.parametrize("left,rate,cap", [(51.0, 0.2, 255), (0.01, 0.2, 1), (51.0, 1e-4, 20000),
@@ -255,7 +353,8 @@ def test_set_up_stages_are_timed_in_order(tmp_path, workload):
     cell = spec.load(f"tiny-{workload}", root)
     t0 = time.perf_counter()
     run = harness.run_cell(cell, 2 ** 31 + 3, 0.2, False, "cpu", t0, root=root)
-    assert list(run.setup_stages) == ["process and imports", "CUDA context",
+    world = ["the world's ranks"] if wd.ranks(cell) else []
+    assert list(run.setup_stages) == ["process and imports", *world, "CUDA context",
                                       "first warm-up solve", "second warm-up solve",
                                       "the window's first runtime"]
     assert all(v >= 0 for v in run.setup_stages.values())
