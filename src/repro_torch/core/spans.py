@@ -55,6 +55,12 @@ COUNTERS: Dict[str, str] = {
                   "(``host_read``): one a check, NFAIS2's flag, the result's",
     "ghost_bytes": "shard loop: bytes written into a ghosted block by its "
                    "assembly (a fresh block's zero fill, the interior, the faces)",
+    "wire_bytes": "transport: payload bytes a live group's rank hands to its "
+                  "backend: each reduction's lane (``reduce``, ``exact``) and each "
+                  "message ``route`` sends; not the result's ``all_gather``",
+    "collectives": "transport: backend operations a live group's rank launches: "
+                   "one an ``all_reduce``, one each ``isend`` and ``irecv`` of a "
+                   "``route``'s batch",
 }
 
 

@@ -44,6 +44,13 @@ counts the bytes staged.  Under NCCL (and for CPU tensors) tensors go as
 they are.  The group also sums the host seconds spent staging (the stream
 synchronisation included, so on a card that ranks share it holds the wait
 for the other ranks' kernels) and blocked in transfers.
+
+While a span recorder is open (``core/spans.py``) a live group counts
+what its loop puts on the wire: ``wire_bytes``, the payload bytes this
+rank hands to the backend (each reduction's lane, each message a route
+sends; the result's ``all_gather`` is not counted), and ``collectives``,
+each backend operation it launches (an ``all_reduce``, each ``isend`` and
+each ``irecv`` of a batch).  A dry group counts in its ``calls`` instead.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import residual as res
+from repro_torch.core import spans
 
 Msgs = Dict[int, Dict[Tuple[int, Hashable], torch.Tensor]]
 
@@ -170,13 +178,22 @@ class GroupTransport:
         (v,) = vals.values()
         return v
 
+    @staticmethod
+    def _count(nbytes: int, ops: int) -> None:
+        """``nbytes`` of payload and ``ops`` backend operations on the wire
+        (``spans.COUNTERS``; nothing without a recorder)."""
+        spans.count("wire_bytes", nbytes)
+        spans.count("collectives", ops)
+
     def reduce(self, lanes: Dict[int, torch.Tensor], ord: float) -> Pending:
         (wire,) = self._out([self._own(lanes).reshape(1)])
+        self._count(wire.nbytes, 1)
         work = dist.all_reduce(wire, op=self._op(ord), async_op=True)
         return Pending(lambda: self._wait([work]) or self._in(wire).reshape(()))
 
     def exact(self, contribs: Dict[int, torch.Tensor], ord: float) -> torch.Tensor:
         (wire,) = self._out([self._own(contribs).reshape(1)])
+        self._count(wire.nbytes, 1)
         self._wait([dist.all_reduce(wire, op=self._op(ord), async_op=True)])
         return res.sigma(self._in(wire), ord)
 
@@ -184,6 +201,7 @@ class GroupTransport:
         msgs = self._own(sends)
         keys = list(msgs)
         wires = self._out([msgs[k] for k in keys])
+        self._count(sum(w.nbytes for w in wires), 2 * len(wires))
         bufs = [torch.empty_like(w) for w in wires]
         ops = []
         for (peer, _), w, b in zip(keys, wires, bufs):
