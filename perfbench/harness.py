@@ -52,10 +52,9 @@ import torch
 from perfbench import profile, spec, world as wd
 from perfbench.traffic import Mix
 
-#: the profiled pair of sub-windows, the short one at least this many outer
-#: iterations and seconds, the long one twice that.  A reading is the long
-#: one's less the short one's, so a solve's start and its result, which a
-#: capped solve holds more of than the window's, drop out.
+#: the profiled sub-window runs solves capped at twice this many outer
+#: iterations, or twice the iterations of this many seconds where that is
+#: more, until it has run that cap and twice these seconds
 PROFILE_OUTER, PROFILE_S = 4, 0.5
 #: the sub-window under sync debug mode, with the kernels' work sink open:
 #: whole solves, as the window runs them, for at least this many seconds
@@ -126,16 +125,23 @@ class Program:
         return self.world.peaks if self.world is not None else []
 
     def profiled(self, work: Callable[[], int]) -> Dict:
-        """``profile.profiled(work)``, every rank traced alike: the window,
-        the busy time, and the kernel count and time are the ranks' means
-        (the ``breakdown`` is this rank's)."""
+        """``profile.profiled(work)``, every rank traced alike, each over
+        its own outer spans.  In a world each rank's readings are kept
+        (``ranks``, rank 0 first), every rank's outer spans must number
+        rank 0's, and the window, the busy time, and the kernel count and
+        time are the ranks' means (the ``breakdown`` is this rank's)."""
         self._ask("trace")
         self._answers()
         out = profile.profiled(work)
         if self.world is not None:
             self.world.send("untrace")
             ranks = [out] + self.world.answers()
-            out.update({k: sum(r[k] for r in ranks) / len(ranks) for k in RANK_MEANS})
+            for r, got in enumerate(ranks):
+                if got["outers"] not in (None, out["outers"]):
+                    raise RuntimeError(f"rank {r}'s trace holds {got['outers']} outer spans "
+                                       f"where rank 0 ran {out['outers']} outer iterations")
+            out["ranks"] = [{k: got[k] for k in ("outers", *RANK_MEANS)} for got in ranks]
+            out.update({k: sum(got[k] for got in ranks) / len(ranks) for k in RANK_MEANS})
         return out
 
     def draw(self, index: int) -> tuple:
@@ -263,12 +269,14 @@ def passes(checks: Dict) -> bool:
 
 
 def _traced(program: Program, mix: Mix, rate: float, index: int):
-    """The profiled pair of sub-windows, then whole solves under sync debug
-    mode, all on solve ``index``'s inputs (drawn before either).  The short
-    profiled sub-window runs solves capped at ``cap`` outer iterations
-    until it has run ``cap`` and ``PROFILE_S`` seconds; the long one
-    doubles all three.  Its readings are the long one's less the short
-    one's, with the long one's ``breakdown``.  In the sync sub-window,
+    """A profiled session whose readings are dropped, which takes the
+    profiler's first start-up, then the profiled sub-window, then whole
+    solves under sync debug mode, all on solve ``index``'s inputs (drawn
+    before any).  The sub-window's cap is twice ``PROFILE_OUTER``
+    iterations or twice those of ``PROFILE_S`` seconds at ``rate``,
+    whichever is more; it runs solves capped there until it has run that
+    many and ``2 * PROFILE_S`` seconds.  Its readings are those of the
+    outer iterations in it (``profile.read_trace``).  In the sync sub-window,
     which no profiler reads, the kernels also report their work to a sink
     (rank 0's): ``kernel_flops`` and ``kernel_bytes``."""
     from repro_torch.kernels import _build
@@ -285,12 +293,9 @@ def _traced(program: Program, mix: Mix, rate: float, index: int):
             return outers
         return go
 
-    cap = _cap(mix, max(PROFILE_OUTER * rate, PROFILE_S), rate)
-    short = program.profiled(work(cap, cap, PROFILE_S))
-    long = program.profiled(work(min(mix.max_outer, 2 * cap), 2 * cap, 2 * PROFILE_S))
-    steady = {k: long[k] - short[k]
-              for k in ("outers", "window_s", "busy_s", "kernel_count", "kernel_s")}
-    steady["breakdown"] = long["breakdown"]
+    program.profiled(work(1, 1, 0.0))
+    cap = 2 * _cap(mix, max(PROFILE_OUTER * rate, PROFILE_S), rate)
+    steady = program.profiled(work(min(mix.max_outer, cap), cap, 2 * PROFILE_S))
     sink = [0.0, 0.0]
     _build.WORK_SINKS.append(sink)
     try:

@@ -68,6 +68,10 @@ def main(argv=None) -> int:
         print(f"memory peak rank {r}: {peak} bytes", file=sys.stderr)
     print(f"window: {len(run.solves)} solves, {sum(s.outer for s in run.solves)} outer "
           f"iterations in {run.window_s!r} s", file=sys.stderr)
+    if args.trace:
+        for r, got in enumerate(run.traced.get("ranks", [run.traced])):
+            print(f"traced rank {r}: {got['outers']} outer iterations, device busy "
+                  f"{got['busy_s']!r} s of {got['window_s']!r} s", file=sys.stderr)
     for k, c in run.checks.items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import ast
 import json
 import math
+import random
 import re
 import sys
 import time
@@ -203,13 +204,118 @@ def test_trace_reduction_unions_device_time_and_labels_gaps():
           {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 40, "dur": 20},
           {"ph": "X", "cat": "kernel", "name": "k1", "ts": 90, "dur": 10}]
     got = profile.read_trace(ev)
-    assert got["window_s"] == pytest.approx(100e-6)
+    assert got["outers"] is None and got["window_s"] == pytest.approx(100e-6)
     assert got["busy_s"] == pytest.approx(45e-6)
     assert got["kernel_count"] == 3 and got["kernel_s"] == pytest.approx(30e-6)
     gaps = dict(got["breakdown"]["idle_gaps"])
     assert gaps["aten::cat"] == pytest.approx(25e-6)
     assert gaps["host, outside any operator"] == pytest.approx(30e-6)
     assert dict(got["breakdown"]["device_ops"])["k1"] == pytest.approx(20e-6)
+
+
+def _ann(name, ts, dur, tid=1):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts, "dur": dur, "tid": tid}
+
+
+def _kernel(ts, dur, corr=None, name="k"):
+    return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": dur,
+            "args": {} if corr is None else {"correlation": corr}}
+
+
+def _launch(ts, corr):
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts, "dur": 3,
+            "tid": 1, "args": {"correlation": corr}}
+
+
+def _idle_pct(reading):
+    reader = spec.load_module(spec.ROOT / "perfbench" / "metrics" / "idle_pct.py")
+    return reader.read(SimpleNamespace(**reading))
+
+
+def test_a_host_stall_before_the_outer_spans_is_no_idle_time():
+    # 0.5 s of host stall (the profiler's start, say), then 8 outer
+    # iterations of 0.25 s with the device busy all through them
+    ev = [_ann(profile.WINDOW, 0, 2.5e6)]
+    for k in range(8):
+        t = 0.5e6 + k * 0.25e6
+        ev += [_ann(profile.OUTER, t, 0.25e6), _launch(t, k), _kernel(t + 5, 0.25e6 - 5, k)]
+    got = profile.read_trace(ev)
+    assert got["outers"] == 8 and got["kernel_count"] == 8
+    assert got["window_s"] == pytest.approx(2.0)
+    assert 0 <= _idle_pct(got) < 1
+
+
+def test_the_gaps_between_solves_are_no_idle_time():
+    # two solves of two outer iterations each; between them the result, the
+    # next solve's start and its draw, with the device idle
+    ev = [_ann(profile.WINDOW, 0, 1300)]
+    for t in (0, 100, 1000, 1100):
+        ev += [_ann(profile.OUTER, t, 100), _kernel(t, 100, name="sweep")]
+    ev += [_kernel(400, 50, name="gather")]
+    got = profile.read_trace(ev)
+    assert got["window_s"] == pytest.approx(400e-6) and got["busy_s"] == pytest.approx(400e-6)
+    assert _idle_pct(got) == 0 and got["breakdown"]["idle_gaps"] == []
+    assert got["kernel_count"] == 4 and dict(got["breakdown"]["device_ops"]) == {
+        "sweep": pytest.approx(400e-6)}
+
+
+def test_a_trace_without_outer_spans_reads_over_its_window_annotations():
+    # a follower's calls, each in a window of its own: the reading runs from
+    # the first call's start to the last one's end
+    ev = [_ann(profile.WINDOW, 0, 100), _ann(profile.WINDOW, 300, 100),
+          _ann("shard.solve", 0, 100), _kernel(10, 40), _kernel(310, 40)]
+    got = profile.read_trace(ev)
+    assert got["outers"] is None
+    assert got["window_s"] == pytest.approx(400e-6) and got["busy_s"] == pytest.approx(80e-6)
+    assert got["kernel_count"] == 2
+    # outer spans on another thread than the window's are not this work's
+    got = profile.read_trace(ev + [_ann(profile.OUTER, 0, 100, tid=2)])
+    assert got["outers"] is None and got["window_s"] == pytest.approx(400e-6)
+
+
+def test_kernels_are_tied_to_their_launches_by_correlation_id():
+    ev = [_ann(profile.WINDOW, 0, 400), _ann(profile.OUTER, 100, 100),
+          # launched inside, run after the span: counted, but not busy in it
+          _launch(150, 7), _kernel(210, 50, 7),
+          # launched before the span, run inside it: busy, but not counted
+          _launch(50, 8), _kernel(120, 20, 8),
+          # no launch in the trace: counted by its start
+          _kernel(160, 10, 9),
+          # launched and run before the span: neither
+          _launch(10, 10), _kernel(20, 30, 10)]
+    got = profile.read_trace(ev)
+    assert got["outers"] == 1 and got["window_s"] == pytest.approx(100e-6)
+    assert got["kernel_count"] == 2 and got["kernel_s"] == pytest.approx(60e-6)
+    assert got["busy_s"] == pytest.approx(30e-6)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_busy_time_never_passes_the_window(seed):
+    rng = random.Random(seed)
+    for _ in range(100):
+        ev, corr, t = [], 0, rng.uniform(0, 1e6)
+        start = t
+        for _ in range(rng.randint(1, 4)):               # solves
+            t += rng.choice([0, rng.expovariate(1e-4)])  # a stall before the solve
+            for _ in range(rng.randint(1, 6)):           # its outer iterations
+                dur = rng.uniform(10, 5e4)
+                ev.append(_ann(profile.OUTER, t, dur))
+                share, lag = rng.random(), rng.uniform(-50, 500)
+                for _ in range(rng.randint(0, 20)):
+                    corr += 1
+                    launch = t + rng.uniform(0, dur)
+                    ev += [_launch(launch, corr),
+                           _kernel(launch + lag, rng.uniform(0, 2 * share * dur / 5), corr)]
+                t += dur + rng.choice([0, rng.uniform(0, 10)])
+            t += rng.uniform(0, 1e4)
+        ev.append(_ann(profile.WINDOW, start, t - start))
+        if rng.random() < 0.2:   # the fallback, without outer spans
+            ev = [e for e in ev if e["name"] != profile.OUTER]
+        got = profile.read_trace(ev)
+        assert 0 <= got["busy_s"] <= got["window_s"] and got["window_s"] > 0
+        assert 0 <= _idle_pct(got) <= 100
+        idle = sum(v for _, v in got["breakdown"]["idle_gaps"])
+        assert idle == pytest.approx(got["window_s"] - got["busy_s"], abs=1e-9)
 
 
 def _linear(outers: int) -> dict:
@@ -222,35 +328,125 @@ def _linear(outers: int) -> dict:
 
 @pytest.mark.parametrize("workload", cells())
 def test_traced_readings_are_the_long_sub_window_less_the_short(tmp_path, monkeypatch, workload):
+    """The traced run's readings, under the real profiler on the CPU: a
+    session of one outer iteration whose readings are dropped, then one
+    sub-window read over the program's own outer spans, whose count is the
+    outer iterations its solves ran, on every rank of a world; a follower's
+    window is its own, not rank 0's profiler start and trace export."""
     root = tiny_root(tmp_path)
     cell = spec.load(f"tiny-{workload}", root)
     mix = Mix.read(cell.traffic)
-    prob = spec.family(cell, root).Problem(cell.config, mix, 11, "cpu")
-    program = harness.Program(prob, prob.inputs)
     monkeypatch.setattr(harness, "PROFILE_S", 0.0)
     monkeypatch.setattr(harness, "SYNC_S", 0.0)
-    monkeypatch.setattr(profile, "profiled", lambda work: _linear(work()))
     from repro_torch.core import spans as program_spans
     from repro_torch.kernels import _build
+
+    sessions, traces = [], []
+    profiled, read_trace = profile.profiled, profile.read_trace
+
+    def counted(work):
+        ran = []
+        out = profiled(lambda: ran.append(work()) or ran[-1])
+        sessions.append((ran[0], out))
+        return out
+
+    def read(events):
+        traces.append(read_trace(events))
+        return traces[-1]
+    monkeypatch.setattr(profile, "profiled", counted)
+    monkeypatch.setattr(profile, "read_trace", read)
 
     def count_syncs(work):
         # the sync sub-window has the work sink and no span recorder
         assert len(_build.WORK_SINKS) == 1 and not program_spans.counting()
         return (lambda o: (o + 2, o))(work())
     monkeypatch.setattr(profile, "count_syncs", count_syncs)
-    got = harness._traced(program, mix, 1.0, 0)
-    assert got["outers"] == harness.PROFILE_OUTER
-    assert got["kernel_count"] == 7 * harness.PROFILE_OUTER
-    assert got["window_s"] == pytest.approx(0.2 * harness.PROFILE_OUTER)
-    assert got["breakdown"] == _linear(2 * harness.PROFILE_OUTER)["breakdown"]
-    # syncs over one whole solve, as the window runs it
-    whole = program.run(0, mix.max_outer, torch.device("cpu"))
+    job = wd.Job(cell, root, 11, None, None, "cpu", 1)
+    world = wd.World(job) if wd.ranks(cell) else None
+    try:
+        prob, inputs = job.problem(torch.device("cpu"), world.group if world else None)
+        program = harness.Program(prob, inputs, world)
+        got = harness._traced(program, mix, 1.0, 0)
+        # syncs over one whole solve, as the window runs it
+        whole = program.run(0, mix.max_outer, torch.device("cpu"))
+        if world is not None:
+            world.close()
+    finally:
+        if world is not None:
+            world.kill()
+    steady = 2 * harness.PROFILE_OUTER
+    assert [ran for ran, _ in sessions] == [1, steady]
+    assert got is sessions[1][1]
+    # rank 0's outers are its trace's spans, as many as its solves ran
+    assert [t["outers"] for t in traces] == [1, steady] and got["outers"] == steady
+    assert 0 < got["window_s"] and got["busy_s"] == 0 and got["kernel_count"] == 0
     assert whole.converged and got["sync_outers"] == whole.outer
     assert got["syncs"] == whole.outer + 2
-    assert sorted(program._built) == [harness.PROFILE_OUTER, 2 * harness.PROFILE_OUTER,
-                                      mix.max_outer]
+    assert sorted(program._built) == [1, steady, mix.max_outer]
     assert got["kernel_flops"] >= 0 and got["kernel_bytes"] >= 0
     assert _build.WORK_SINKS == []
+    if world is None:
+        assert "ranks" not in got and got["window_s"] == traces[1]["window_s"]
+        return
+    ranks = got["ranks"]
+    assert len(ranks) == cell.chips and ranks[0]["window_s"] == traces[1]["window_s"]
+    for r, reading in enumerate(ranks):
+        # each follower read its own outer spans (None where it found none)
+        assert reading["outers"] == steady, (r, reading)
+        assert 0.5 < reading["window_s"] / ranks[0]["window_s"] < 2.0, ranks
+    assert got["window_s"] == pytest.approx(sum(r["window_s"] for r in ranks) / len(ranks))
+
+
+def test_outer_spans_that_miss_the_loops_iterations_fail_the_run():
+    from repro_torch.core import spans as program_spans
+
+    def work(ran: int, said: int):
+        def go():
+            for _ in range(ran):
+                with program_spans.span("shard.outer"):
+                    torch.ones(4).sum()
+            return said
+        return go
+    assert profile.profiled(work(3, 3))["outers"] == 3
+    with pytest.raises(RuntimeError, match="3 'shard.outer' spans where the work ran 4"):
+        profile.profiled(work(3, 4))
+
+
+class _World:
+    """Followers that answer ``untrace`` with the given readings."""
+
+    def __init__(self, readings):
+        self.readings, self.peaks = readings, []
+
+    def send(self, cmd, arg=None):
+        self.cmd = cmd
+
+    def answers(self):
+        return self.readings if self.cmd == "untrace" else [None] * len(self.readings)
+
+
+@pytest.mark.parametrize("follower_outers,ok", [(3, True), (None, True), (2, False)])
+def test_a_worlds_readings_are_the_means_of_each_ranks_own(follower_outers, ok):
+    from repro_torch.core import spans as program_spans
+
+    def work():
+        for _ in range(3):
+            with program_spans.span("shard.outer"):
+                torch.ones(4).sum()
+        return 3
+    follower = {"outers": follower_outers, "window_s": 0.5, "busy_s": 0.25,
+                "kernel_count": 30, "kernel_s": 0.2}
+    program = harness.Program(None, None, _World([follower]))
+    if not ok:
+        with pytest.raises(RuntimeError, match="rank 1's trace holds 2 outer spans"):
+            program.profiled(work)
+        return
+    got = program.profiled(work)
+    mine = got["ranks"][0]
+    assert got["ranks"][1] == follower and mine["outers"] == 3
+    assert got["window_s"] == pytest.approx((mine["window_s"] + 0.5) / 2)
+    assert got["busy_s"] == pytest.approx(0.25 / 2)
+    assert got["kernel_count"] == 15
 
 
 @pytest.mark.parametrize("workload", cells())

@@ -16,8 +16,11 @@ own call has returned:
 * ``call max_outer`` — call that runtime; the answer is the card's peak
   bytes since ``inputs``;
 * ``trace`` / ``untrace`` — open the profiler (``profile.tracing``) /
-  close it; the answer is its readings of this rank's card (no
-  ``breakdown``);
+  close it; the answer is its readings of this rank's card over this
+  rank's own outer spans (no ``breakdown``).  While it is open, each call
+  runs in a ``profile.window`` of its own, so that what rank 0 does
+  around the calls, such as starting its profiler and reading its trace,
+  lies outside this rank's windows;
 * ``free`` — drop every runtime and the inputs;
 * ``stop`` — the answer is the forbidden modules loaded; then exit.
 
@@ -162,7 +165,7 @@ def _follow(rank: int, path: str, conn, job: Job, parent: int) -> None:
             dev = job.device(rank)
             prob, inputs = job.problem(dev, job.join(rank, path))
             cuda = dev.type == "cuda"
-            built, x = {}, None
+            built, x, tracer = {}, None, None
             conn.send(("ok", None))
             while True:
                 cmd, arg = conn.recv()
@@ -177,14 +180,16 @@ def _follow(rank: int, path: str, conn, job: Job, parent: int) -> None:
                     x = inputs(arg)
                     _sync(dev)
                 elif cmd == "call":
-                    built[arg](*x)
-                    _sync(dev)
+                    with profile.window() if tracer else contextlib.nullcontext():
+                        built[arg](*x)
+                        _sync(dev)
                     out = torch.cuda.max_memory_allocated(dev) if cuda else 0
                 elif cmd == "trace":
                     tracer = profile.tracing()
                     reading = tracer.__enter__()
                 elif cmd == "untrace":
                     tracer.__exit__(None, None, None)
+                    tracer = None
                     out = {k: v for k, v in reading.items() if k != "breakdown"}
                 elif cmd == "free":
                     built, x = {}, None
